@@ -1,0 +1,48 @@
+"""approximatenn_tpu_torch -- the PyTorch and CUDA port of approximatenn_tpu.
+
+Same algorithm and public names as the JAX package: randomized
+orthogonal-projection sign hashing with multiprobe lookup, multi-table
+merge and kNN-graph "supercharge", plus an exact engine whose top-k runs in
+a hand-written CUDA kernel on an NVIDIA Hopper card.  Imports torch only,
+never jax.
+
+    index, graph, dists = build(points, k, tries=..., generator=...)  # precomp
+    ids, dists = search(index, points, queries)                       # query
+    ids, dists = exact_search(points, queries, k)                     # exact
+"""
+
+from .config import ftype, itype, set_ftype
+from .engine.build import build, build_graph_only
+from .engine.search import search
+from .engine.serving import Server
+from .index import ANNIndex
+from .ops.distance import brute_force_knn, brute_force_knn_self
+from .ops.exact import exact_search, quantize_corpus
+
+__version__ = "0.1.0"
+
+
+def precomp(points, k: int, *, tries: int = 10, rots_before: int = 6,
+            rot_len_before: int = 1, rots_after: int = 1,
+            rot_len_after: int = 1, generator=None, seed: int = 0,
+            save: bool = True, **kw):
+    """Reference-shaped build: returns ``(graph, dists, index)``; ``index``
+    is None when ``save`` is False."""
+    index, graph, dists = build(
+        points, k, tries=tries, rots_before=rots_before,
+        rot_len_before=rot_len_before, rots_after=rots_after,
+        rot_len_after=rot_len_after, generator=generator, seed=seed, **kw,
+    )
+    return graph, dists, (index if save else None)
+
+
+def query(index: ANNIndex, points, y, **kw):
+    """Reference-shaped batch query: returns (ids, dists)."""
+    return search(index, points, y, **kw)
+
+
+__all__ = [
+    "ANNIndex", "Server", "build", "build_graph_only", "search", "precomp",
+    "query", "brute_force_knn", "brute_force_knn_self", "exact_search",
+    "quantize_corpus", "ftype", "itype", "set_ftype",
+]

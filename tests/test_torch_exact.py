@@ -1,0 +1,182 @@
+"""The exact-kNN kernel's plain PyTorch version against the JAX Pallas
+kernel (run in interpret mode, as tests/test_pallas.py runs it) and the
+oracles, on the CPU; the CUDA kernel itself against the plain version on a
+card (``cuda`` marker; skipped without one).
+
+Ids must be equal outside near-ties (adjacent reference distances within
+1e-5 relative); distances agree at rtol=1e-5, atol=1e-4 (different
+summation orders of the same float32 score |x|^2 - 2 q.x).
+
+JAX is imported only inside the tests that compare with it, so the card
+test also runs where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_exact.py -m cuda -q
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from approximatenn_tpu_torch.harness.scoring import ids_agree, recall_at_k
+from approximatenn_tpu_torch.ops import exact as ex
+from approximatenn_tpu_torch.ops.distance import brute_force_knn
+
+torch.set_num_threads(1)
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def assert_match(ia, da, ib, db, rtol=1e-5, atol=1e-4):
+    """``db`` may carry one column more than the ids (the k+1-th reference
+    distance, to recognise a near-tie at the boundary)."""
+    ia, da, ib, db = (x.cpu() if isinstance(x, torch.Tensor) else T(x)
+                      for x in (ia, da, ib, db))
+    ok, _ = ids_agree(ia, ib, db, rtol=1e-5)
+    assert ok, (ia, ib)
+    db = db[:, : ia.shape[1]]
+    fin = torch.isfinite(db)
+    assert torch.equal(fin, torch.isfinite(da))
+    np.testing.assert_allclose(da[fin].numpy(), db[fin].numpy(), rtol=rtol, atol=atol)
+
+
+CASES = {
+    # name: (n, d, m, k, corpus dtype, exclude)
+    "f32": (700, 33, 57, 7, "f32", False),
+    "bf16": (500, 32, 40, 10, "bf16", False),
+    "int8": (600, 24, 40, 10, "int8", False),
+    "exclude": (301, 16, 301, 5, "f32", True),
+    "k_gt_n": (20, 8, 9, 30, "f32", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_pallas_interpret(rng, case):
+    import jax.numpy as jnp
+
+    from approximatenn_tpu.ops.pallas_exact import exact_knn_pallas
+    from approximatenn_tpu.ops.pallas_exact import quantize_corpus as j_quantize
+
+    n, d, m, k, dt, excl = CASES[case]
+    p = rng.standard_normal((n, d)).astype(np.float32)
+    q = p[:m].copy() if excl else rng.standard_normal((m, d)).astype(np.float32)
+    e = np.arange(m, dtype=np.int32) if excl else None
+    jp, tp, scale, jscale = jnp.asarray(p), T(p), None, None
+    if dt == "bf16":
+        jp, tp = jp.astype(jnp.bfloat16), tp.to(torch.bfloat16)
+    elif dt == "int8":
+        jp, jscale = j_quantize(jp)
+        tp, scale = ex.quantize_corpus(tp)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        assert float(scale) == float(jscale)
+    ji, jdd = exact_knn_pallas(jp, jnp.asarray(q), k, tile=128, query_block=16,
+                               interpret=True, scale=jscale,
+                               exclude=None if e is None else jnp.asarray(e))
+    ti, tdd = ex.exact_knn_plain(tp, T(q), k, scale=scale,
+                                 exclude=None if e is None else T(e))
+    assert ti.dtype == torch.int32 and tdd.dtype == torch.float32
+    assert_match(ti, tdd, ji, jdd, rtol=1e-3 if dt == "bf16" else 1e-5)
+    if case == "k_gt_n":
+        assert (ti[:, n:] == n).all() and torch.isinf(tdd[:, n:]).all()
+    if excl:
+        assert not (ti.numpy() == np.arange(m)[:, None]).any()
+
+
+def test_plain_recall_one_vs_float64_oracle(rng):
+    p = rng.standard_normal((1500, 48)).astype(np.float32)
+    q = rng.standard_normal((64, 48)).astype(np.float32)
+    ti, tdd = ex.exact_knn_plain(T(p), T(q), 10)
+    dd64 = ((q.astype(np.float64)[:, None, :] - p.astype(np.float64)[None]) ** 2).sum(-1)
+    true = np.argsort(dd64, axis=1, kind="stable")[:, :10]
+    assert recall_at_k(true, ti.numpy(), 10) == 1.0
+    oi, od = brute_force_knn(T(p), T(q), 10)
+    assert_match(ti, tdd, oi, od)
+
+
+def test_exact_knn_wrapper_on_cpu_uses_plain(rng):
+    p = T(rng.standard_normal((200, 16)).astype(np.float32))
+    q = T(rng.standard_normal((10, 16)).astype(np.float32))
+    before = ex.launches["exact_knn"]
+    a = ex.exact_knn(p, q, 5)
+    b = ex.exact_knn_plain(p, q, 5)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert ex.launches["exact_knn"] == before  # no kernel ran
+    with pytest.raises(ValueError):
+        ex.exact_knn(p, q, 129)
+    with pytest.raises(ValueError):
+        ex.exact_knn(p, q, 5, matmul_precision="bogus")
+    with pytest.raises(TypeError):
+        ex.exact_knn(p, q.double(), 5)
+    with pytest.raises(ValueError):
+        ex.exact_knn(p.to(torch.int8), q, 5)  # int8 needs its scale
+    for prec in ("highest", "split3", "default"):
+        assert torch.equal(ex.exact_knn(p, q, 5, matmul_precision=prec)[0], a[0])
+
+
+@pytest.mark.parametrize("dt", ["f32", "int8", "bf16"])
+def test_exact_search_cpu_matches_jax(rng, dt):
+    import jax.numpy as jnp
+
+    from approximatenn_tpu.ops.pallas_exact import exact_search as j_exact_search
+    from approximatenn_tpu.ops.pallas_exact import quantize_corpus as j_quantize
+
+    p = rng.standard_normal((400, 20)).astype(np.float32)
+    q = rng.standard_normal((30, 20)).astype(np.float32)
+    kw_j, kw_t = {}, {}
+    jp, tp = jnp.asarray(p), T(p)
+    if dt == "int8":
+        jp, kw_j["scale"] = j_quantize(jp)
+        tp, kw_t["scale"] = ex.quantize_corpus(tp)
+    elif dt == "bf16":
+        # the port ranks a half corpus in float32 on the CPU: the JAX
+        # oracle on the same stored values, widened, is the reference
+        tp = tp.to(torch.bfloat16)
+        jp = jnp.asarray(tp.float().numpy())
+    ji, jdd = j_exact_search(jp, jnp.asarray(q), 8, **kw_j)
+    ti, tdd = ex.exact_search(tp, T(q), 8, **kw_t)
+    assert_match(ti, tdd, ji, jdd, rtol=1e-3 if dt == "bf16" else 1e-5)
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import sys; before = set(sys.modules)\n"
+        "import approximatenn_tpu_torch, approximatenn_tpu_torch.ops.exact\n"
+        "new = set(sys.modules) - before\n"
+        "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'approximatenn_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert 'jax' not in sys.modules and 'approximatenn_tpu' not in sys.modules\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
+def test_kernel_matches_plain_on_card(dt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    p = torch.randn(5003, 96, generator=g).to(dev)
+    q = torch.randn(300, 96, generator=g).to(dev)
+    scale = None
+    if dt == "bf16":
+        p = p.to(torch.bfloat16)
+    elif dt == "f16":
+        p = p.to(torch.float16)
+    elif dt == "int8":
+        p, scale = ex.quantize_corpus(p)
+    excl = torch.arange(300, dtype=torch.int32, device=dev)
+    for k, e in ((1, None), (10, excl), (128, None)):
+        before = ex.launches["exact_knn"]
+        ia, da = ex.exact_knn(p, q, k, exclude=e, scale=scale)
+        assert ex.launches["exact_knn"] == before + 1
+        ib, db = ex.exact_knn_plain(p, q, k + 1, exclude=e, scale=scale)
+        torch.cuda.synchronize()
+        assert_match(ia.cpu(), da.cpu(), ib[:, :k].cpu(), db.cpu(),
+                     rtol=1e-3 if dt in ("bf16", "f16") else 1e-5)
