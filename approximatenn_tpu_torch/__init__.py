@@ -3,7 +3,7 @@
 Same algorithm and public names as the JAX package: randomized
 orthogonal-projection sign hashing with multiprobe lookup, multi-table
 merge and kNN-graph "supercharge", plus an exact engine whose top-k runs in
-a hand-written CUDA kernel on an NVIDIA Hopper card.  Imports torch only,
+hand-written CUDA kernels on an NVIDIA Hopper card.  Imports torch only,
 never jax.
 
     index, graph, dists = build(points, k, tries=..., generator=...)  # precomp
@@ -18,6 +18,7 @@ from .engine.serving import Server
 from .index import ANNIndex
 from .ops.distance import brute_force_knn, brute_force_knn_self
 from .ops.exact import exact_search, quantize_corpus
+from .ops.twophase import exact_knn_twophase
 
 __version__ = "0.1.0"
 
@@ -44,5 +45,5 @@ def query(index: ANNIndex, points, y, **kw):
 __all__ = [
     "ANNIndex", "Server", "build", "build_graph_only", "search", "precomp",
     "query", "brute_force_knn", "brute_force_knn_self", "exact_search",
-    "quantize_corpus", "ftype", "itype", "set_ftype",
+    "exact_knn_twophase", "quantize_corpus", "ftype", "itype", "set_ftype",
 ]

@@ -55,3 +55,18 @@ def ftype() -> torch.dtype:
 # indexing wants int64, so modules cast at the gather and keep outputs int32
 itype = torch.int32
 
+
+def default_device(points, device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else a
+    tensor's own device, else the CUDA card.  A CPU tensor or
+    ``device="cpu"`` is the caller asking for the CPU; without a card and
+    without that request this raises rather than quietly running on the
+    CPU."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(points, torch.Tensor):
+        return points.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device='cpu' (or a CPU tensor) "
+                           "to run on the CPU")
+    return torch.device("cuda")

@@ -125,19 +125,16 @@ def graph_stage(points, codes, counts, *, k, d_short, tmax, block_rows,
 def exact_graph_chunked(points: torch.Tensor, k: int, *, chunk_q: int = 65536,
                         progress=None, matmul_precision: str = "highest"):
     """The true kNN graph by exhaustive search: the CUDA kernel with
-    ``exclude`` = each row's own id on a CUDA tensor, the float oracle
-    (:func:`brute_force_knn_self`) on the CPU.  Chunks of ``chunk_q`` query
-    rows keep each launch to seconds."""
+    ``exclude`` = each row's own id on a CUDA tensor and k <= 128, the
+    float oracle (:func:`brute_force_knn_self`) otherwise, as the JAX
+    package does.  Chunks of ``chunk_q`` query rows keep each launch to
+    seconds."""
     from ..ops.distance import brute_force_knn_self
     from ..ops.exact import KMAX, exact_knn
 
     n = points.shape[0]
-    if points.device.type != "cuda":
+    if points.device.type != "cuda" or k > KMAX:
         return brute_force_knn_self(points, k)
-    if k > KMAX:
-        raise NotImplementedError(
-            f"exact graph with k > {KMAX} on CUDA needs the two-phase kernels "
-            "(ROADMAP queue B); pass graph_mode='hash'")
     pts32 = points.float().contiguous()
     parts_i, parts_d = [], []
     for lo in range(0, n, chunk_q):
@@ -178,14 +175,13 @@ def build(
     Same options as the JAX ``build``; ``generator`` (a CPU
     ``torch.Generator``) replaces ``key`` and defaults to one seeded with
     ``seed``.  ``device`` defaults to the points' device for a tensor and
-    the CPU otherwise.  ``graph_mode``
-    "auto" resolves to "exact" for n <= 16M and k <= 128, as in JAX.
+    to the CUDA card otherwise (see :func:`config.default_device`).
+    ``graph_mode`` "auto" resolves to "exact" for n <= 16M and k <= 128, as
+    in JAX.
     """
     from ..data.preprocess import prepare_points
 
-    if device is None:
-        device = points.device if isinstance(points, torch.Tensor) else "cpu"
-    points = torch.as_tensor(points, device=device)
+    points = torch.as_tensor(points, device=config.default_device(points, device))
     n, d = points.shape
     if n >= 2**31:
         raise ValueError("n must fit in int32")

@@ -1,16 +1,18 @@
 """Serving facade (port of ``approximatenn_tpu/engine/serving.py``).
 
-``Server`` picks the engine for a corpus: **exact** (the exact-kNN CUDA
-kernel at every n on the card, the float oracle on the CPU) or **hash**
-(the reference algorithm over the padded tables).  ``mode="auto"`` picks
-exact up to ``exact_max_n`` points and hash beyond.
+``Server`` picks the engine for a corpus: **exact** or **hash** (the
+reference algorithm over the padded tables).  ``mode="auto"`` picks exact
+up to ``exact_max_n`` points and hash beyond.  Exact mode on a CUDA corpus
+runs the JAX package's routing: the two-phase engine (emit + rescan
+kernels, ``ops/twophase.py``) from ``twophase_min_n`` points when k + 2 <=
+128, and for every k > 128 unless k is close to n; the rank kernel
+otherwise.  On the CPU it runs the float oracle.
 
 The routing thresholds are injectable.  Their defaults are the JAX
 package's, which were measured on a TPU v5e and are not evidence for this
-card: they stand only until the port measures its own.  The two-phase
-exact engine (and with it the JAX package's 500k-point route and lane
-padding) is not ported yet, so exact mode always runs the rank kernel and
-needs k <= 128 on CUDA.  ``layout="packed"`` waits for the packed slice.
+card; PERF.md records the H100 crossover to retune them from.
+The JAX package's lane-padded corpus is TPU layout and is not ported.
+``layout="packed"`` waits for the packed slice.
 """
 
 from __future__ import annotations
@@ -19,6 +21,12 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+
+from ..config import default_device
+from ..ops.exact import KMAX, exact_search
+from ..ops.twophase import TWOPHASE_MIN_N
+from ..ops.twophase import TWOPHASE_ONLY_KW as _TWOPHASE_ONLY_KW
+from ..ops.twophase import exact_knn_twophase, route
 
 # the JAX package's v5e-measured defaults (see the module docstring)
 EXACT_MAX_N_DEFAULT = 8_000_000
@@ -40,23 +48,27 @@ class Server:
     index: Any = None  # ANNIndex when mode == "hash"
     n_probes: int | None = None
     scale: float | None = None  # int8 storage tier's quantization step
+    twophase_min_n: int = TWOPHASE_MIN_N
+    # exact mode from twophase_min_n points with k + 2 <= 128 (set at build)
+    _twophase: bool = False
 
     @classmethod
     def build(cls, points, k: int, *, mode: str = "auto", metric: str = "l2",
               exact_max_n: int | None = None, layout: str = "table",
-              n_probes: int | None = None, storage_dtype=None, device=None,
+              n_probes: int | None = None, storage_dtype=None,
+              twophase_min_n: int | None = None, device=None,
               **build_kw) -> "Server":
         """``storage_dtype``: torch.bfloat16 / float16 store the corpus at
         half width (exact engine streams it as stored); torch.int8
         quantizes symmetrically (exact mode only, scale kept on the
-        server).  ``device`` defaults to the points' device."""
+        server).  ``twophase_min_n`` overrides ``TWOPHASE_MIN_N``.
+        ``device`` defaults to a tensor's own device and to the CUDA card
+        otherwise (see :func:`config.default_device`)."""
         if layout != "table":
             raise NotImplementedError(
                 "layout='packed' is not ported to the PyTorch package yet "
                 "(ROADMAP queue A, item 9)")
-        if device is None:
-            device = points.device if isinstance(points, torch.Tensor) else "cpu"
-        points = torch.as_tensor(points, device=device)
+        points = torch.as_tensor(points, device=default_device(points, device))
         from ..data.preprocess import prepare_points
 
         quantized = storage_dtype == torch.int8
@@ -79,8 +91,8 @@ class Server:
             if points.element_size() == 1:
                 exact_max_n *= 2
         if mode == "auto":
-            # the JAX rule, k > 128 included (on CUDA that search raises
-            # until the two-phase kernels are ported)
+            # the JAX rule: k > 128 stays exact where the two-phase
+            # engine's big-k route applies
             mode = ("exact" if quantized
                     or (n <= exact_max_n and (k <= 128 or n >= 8 * (k + 2)))
                     else "hash")
@@ -90,8 +102,11 @@ class Server:
             raise ValueError("storage_dtype=int8 serves the exact engine only")
         if metric != "l2" and not quantized:
             points = prepare_points(points, metric)
+        tp_min = TWOPHASE_MIN_N if twophase_min_n is None else twophase_min_n
         srv = cls(points=points, k=k, mode=mode, metric=metric,
-                  n_probes=n_probes, scale=scale)
+                  n_probes=n_probes, scale=scale, twophase_min_n=tp_min,
+                  _twophase=(mode == "exact" and n >= tp_min and k + 2 <= KMAX
+                             and points.element_size() <= 4))
         if mode == "hash":
             from .build import build
 
@@ -99,31 +114,64 @@ class Server:
                                     **build_kw)
         return srv
 
+    def _route_twophase(self, k: int, no_twophase: bool = False,
+                        skw: dict | None = None) -> bool:
+        """Whether an exact-mode search with these knobs runs the two-phase
+        engine: the one predicate ``search`` and ``describe`` share.  On a
+        CUDA corpus it is :func:`~..ops.twophase.route` with the build's
+        ``twophase_min_n``, where k <= 128 also needs the build to have
+        enabled the engine (``_twophase``).  The JAX package sends
+        ``Server`` k > 128 to brute force, because the ``no_twophase`` it
+        forwards fails ``exact_search``'s big-k keyword gate (its
+        ``engine/serving.py:328``, ``ops/pallas_exact.py:1635``); the port
+        serves it as intended."""
+        if self.points.device.type != "cuda":
+            return False
+        return route(self.points.shape[0], k, skw or {}, no_twophase or not self._twophase,
+                     min_n=self.twophase_min_n) == "twophase"
+
     def search(self, queries, k: int | None = None, **kw):
         """k exact or approximate nearest neighbours per query row: (ids
         int32, squared distances), sentinel n past the real candidates."""
         k = self.k if k is None else k
         queries = torch.as_tensor(queries, device=self.points.device)
         if self.mode == "exact":
-            from ..ops.exact import exact_search
-
             if self.metric != "l2":
                 from ..data.preprocess import prepare_points
 
                 qdt = torch.float32 if self.points.dtype == torch.int8 else self.points.dtype
                 queries = prepare_points(queries.to(qdt), self.metric)
-            return exact_search(self.points, queries, k, scale=self.scale, **kw)
+            skw = dict(kw)
+            # popped whichever way routing goes: neither engine takes it
+            no_tp = bool(skw.pop("no_twophase", False))
+            if self._route_twophase(k, no_tp, skw):
+                # a float64 corpus runs the kernels in float32, as exact_search does
+                pts = self.points if self.points.element_size() <= 4 else self.points.float()
+                return exact_knn_twophase(pts, queries.float().contiguous(), k,
+                                          scale=self.scale, **skw)
+            for key in _TWOPHASE_ONLY_KW:
+                skw.pop(key, None)
+            # the Server made the routing decision: exact_search must not
+            # re-make it with its own threshold
+            return exact_search(self.points, queries, k, scale=self.scale,
+                                no_twophase=True, **skw)
         from .search import search
 
         kw.setdefault("n_probes", self.n_probes)
         return search(self.index, queries=queries, **kw)
 
     def exact_engine(self) -> str | None:
-        """The engine a plain ``search`` runs in exact mode: "cuda-rank" (the
-        hand-written kernel) on a CUDA corpus, "oracle" on the CPU."""
+        """The engine a plain ``search`` runs in exact mode:
+        "cuda-twophase" or "cuda-rank" (the hand-written kernels) on a CUDA
+        corpus, "oracle" on the CPU and for brute force on the card (k >
+        128 close to n)."""
         if self.mode != "exact":
             return None
-        return "cuda-rank" if self.points.device.type == "cuda" else "oracle"
+        if self._route_twophase(self.k):
+            return "cuda-twophase"
+        if self.points.device.type == "cuda" and self.k <= KMAX:
+            return "cuda-rank"
+        return "oracle"
 
     def add_points(self, *a, **kw):
         raise NotImplementedError("Server.add_points is not ported to the "

@@ -153,7 +153,10 @@ class ANNIndex:
     def from_numpy(cls, arrays, device=None) -> "ANNIndex":
         """Build the port's index from the JAX index's arrays (the npz keys:
         tables, counts, graph, meta, metric, row_means, bases, optional
-        points and dead, with ``<key>_dtype`` tags for half floats)."""
+        points and dead, with ``<key>_dtype`` tags for half floats).  A data
+        carrier: the tensors land on ``device``, and with ``device=None``
+        they stay on the CPU where numpy made them; the caller places the
+        index (``device="cuda"`` for the card)."""
         n, k, d, d_short, tries, tmax = (int(v) for v in arrays["meta"])
         return cls(
             row_means=_unstash(arrays, "row_means", device),
@@ -169,5 +172,7 @@ class ANNIndex:
 
     @classmethod
     def load(cls, path: str, device=None) -> "ANNIndex":
+        """Read an npz index (see :meth:`from_numpy`: ``device=None`` leaves
+        it on the CPU)."""
         with np.load(path) as z:
             return cls.from_numpy(z, device)

@@ -1,12 +1,12 @@
-"""Exact k-NN: the hand-written CUDA kernel, its plain PyTorch twin, and
-the exact-search entry point.
+"""Exact k-NN: the hand-written CUDA kernels' build and launch counts, the
+rank kernel, its plain PyTorch twin, and the exact-search entry point.
 
 Port of ``approximatenn_tpu/ops/pallas_exact.py`` (the rank-merge Pallas
 kernel ``_kernel_rank`` behind ``exact_knn_pallas``, plus
-``quantize_corpus`` and ``exact_search``).  The kernel source is
-``csrc/exact_knn.cu``; it is compiled with nvcc for ``sm_90a`` into
-``_build/`` at first use and bound through ctypes (a plain C interface, so
-the build takes seconds).
+``quantize_corpus`` and ``exact_search``; the two-phase engine is in
+``ops/twophase.py``).  The kernel sources are ``csrc/*.cu``; each is
+compiled with nvcc for ``sm_90a`` into ``_build/`` at first use and bound
+through ctypes (a plain C interface, so a build takes seconds).
 
 Contract (both versions): ids (m, k) int32 ascending by squared L2
 distance on the raw coordinates, ties to the smaller id, (n, +inf) past the
@@ -43,15 +43,32 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8
 _PRECISIONS = ("highest", "split3", "default")
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "exact_knn.cu"
+CSRC = _PKG / "csrc"
+# one shared library per kernel source; the headers are part of every one
+SOURCES = {"exact_knn": CSRC / "exact_knn.cu",
+           "twophase_knn": CSRC / "twophase_knn.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# kernel launches through exact_knn, a plain count a run reads to show
-# that its main path went through the kernel
-launches = {"exact_knn": 0}
-_lib = None
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+# C entry points of each library: name -> argtypes (all return a CUDA error code)
+_ENTRY_POINTS = {
+    "exact_knn": {"exact_knn_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _ci, _ci, _ci,
+                                       _ci, _ci, _vp, _vp, _vp, _vp, ctypes.c_float,
+                                       _vp]},
+    "twophase_knn": {
+        "twophase_emit_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
+                                 _ci, _vp, _vp, _vp],
+        "twophase_rescan_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
+                                   _ci, _vp, _vp, _vp],
+    },
+}
+
+# kernel launches through the wrappers, plain counts a run reads to show
+# that its main path went through the kernels
+launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0}
+_libs: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -65,46 +82,75 @@ def _nvcc() -> str:
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the exact kernel builds from "
-                       f"{SOURCE} on a machine with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the exact kernels build from "
+                       f"{CSRC} on a machine with the CUDA toolkit")
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/exact_knn.cu`` (if this source was not built yet) and
-    return the shared library's path.  The name carries a hash of the
-    source and flags, so an edited source rebuilds."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libexact_knn_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
-    os.replace(tmp, out)
-    return out
+def library_path(name: str) -> Path:
+    """Where the library of kernel source ``name`` is built.  The file name
+    carries a hash of the source, the shared headers and the flags, so an
+    edit to any of them rebuilds."""
+    data = SOURCES[name].read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        data += header.read_bytes()
+    tag = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.exact_knn_launch.argtypes = [ci, vp, ci, vp, vp, vp, ci, ci, ci, ci,
-                                         ci, vp, vp, vp, vp, ctypes.c_float, vp]
-        lib.exact_knn_launch.restype = ci
-        lib.exact_knn_error_string.argtypes = [ci]
-        lib.exact_knn_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def build_libraries(names=None, verbose: bool = False) -> dict:
+    """Compile the kernel sources ``names`` (default: all) that are not built
+    yet, one nvcc per source, all started together; return {name: path}."""
+    names = list(SOURCES) if names is None else list(names)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{SOURCES[name].name}: nvcc failed ({proc.returncode}):\n{err}")
+            continue
+        if verbose and err:
+            print(err)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
+def _library(name: str):
+    """The loaded library of kernel source ``name`` (built at first use)."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build_libraries([name])[name]))
+        for fn, argtypes in _ENTRY_POINTS[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _ci
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes = [_ci]
+        err_fn.restype = ctypes.c_char_p
+        lib.error_string = err_fn
+        _libs[name] = lib
+    return _libs[name]
+
+
+def launch_error(lib, what: str, err: int) -> RuntimeError:
+    return RuntimeError(f"{what} kernel launch failed: "
+                        + lib.error_string(err).decode())
+
+
+def device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _check_precision(matmul_precision):
@@ -155,24 +201,43 @@ def _prepare(points, queries, scale):
     return q.contiguous(), (q * q).sum(-1), scale2
 
 
-def _splits(m: int, n: int, device) -> int:
-    """Corpus splits: enough blocks to fill the card (about four resident
-    blocks per SM) when there are few query blocks."""
+def splits(m: int, n: int, device, cap: int = _MAX_SPLITS) -> int:
+    """Corpus splits of a 32-query x 128-row tiled kernel: enough blocks to
+    fill the card (about four resident blocks per SM) when there are few
+    query blocks."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_blocks = -(-m // _QB)
     n_tiles = -(-n // _TN)
     want = -(-4 * sms // q_blocks)
-    return max(1, min(_MAX_SPLITS, n_tiles, want))
+    return max(1, min(cap, n_tiles, want))
 
 
 def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
               exclude: torch.Tensor | None = None, scale=None,
-              matmul_precision: str = "highest"):
+              matmul_precision: str = "highest", merge: str = "rank",
+              twophase_seg: int = 512, stream: bool = False):
     """Exact k nearest neighbours through the CUDA kernel (CUDA tensors) or
     :func:`exact_knn_plain` (CPU tensors).  Returns (ids (m, k) int32,
     squared distances (m, k) float32).  ``matmul_precision`` is validated;
-    every tier computes in IEEE fp32 (see the kernel source)."""
+    every tier computes in IEEE fp32 (see the kernel source).
+
+    ``merge="twophase"`` is the JAX package's two-phase merge: the emit
+    kernel's per-``twophase_seg``-row segment minima, then the k best of
+    them per query (one candidate per segment, so not exact on its own;
+    :func:`~.twophase.exact_knn_twophase` is the exact engine).  It takes
+    any k."""
+    if stream or merge == "rescan":
+        raise NotImplementedError(
+            "merge='rescan' and stream=True (the _kernel and _stream_kernel "
+            "TPU kernels) are not ported yet: ROADMAP queue B")
+    if merge not in ("rank", "twophase"):
+        raise ValueError(f"unknown merge style {merge!r}")
     _check(points, queries, k, exclude, matmul_precision)
+    if merge == "twophase":
+        from .twophase import segment_merge
+
+        return segment_merge(points, queries, k, twophase_seg, exclude=exclude,
+                             scale=scale, matmul_precision=matmul_precision)
     if k > KMAX:
         raise ValueError(f"exact_knn supports k <= {KMAX}, got {k}")
     if points.device.type == "cpu":
@@ -191,21 +256,19 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     q, qn, scale2 = _prepare(points, queries, scale)
     if exclude is not None:
         exclude = exclude.contiguous()
-    s = _splits(m, n, dev)
+    s = splits(m, n, dev)
     part_d = torch.empty((m, s, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((m, s, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((m, k), dtype=itype, device=dev)
-    lib = _library()
+    lib = _library("exact_knn")
     err = lib.exact_knn_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
+        device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
         exclude.data_ptr() if exclude is not None else None, qn.data_ptr(),
         n, d, m, k, s, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(), scale2, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError("exact_knn kernel launch failed: "
-                           + lib.exact_knn_error_string(err).decode())
+        raise launch_error(lib, "exact_knn", err)
     launches["exact_knn"] += 1
     return out_i, out_d
 
@@ -280,35 +343,49 @@ def quantize_corpus(points: torch.Tensor, scale=None,
 
 
 def exact_search(points: torch.Tensor, queries: torch.Tensor, k: int, *,
-                 scale=None, matmul_precision: str = "highest"):
-    """Exact k-NN with the engine the tensors' device has: the CUDA kernel
-    for k <= 128 at every n; the float oracle (:func:`brute_force_knn`) on
-    the CPU, as the JAX package does off the TPU.  An int8 corpus needs its
-    ``scale``; on the CPU it is dequantised, and the queries snapped to the
-    same grid, so both rank the same quantized values.  A bf16/f16 corpus
-    is ranked on the CPU in float32 from its stored values."""
+                 scale=None, matmul_precision: str = "highest",
+                 no_twophase: bool = False, **kw):
+    """Exact k-NN with the engine the tensors' device has, routed as the
+    JAX package routes it on its accelerator (:func:`~.twophase.route`):
+    on a CUDA corpus the two-phase engine at n >= ``TWOPHASE_MIN_N`` and
+    for k > 128, the rank kernel below that, brute force on the card for
+    k > 128 close to n; on the CPU the float oracle
+    (:func:`brute_force_knn`), as the JAX package does off the TPU.
+    ``kw`` takes the two-phase knobs (``seg``, ``pad_segments``,
+    ``rescan``) and the rank kernel's (``merge``, ``twophase_seg``,
+    ``stream``); pinning a rank-only knob keeps the rank kernel.
+    ``no_twophase`` escapes the n >= ``TWOPHASE_MIN_N`` route only: past
+    k = 128 there is no rank kernel to escape to.  An int8 corpus needs
+    its ``scale``; on the CPU it is dequantised, and the queries snapped
+    to the same grid, so both rank the same quantized values.  A bf16/f16
+    corpus is ranked on the CPU in float32 from its stored values."""
     if points.device.type == "cuda":
-        if k > KMAX:
-            raise NotImplementedError(
-                f"exact search with k > {KMAX} on CUDA needs the two-phase "
-                "kernels (_kernel_emit + _kernel_rescan), not ported yet: "
-                "ROADMAP queue B, two-phase exact")
+        from .twophase import TWOPHASE_ONLY_KW, exact_knn_twophase, route
+
         pk = points
         if pk.dtype not in _DTYPE_CODE:
             pk = pk.float()
+        pk = pk.contiguous()
         q = queries.to(device=pk.device, dtype=torch.float32).contiguous()
-        return exact_knn(pk.contiguous(), q, k, scale=scale,
-                         matmul_precision=matmul_precision)
+        engine = route(pk.shape[0], k, kw, no_twophase)
+        if engine == "twophase":
+            return exact_knn_twophase(pk, q, k, scale=scale,
+                                      matmul_precision=matmul_precision, **kw)
+        if engine == "rank":
+            for key in TWOPHASE_ONLY_KW:
+                kw.pop(key, None)
+            return exact_knn(pk, q, k, scale=scale,
+                             matmul_precision=matmul_precision, **kw)
     from .distance import brute_force_knn
 
     _check_precision(matmul_precision)
     _check_scale(points, scale)
     if points.dtype == torch.int8:
-        s = torch.as_tensor(scale, dtype=torch.float32)
+        s = torch.as_tensor(scale, dtype=torch.float32, device=points.device)
         points = points.float() * s
         queries = torch.clamp(torch.round(queries.float() / s), -127, 127) * s
     elif points.dtype in (torch.bfloat16, torch.float16):
         # rank the stored values in float32: a half-precision |x|^2 (what
         # the JAX oracle computes for such a corpus) misranks neighbours
         points = points.float()
-    return brute_force_knn(points, queries, k)
+    return brute_force_knn(points, queries.to(points.device), k)

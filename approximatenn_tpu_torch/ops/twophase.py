@@ -1,0 +1,333 @@
+"""The exact two-phase engine: segment emit, segment pick, window rescan.
+
+Port of ``approximatenn_tpu/ops/pallas_exact.py:exact_knn_twophase`` with
+its two TPU kernels, ``_kernel_emit`` and ``_kernel_rescan``, written for
+Hopper in ``csrc/twophase_knn.cu``.  Each kernel has a plain PyTorch
+version here; a wrapper runs the plain version for CPU tensors and the
+kernel for CUDA tensors, never anything else.
+
+1. Emit (:func:`segment_minima`): for every query and every ``seg``-row
+   segment (segment s is rows ``[s*seg, min((s+1)*seg, n))``), the least
+   score ``|x|^2 - 2 q.x`` and its row id, ties to the smaller id.
+2. Pick (:func:`segment_merge`): per query the ``P = k + pad_segments``
+   segments with the smallest minima (score + ``|q|^2``), ties to the
+   smaller id.
+3. Rescan (:func:`rescan_windows`): the rows of those P segments, squared
+   L2 in diff form ``sum((x - q)^2)`` in fp32, and the k nearest; for
+   k > 128 every window row is returned and the final top-k runs here.
+
+Exactness (the JAX docstring's argument): the k-th smallest segment minimum
+is a true distance, so every true top-k member lies in a segment whose
+minimum ranks among the k best; the ``pad_segments`` extra segments absorb
+ties.  It holds for any segment length, so the TPU's tile, VMEM and DMA
+alignment constraints on ``seg`` are not ported, nor the clamped windows
+and the tail merge they forced.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..config import itype
+from .exact import (_DTYPE_CODE, KMAX, _check, _prepare, device_index, launch_error,
+                    launches, splits, _library)
+
+# At and above this corpus size exact serving takes the two-phase engine.
+# The JAX package's value, measured on a TPU v5e; the H100 crossover is
+# measured by chip_smoke.py and recorded in PERF.md, and this default
+# stands until it is retuned from those numbers.
+TWOPHASE_MIN_N = 500_000
+# keywords exact_knn_twophase takes; any other pins the rank kernel
+TWOPHASE_KW = frozenset({"seg", "pad_segments", "scale", "rescan",
+                         "matmul_precision"})
+# two-phase-only knobs, dropped before a rank-kernel dispatch
+TWOPHASE_ONLY_KW = ("seg", "pad_segments", "rescan")
+
+_INT32_MAX = 2**31 - 1
+_BLOCK_ELEMS = 64 << 20  # plain versions: ~256 MB float32 per query block
+
+
+def auto_seg(n: int) -> int:
+    """The JAX package's segment length, ~sqrt(n)/8 as a power of two in
+    [32, 512] (64 at 250k-500k, 128 at 1M, 512 at 10M)."""
+    return min(512, max(32, 1 << (math.isqrt(n) // 8).bit_length()))
+
+
+def _check_seg(seg: int) -> None:
+    if seg < 1 or seg & (seg - 1):
+        raise ValueError(f"seg must be a power of two, got {seg}")
+
+
+def big_k_route(n: int, k: int) -> bool:
+    """k > 128 takes the two-phase engine (emit-all rescan) unless k is
+    close to n, as in the JAX package."""
+    return KMAX < k < n and n >= 8 * (k + 2)
+
+
+def route(n: int, k: int, kw, no_twophase: bool = False,
+          min_n: int = TWOPHASE_MIN_N) -> str:
+    """The engine an exact search runs on a CUDA corpus of n rows:
+    "twophase", "rank" or "brute" (``kw``: the extra keywords given;
+    ``min_n``: the corpus size from which k <= 128 takes the two-phase
+    engine).  The one routing rule of ``exact_search`` and ``Server``."""
+    tp_ok = set(kw) <= TWOPHASE_KW
+    if k <= KMAX:
+        if n >= min_n and k + 2 <= KMAX and tp_ok and not no_twophase:
+            return "twophase"
+        return "rank"
+    return "twophase" if tp_ok and big_k_route(n, k) else "brute"
+
+
+def smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):
+    """Per row, the k smallest (distance, id) pairs in ascending order, ties
+    to the smaller id, padded with (int32 max, +inf) past the row length.
+    One ``torch.topk`` over int64 keys: the float's bits mapped to an
+    order-preserving int32 in the high word, the id in the low word, so the
+    order is total and does not depend on the selection algorithm."""
+    L = dists.shape[-1]
+    kk = min(k, L)
+    b = (dists + 0.0).view(torch.int32)  # + 0.0 turns -0.0 into +0.0
+    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    key = (b.to(torch.int64) << 32) | ids.to(torch.int64)
+    _, j = torch.topk(key, kk, dim=-1, largest=False, sorted=True)
+    out_d, out_i = dists.gather(-1, j), ids.gather(-1, j).to(itype)
+    if kk < k:
+        shape = out_d.shape[:-1] + (k - kk,)
+        out_d = torch.cat([out_d, out_d.new_full(shape, float("inf"))], dim=-1)
+        out_i = torch.cat([out_i, out_i.new_full(shape, _INT32_MAX)], dim=-1)
+    return out_d, out_i
+
+
+# -- phase 1: the emit kernel and its plain version ---------------------------
+
+def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
+                   exclude: torch.Tensor | None = None, scale=None,
+                   matmul_precision: str = "highest"):
+    """Phase 1: per query and ``seg``-row segment, the least score
+    ``|x|^2 - 2 q.x`` and its id, as (minima (m, ceil(n/seg)) float32, ids
+    int32); rows past n and the excluded id score +inf, ties go to the
+    smaller id.  The emit kernel on a CUDA tensor,
+    :func:`segment_minima_plain` on a CPU tensor."""
+    _check(points, queries, 1, exclude, matmul_precision)
+    _check_seg(seg)
+    if points.device.type == "cpu":
+        return segment_minima_plain(points, queries, seg, exclude=exclude,
+                                    scale=scale, matmul_precision=matmul_precision)
+    if points.device.type != "cuda":
+        raise ValueError(f"segment_minima runs on cuda or cpu, not {points.device}")
+    if not points.is_contiguous():
+        raise ValueError("points must be contiguous")
+    n, d = points.shape
+    m = queries.shape[0]
+    dev = points.device
+    n_seg = -(-n // seg)
+    seg_d = torch.empty((m, n_seg), dtype=torch.float32, device=dev)
+    seg_i = torch.empty((m, n_seg), dtype=torch.int32, device=dev)
+    if m == 0:
+        return seg_d, seg_i
+    q, _, _ = _prepare(points, queries, scale)
+    if exclude is not None:
+        exclude = exclude.contiguous()
+    lib = _library("twophase_knn")
+    err = lib.twophase_emit_launch(
+        device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
+        exclude.data_ptr() if exclude is not None else None, n, d, m, seg, n_seg,
+        splits(m, n, dev, cap=n), seg_d.data_ptr(), seg_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise launch_error(lib, "twophase_emit", err)
+    launches["twophase_emit"] += 1
+    return seg_d, seg_i
+
+
+def segment_minima_plain(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
+                         exclude: torch.Tensor | None = None, scale=None,
+                         matmul_precision: str = "highest"):
+    """Plain PyTorch version of the emit kernel: per query block the score
+    rows ``pn - 2 q @ x.T``, padded to whole segments with +inf, then the
+    minimum and its first index per segment."""
+    _check(points, queries, 1, exclude, matmul_precision)
+    _check_seg(seg)
+    n = points.shape[0]
+    m = queries.shape[0]
+    q, _, _ = _prepare(points, queries, scale)
+    if points.dtype in (torch.bfloat16, torch.float16):
+        q = q.to(points.dtype).float()
+    x = points.float()
+    pn = (x * x).sum(-1)
+    n_seg = -(-n // seg)
+    base = torch.arange(n_seg, device=x.device, dtype=torch.int64) * seg
+    block = max(1, min(m, _BLOCK_ELEMS // (n_seg * seg)))
+    vals, ids = [], []
+    for lo in range(0, m, block):
+        s = torch.full((min(block, m - lo), n_seg * seg), float("inf"),
+                       device=x.device)
+        s[:, :n] = pn[None, :] - 2.0 * (q[lo: lo + block] @ x.T)
+        if exclude is not None:
+            e = exclude[lo: lo + block].long()
+            rows = torch.nonzero((e >= 0) & (e < n)).squeeze(1)
+            s[rows, e[rows]] = float("inf")
+        v, a = s.view(-1, n_seg, seg).min(-1)
+        vals.append(v)
+        ids.append((a + base).to(itype))
+    if not vals:
+        return (torch.empty((0, n_seg), device=x.device),
+                torch.empty((0, n_seg), dtype=itype, device=x.device))
+    return torch.cat(vals), torch.cat(ids)
+
+
+def segment_merge(points: torch.Tensor, queries: torch.Tensor, k: int, seg: int, *,
+                  exclude: torch.Tensor | None = None, scale=None,
+                  matmul_precision: str = "highest"):
+    """Phases 1 and 2 (``exact_knn_pallas(merge="twophase")``): the k
+    segments of smallest minimum per query, as (ids (m, k) of each
+    segment's best row, distances = minimum + |q|^2, times scale^2 for
+    int8), ascending, ties to the smaller id; (n, +inf) where the segments
+    run out."""
+    seg_d, seg_i = segment_minima(points, queries, seg, exclude=exclude,
+                                  scale=scale, matmul_precision=matmul_precision)
+    _, qn, scale2 = _prepare(points, queries, scale)
+    d_k, i_k = smallest(seg_d + qn[:, None], seg_i, k)
+    inf = torch.isinf(d_k)
+    ids = torch.where(inf, torch.full_like(i_k, points.shape[0]), i_k)
+    return ids, d_k * scale2
+
+
+# -- phase 3: the rescan kernel and its plain version --------------------------
+
+def rescan_windows(points: torch.Tensor, q: torch.Tensor, starts: torch.Tensor,
+                   seg: int, k: int | None):
+    """Phase 3 over windows ``[starts[i, p], starts[i, p] + seg)`` (start n =
+    an exhausted pick; rows >= n do not exist): diff-form squared L2 of the
+    queries ``q`` as the kernel multiplies them (quantised for int8).
+    ``k`` <= 128: the k nearest, (ids (m, k) int32, distances) ascending,
+    ties to the smaller id, (n, +inf) past the real rows.  ``k`` None: every
+    window row, (ids (m, P*seg), distances), id n and +inf where a row does
+    not exist.  The rescan kernel on a CUDA tensor,
+    :func:`rescan_windows_plain` on a CPU tensor."""
+    _check(points, q, 1, None, "highest")
+    _check_seg(seg)
+    if k is not None and not 1 <= k <= KMAX:
+        raise ValueError(f"the rescan selects 1 <= k <= {KMAX}, got {k}")
+    if points.device.type == "cpu":
+        return rescan_windows_plain(points, q, starts, seg, k)
+    if points.device.type != "cuda":
+        raise ValueError(f"rescan_windows runs on cuda or cpu, not {points.device}")
+    if not points.is_contiguous():
+        raise ValueError("points must be contiguous")
+    n, d = points.shape
+    m, P = starts.shape
+    if starts.dtype != torch.int32 or starts.device != points.device or m != q.shape[0]:
+        raise ValueError("starts must be an (m, P) int32 tensor on the points' device")
+    if P * seg >= 2**31:
+        raise ValueError(f"P * seg = {P * seg} windows rows do not fit int32")
+    dev = points.device
+    width = P * seg if k is None else k
+    out_d = torch.empty((m, width), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, width), dtype=itype, device=dev)
+    if m == 0:
+        return out_i, out_d
+    q = q.contiguous()
+    starts = starts.contiguous()
+    lib = _library("twophase_knn")
+    err = lib.twophase_rescan_launch(
+        device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
+        starts.data_ptr(), n, d, m, P, seg.bit_length() - 1, 0 if k is None else k,
+        out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise launch_error(lib, "twophase_rescan", err)
+    launches["twophase_rescan"] += 1
+    return out_i, out_d
+
+
+def rescan_windows_plain(points: torch.Tensor, q: torch.Tensor,
+                         starts: torch.Tensor, seg: int, k: int | None):
+    """Plain PyTorch version of the rescan kernel, the gather form of the
+    JAX package's ``rescan="xla"``: gather the window rows per query block,
+    widen to fp32, ``sum((x - q)^2)``, and select with :func:`smallest`."""
+    n, d = points.shape
+    m, P = starts.shape
+    if points.dtype in (torch.bfloat16, torch.float16):
+        q = q.to(points.dtype)
+    q = q.float()
+    lane = torch.arange(seg, device=points.device, dtype=torch.int64)
+    block = max(1, min(m, _BLOCK_ELEMS // max(1, P * seg * d)))
+    out_i, out_d = [], []
+    for lo in range(0, m, block):
+        st = starts[lo: lo + block].long()
+        rows = (st[..., None] + lane).reshape(st.shape[0], P * seg)
+        valid = ((st[..., None] < n) & (st[..., None] + lane < n)).reshape(rows.shape)
+        rows = torch.where(valid, rows, torch.full_like(rows, n))
+        pc = points[torch.where(valid, rows, torch.zeros_like(rows))].float()
+        diff = pc - q[lo: lo + block, None, :]
+        dd = torch.where(valid, (diff * diff).sum(-1),
+                         torch.full((), float("inf"), device=points.device))
+        if k is None:
+            out_i.append(rows.to(itype))
+            out_d.append(dd)
+            continue
+        d_k, i_k = smallest(dd, rows, k)
+        out_i.append(torch.where(torch.isinf(d_k), torch.full_like(i_k, n), i_k))
+        out_d.append(d_k)
+    if not out_i:
+        w = P * seg if k is None else k
+        return (torch.empty((0, w), dtype=itype, device=points.device),
+                torch.empty((0, w), device=points.device))
+    return torch.cat(out_i), torch.cat(out_d)
+
+
+# -- the engine -----------------------------------------------------------------
+
+def exact_knn_twophase(points: torch.Tensor, queries: torch.Tensor, k: int, *,
+                       seg: int | None = None, pad_segments: int = 2, scale=None,
+                       rescan: str = "dma", matmul_precision: str = "highest"):
+    """EXACT two-phase k-NN: emit per-segment minima, pick the
+    ``k + pad_segments`` best segments per query, rescan their rows.
+    Returns (ids (m, k) int32 ascending, squared distances (m, k) float32
+    in diff form, times scale^2 for int8), ties to the smaller id, (n, +inf)
+    past the real rows.  Any k: past 128 the rescan returns every window row
+    and the final top-k runs in PyTorch.
+
+    ``seg`` (a power of two) defaults to :func:`auto_seg`.  ``rescan``:
+    "dma" runs the rescan kernel on a CUDA corpus (the name is the JAX
+    package's); "xla" the gather form, which is also the kernel's plain
+    version and what every CPU tensor runs."""
+    _check(points, queries, k, None, matmul_precision)
+    if rescan not in ("dma", "xla"):
+        raise ValueError(f"rescan must be 'dma' or 'xla', got {rescan!r}")
+    if pad_segments < 0:
+        raise ValueError(f"pad_segments must be >= 0, got {pad_segments}")
+    n = points.shape[0]
+    seg = auto_seg(n) if seg is None else seg
+    _check_seg(seg)
+    P = k + pad_segments
+    sel, _ = segment_merge(points, queries, P, seg, scale=scale,
+                           matmul_precision=matmul_precision)
+    # the picked segments are unique per query, so their windows are
+    # disjoint; an exhausted pick (id n) starts at n and reads nothing
+    starts = torch.where(sel < n, sel // seg * seg, torch.full_like(sel, n))
+    q, _, scale2 = _prepare(points, queries, scale)
+    if rescan == "xla":
+        fn = rescan_windows_plain
+    else:
+        fn = rescan_windows
+    if k <= KMAX:
+        ids, dd = fn(points, q, starts, seg, k)
+    else:
+        # emit-all in query blocks that keep the (block, P*seg) pool and its
+        # int64 selection keys near 256 MB each
+        block = max(1, min(queries.shape[0], (32 << 20) // (P * seg)))
+        parts_i, parts_d = [], []
+        for lo in range(0, queries.shape[0], block):
+            pos, dd_all = fn(points, q[lo: lo + block], starts[lo: lo + block], seg, None)
+            d_k, i_k = smallest(dd_all, pos, k)
+            parts_i.append(i_k)
+            parts_d.append(d_k)
+        ids = torch.cat(parts_i) if parts_i else torch.empty((0, k), dtype=itype,
+                                                             device=points.device)
+        dd = torch.cat(parts_d) if parts_d else torch.empty((0, k), device=points.device)
+    inf = torch.isinf(dd)
+    ids = torch.where(inf, torch.full_like(ids, n), ids)
+    return ids, dd * scale2

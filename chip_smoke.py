@@ -5,22 +5,33 @@
 Phases, one line each, and a non-zero exit on the first failure:
 
 0. environment: torch/CUDA versions, the card's name and power limit;
-1. build of the exact-kNN CUDA kernel from ``approximatenn_tpu_torch/csrc``;
-2. the kernel against its plain PyTorch version on the card, at the main
-   path's shapes (serving f32 and bf16; one exact-graph chunk of 65,536
-   corpus rows with ``exclude`` = own ids) and the degenerate ones (k = 1, k = 128, k > n, k = n - 1
-   with exclusion, n not a tile multiple, d = 96, bf16, f16, int8, m = 1);
+1. build of the CUDA kernels from ``approximatenn_tpu_torch/csrc`` (one
+   nvcc per source, started together);
+2. every kernel against its plain PyTorch version on the card, at the main
+   path's shapes and the degenerate ones.  Rank kernel: serving f32 and
+   bf16; one exact-graph chunk of 65,536 corpus rows with ``exclude`` = own
+   ids; k = 1, k = 128, k > n, k = n - 1 with exclusion, n not a tile
+   multiple, d = 96, bf16, f16, int8, m = 1.  Two-phase emit and rescan:
+   the serving shape (1M x 128 f32, m = 1000, k = 10: seg = 128, P = 12),
+   k = 64 and k = 126, emit-all at k = 256 and k = 1000, n = 20,011 x 96
+   (partial last segment), segments of 32 and 512 rows, bf16, f16, int8,
+   m = 1, exhausted windows, emit with ``exclude``;
 3. the main path at the SIFT-1M shape (n = 1M x d = 128 float32 from
-   ``--seed``, 1000 queries, k = 10, tries = 10): ``build`` (exact kNN graph
-   through the kernel) -> ``search`` -> ``Server.build``/``search`` in auto
-   (exact) mode, f32 and bf16 storage, each checked against a float64
-   oracle computed on the card; the card's hash search is also checked
-   against the same search on the CPU for a subset of queries.
+   ``--seed``, 1000 queries, k = 10, tries = 10), each path with the launch
+   counts set to 0 just before it and read just after: ``build`` (exact kNN
+   graph through the rank kernel) -> ``search``; the two-phase engine
+   (``exact_knn_twophase`` at k = 10 and 64, ``exact_search`` at k = 256,
+   ``Server`` auto in f32 and bf16); the same servers with
+   ``no_twophase=True`` (the rank kernel).  Results are checked against a float64 oracle on the
+   card, and the card's hash search against the same search on the CPU;
+4. the rank/two-phase crossover on prefixes of the corpus (250k, 500k, 1M;
+   f32 and bf16) and a ``torch.profiler`` breakdown of two-phase serving.
 
-Before the last line it prints one JSON object with the kernel's launch
-count on the main path, its error against the plain version and both
-times; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
-card, or without the package beside it, the script fails.
+Before the last line it prints one JSON object with each kernel's launch
+count on the main path, its error against the plain version, its time, the
+plain version's, its bound and a library call's time where one exists; the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
+without the package beside it, the script fails.
 """
 
 from __future__ import annotations
@@ -37,16 +48,27 @@ import torch
 import approximatenn_tpu_torch as ann
 from approximatenn_tpu_torch.harness.scoring import ids_agree, recall_at_k
 from approximatenn_tpu_torch.ops import exact as ex
+from approximatenn_tpu_torch.ops import twophase as tp
 from approximatenn_tpu_torch.ops.distance import brute_force_knn
 from approximatenn_tpu_torch.ops.hash import query_codes
 from approximatenn_tpu_torch.utils.profiling import fence
 
-KERNEL_SOURCE = "approximatenn_tpu_torch/csrc/exact_knn.cu"
-REPLACES = "approximatenn_tpu/ops/pallas_exact.py:267"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "exact_knn": ("approximatenn_tpu_torch/csrc/exact_knn.cu",
+                  "approximatenn_tpu/ops/pallas_exact.py:267"),
+    "twophase_emit": ("approximatenn_tpu_torch/csrc/twophase_knn.cu",
+                      "approximatenn_tpu/ops/pallas_exact.py:383"),
+    "twophase_rescan": ("approximatenn_tpu_torch/csrc/twophase_knn.cu",
+                        "approximatenn_tpu/ops/pallas_exact.py:1144"),
+}
 N = 1_000_000  # SIFT-1M's shape: N x 128 float32
 M = 1000  # queries per batch
 GRAPH_CHUNK = 65536  # engine/build.py:exact_graph_chunked's chunk_q
 CPU_CHECK_QUERIES = 50
+# H100 SXM datasheet peaks at 700 W (not measured here): fp32 on the CUDA
+# cores and HBM3; a kernel's bound is the larger of its two times
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def phase(name: str, msg: str) -> None:
@@ -93,6 +115,110 @@ def check_case(label, points, queries, k, *, exclude=None, scale=None,
     err = (da[fin] - db[:, :k][fin]).abs().max().item() if fin.any() else 0.0
     phase("kernel", f"{label}: ok (max_abs_err {err:.3g}, near-tie rows {tied})")
     return err
+
+
+def bound(flop: float, nbytes: float) -> tuple[float, str]:
+    """(least milliseconds the card could take, what bounds it)."""
+    t_ops, t_bytes = flop / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def near_tie_ok(points, q, ids_a, ids_b, rtol=1e-5) -> bool:
+    """Rows (r, id_a, id_b) of a kernel/plain id disagreement are allowed
+    when both ids lie at float64 squared distances within ``rtol``."""
+    x = points.double()
+    qd = q.double()
+    da = (x[ids_a[:, 1].long()] - qd[ids_a[:, 0]]).pow(2).sum(-1)
+    db = (x[ids_b.long()] - qd[ids_a[:, 0]]).pow(2).sum(-1)
+    return bool(((da - db).abs() <= rtol * db.abs()).all())
+
+
+def kernel_queries(points, queries, scale):
+    """Queries as the kernels multiply them (rounded to a half corpus's
+    type, quantised for int8)."""
+    q, _, _ = ex._prepare(points, queries, scale)
+    if points.dtype in (torch.bfloat16, torch.float16):
+        q = q.to(points.dtype).float()
+    return q
+
+
+def check_emit(label, points, queries, seg, *, exclude=None, scale=None) -> float:
+    """The emit kernel against its plain version: minima at rtol 1e-5 /
+    atol 1e-4 (both widen to fp32; only the summation order differs),
+    argmin ids equal outside near-ties."""
+    va, ia = tp.segment_minima(points, queries, seg, exclude=exclude, scale=scale)
+    vb, ib = tp.segment_minima_plain(points, queries, seg, exclude=exclude, scale=scale)
+    fence()
+    n_seg = -(-points.shape[0] // seg)
+    if va.shape != (queries.shape[0], n_seg) or ia.dtype != torch.int32:
+        raise AssertionError(f"{label}: bad output {va.shape} {ia.dtype}")
+    fin = torch.isfinite(vb)
+    if not torch.equal(fin, torch.isfinite(va)):
+        raise AssertionError(f"{label}: +inf pattern differs")
+    if not torch.allclose(va[fin], vb[fin], rtol=1e-5, atol=1e-4):
+        err = (va[fin] - vb[fin]).abs().max().item()
+        raise AssertionError(f"{label}: minima differ, max abs {err}")
+    bad = torch.nonzero((ia != ib) & fin)
+    if bad.numel():
+        pairs = torch.stack([bad[:, 0], ia[bad[:, 0], bad[:, 1]]], 1)
+        if not near_tie_ok(points.float(), kernel_queries(points, queries, scale), pairs,
+                           ib[bad[:, 0], bad[:, 1]]):
+            raise AssertionError(f"{label}: argmin ids differ outside near-ties")
+    err = (va[fin] - vb[fin]).abs().max().item() if fin.any() else 0.0
+    phase("kernel", f"emit {label}: ok (max_abs_err {err:.3g}, near-tie "
+                    f"segments {bad.shape[0]})")
+    return err
+
+
+def window_starts(points, queries, P, seg, scale=None):
+    """The rescan's windows: the P best segments per query (start n for an
+    exhausted pick), as exact_knn_twophase picks them."""
+    n = points.shape[0]
+    sel, _ = tp.segment_merge(points, queries, P, seg, scale=scale)
+    return torch.where(sel < n, sel // seg * seg, torch.full_like(sel, n))
+
+
+def check_rescan(label, points, q, starts, seg, k) -> float:
+    """The rescan kernel against its plain version: ids equal outside
+    near-ties (emit-all: equal), distances at rtol 1e-5 / atol 1e-4."""
+    ia, da = tp.rescan_windows(points, q, starts, seg, k)
+    if k is None:  # emit-all: every window row, positions fixed
+        ib, db = tp.rescan_windows_plain(points, q, starts, seg, None)
+        fence()
+        if not torch.equal(ia, ib):
+            raise AssertionError(f"{label}: emit-all ids differ")
+        fin = torch.isfinite(db)
+        ok_fin = torch.equal(fin, torch.isfinite(da))
+        tied = 0
+    else:
+        ib, db = tp.rescan_windows_plain(points, q, starts, seg, k + 1)
+        fence()
+        if ia.shape != (q.shape[0], k) or ia.dtype != torch.int32:
+            raise AssertionError(f"{label}: bad output {ia.shape} {ia.dtype}")
+        ok, tied = ids_agree(ia, ib[:, :k], db, rtol=1e-5)
+        if not ok:
+            raise AssertionError(f"{label}: ids differ outside near-ties")
+        db = db[:, :k]
+        fin = torch.isfinite(db)
+        ok_fin = torch.equal(fin, torch.isfinite(da)) and bool((ia[~fin] == points.shape[0]).all())
+    if not ok_fin:
+        raise AssertionError(f"{label}: sentinel pattern differs")
+    if not torch.allclose(da[fin], db[fin], rtol=1e-5, atol=1e-4):
+        err = (da[fin] - db[fin]).abs().max().item()
+        raise AssertionError(f"{label}: distances differ, max abs {err}")
+    err = (da[fin] - db[fin]).abs().max().item() if fin.any() else 0.0
+    phase("kernel", f"rescan {label}: ok (max_abs_err {err:.3g}, near-tie rows {tied})")
+    return err
+
+
+def rescan_rows(starts, n, seg) -> tuple[int, int]:
+    """(the (query, row) pairs the rescan scores for these windows, the
+    distinct corpus rows they cover).  The pairs set its operations; the
+    distinct rows are the least it must read, since queries that pick the
+    same segment share its rows."""
+    pairs = int(torch.clamp(n - starts.long(), 0, seg).sum())
+    uniq = torch.unique(starts[starts < n].long())
+    return pairs, int(torch.clamp(n - uniq, 0, seg).sum())
 
 
 def oracle64(points64, queries64, k):
@@ -169,11 +295,13 @@ def main() -> None:
 
     # -- phase 1: build ---------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = ex.build_library(verbose=True)
-    ex._library()
-    phase("build", f"nvcc sm_90a -> {lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    libs = ex.build_libraries(verbose=True)
+    for name in libs:
+        ex._library(name)
+    phase("build", f"nvcc sm_90a -> {', '.join(p.name for p in libs.values())} "
+                   f"in {time.perf_counter() - t0:.2f} s")
 
-    # -- phase 2: kernel against plain version ------------------------------------
+    # -- phase 2: kernels against plain versions ----------------------------------
     g = torch.Generator(device="cpu").manual_seed(args.seed)
 
     def randn(*shape):
@@ -205,39 +333,124 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     X = torch.from_numpy(rng.standard_normal((N, 128), dtype=np.float32)).to(dev)
     Y = torch.from_numpy(rng.standard_normal((M, 128), dtype=np.float32)).to(dev)
-    main_err = check_case(f"main shape n={N} m={M} k=10", X, Y, 10)
+    errs = {"exact_knn": check_case(f"main shape n={N} m={M} k=10", X, Y, 10)}
+    chunk_excl = torch.arange(GRAPH_CHUNK, dtype=torch.int32, device=dev)
     check_case(f"graph chunk n={N} m={GRAPH_CHUNK} exclude=self k=10", X,
-               X[:GRAPH_CHUNK], 10,
-               exclude=torch.arange(GRAPH_CHUNK, dtype=torch.int32, device=dev))
+               X[:GRAPH_CHUNK], 10, exclude=chunk_excl)
+    chunk_ms = cuda_ms(lambda: ex.exact_knn(X, X[:GRAPH_CHUNK], 10, exclude=chunk_excl),
+                       reps=1, warmup=0)
+    chunk_bound, chunk_by = bound(2.0 * GRAPH_CHUNK * N * 128,
+                                  4.0 * (N * 128 + GRAPH_CHUNK * 129) + 8.0 * GRAPH_CHUNK * 10)
+    phase("kernel", f"time graph chunk n={N} m={GRAPH_CHUNK} k=10: kernel {chunk_ms:.3f} ms, "
+                    f"bound {chunk_bound:.3f} ms ({chunk_by})")
     Xb = X.to(torch.bfloat16)
     check_case(f"bf16 main shape n={N} m={M} k=10", Xb, Y, 10, rtol=1e-3)
     kern_ms = cuda_ms(lambda: ex.exact_knn(X, Y, 10), reps=10)
     plain_ms = cuda_ms(lambda: ex.exact_knn_plain(X, Y, 10), reps=2)
     kern_bf16_ms = cuda_ms(lambda: ex.exact_knn(Xb, Y, 10), reps=10)
     plain_bf16_ms = cuda_ms(lambda: ex.exact_knn_plain(Xb, Y, 10), reps=2)
-    del Xb
+    lib_ms = cuda_ms(lambda: torch.topk((X * X).sum(-1) - 2.0 * (Y @ X.T), 10,
+                                        largest=False), reps=5)
     phase("kernel", f"time n={N} m={M} k=10: f32 kernel {kern_ms:.3f} ms "
-                    f"plain {plain_ms:.3f} ms; bf16 kernel {kern_bf16_ms:.3f} ms "
-                    f"plain {plain_bf16_ms:.3f} ms")
+                    f"plain {plain_ms:.3f} ms library topk {lib_ms:.3f} ms; bf16 "
+                    f"kernel {kern_bf16_ms:.3f} ms plain {plain_bf16_ms:.3f} ms")
+
+    # two-phase kernels: the serving shape first (seg = auto_seg(1M) = 128)
+    seg = tp.auto_seg(N)
+    k, P = 10, 10 + 2
+    errs["twophase_emit"] = check_emit(f"main shape n={N} m={M} seg={seg}", X, Y, seg)
+    starts = window_starts(X, Y, P, seg)
+    errs["twophase_rescan"] = check_rescan(f"main shape n={N} m={M} k={k} P={P} seg={seg}",
+                                           X, Y, starts, seg, k)
+    check_emit(f"exclude=self n={N} m={M}", X, X[:M], seg,
+               exclude=torch.arange(M, dtype=torch.int32, device=dev))
+    check_emit(f"bf16 main shape n={N}", Xb, Y, seg)
+    check_rescan(f"bf16 main shape n={N} k={k}", Xb, kernel_queries(Xb, Y, None),
+                 window_starts(Xb, Y, P, seg), seg, k)
+    for kk in (64, 126):
+        check_rescan(f"n={N} m={M} k={kk} P={kk + 2}", X, Y,
+                     window_starts(X, Y, kk + 2, seg), seg, kk)
+    y100 = Y[:100].contiguous()
+    for kk in (256, 1000):
+        check_rescan(f"emit-all n={N} m=100 k={kk} P={kk + 2}", X, y100,
+                     window_starts(X, y100, kk + 2, seg), seg, None)
+    check_rescan(f"m=1 n={N} k={k}", X, Y[:1].contiguous(), starts[:1].contiguous(),
+                 seg, k)
+    check_emit(f"m=1 n={N}", X, Y[:1].contiguous(), seg)
+    q96 = randn(1000, 96)
+    x96b = randn(20_011, 96)
+    for sg in (tp.auto_seg(20_011), 512):
+        check_emit(f"n=20011 d=96 seg={sg}", x96b, q96, sg)
+        check_rescan(f"n=20011 d=96 seg={sg} k={k}", x96b, q96,
+                     window_starts(x96b, q96, P, sg), sg, k)
+    check_emit("n=20011 d=96 seg=512 exclude", x96b, x96b[:1000].contiguous(), 512,
+               exclude=torch.arange(1000, dtype=torch.int32, device=dev))
+    for label, pts, sc in (("bf16", x20.to(torch.bfloat16), None),
+                           ("f16", x20.to(torch.float16), None),
+                           ("int8", x8, float(s8))):
+        check_emit(f"{label} n=20000 seg=32", pts, q1k, 32, scale=sc)
+        check_rescan(f"{label} n=20000 seg=32 k={k}", pts, kernel_queries(pts, q1k, sc),
+                     window_starts(pts, q1k, P, 32, scale=sc), 32, k)
+    # more windows than segments: the picks run out and their windows read nothing
+    check_rescan("exhausted n=100 seg=32 k=10 P=12", small, q1k[:50],
+                 window_starts(small, q1k[:50], P, 32), 32, k)
+    check_rescan("exhausted emit-all n=100 seg=32 P=12", small, q1k[:50],
+                 window_starts(small, q1k[:50], P, 32), 32, None)
+
+    emit_ms = cuda_ms(lambda: tp.segment_minima(X, Y, seg), reps=10)
+    emit_plain_ms = cuda_ms(lambda: tp.segment_minima_plain(X, Y, seg), reps=2)
+    rescan_ms = cuda_ms(lambda: tp.rescan_windows(X, Y, starts, seg, k), reps=20)
+    rescan_plain_ms = cuda_ms(lambda: tp.rescan_windows_plain(X, Y, starts, seg, k), reps=3)
+    phase("kernel", f"time n={N} m={M} k={k} seg={seg}: emit {emit_ms:.3f} ms plain "
+                    f"{emit_plain_ms:.3f} ms; rescan {rescan_ms:.3f} ms plain "
+                    f"{rescan_plain_ms:.3f} ms")
+    n_seg = -(-N // seg)
+    pairs, distinct = rescan_rows(starts, N, seg)
+    phase("kernel", f"rescan windows n={N} m={M} P={P} seg={seg}: {pairs} (query, row) "
+                    f"pairs over {distinct} distinct rows")
+    bounds = {
+        "exact_knn": bound(2.0 * M * N * 128, 4.0 * (N * 128 + M * 128) + 8.0 * M * k),
+        "twophase_emit": bound(2.0 * M * N * 128,
+                               4.0 * (N * 128 + M * 128) + 8.0 * M * n_seg),
+        "twophase_rescan": bound(3.0 * pairs * 128,
+                                 4.0 * (distinct * 128 + M * 128 + M * P) + 8.0 * M * k),
+    }
+    timing = {"exact_knn": (kern_ms, plain_ms, lib_ms),
+              "twophase_emit": (emit_ms, emit_plain_ms, None),
+              "twophase_rescan": (rescan_ms, rescan_plain_ms, None)}
+    for name, (b_ms, b_by) in bounds.items():
+        phase("kernel", f"bound {name}: {b_ms:.3f} ms ({b_by}); measured "
+                        f"{timing[name][0]:.3f} ms")
     if args.kernel_only:
         phase("done", "kernel-only run: main path not driven, no result line")
         return
 
     # -- phase 3: main path ---------------------------------------------------------
-    k, tries = 10, 10
     X64 = X.double()
     Y64 = Y.double()
     true_s = oracle64(X64, Y64, k)
+    true_big = oracle64(X64, Y64[:100], 256)
     fence()
+    total = dict.fromkeys(ex.launches, 0)
 
-    ex.reset_launch_counts()  # every count starts at 0 for the main path
+    def read_counts(path: str, need: tuple) -> dict:
+        counts = dict(ex.launches)
+        for name in need:
+            if counts[name] < 1:
+                raise AssertionError(f"{path}: kernel {name} was not launched")
+        for name, c in counts.items():
+            total[name] += c
+        phase("counts", f"{path}: " + ", ".join(f"{a} {b}" for a, b in counts.items()))
+        return counts
+
+    # path 1: build (exact graph through the rank kernel) -> hash search
+    tries = 10
+    ex.reset_launch_counts()
     t0 = time.perf_counter()
     index, graph, gd = ann.build(X, k, tries=tries, seed=0)
     fence()
     build_s = time.perf_counter() - t0
     build_launches = ex.launches["exact_knn"]
-    if build_launches < 1:
-        raise AssertionError("build did not launch the exact kernel for its graph")
     rows = torch.randperm(N, generator=g)[:200].to(dev)
     g_true = brute_force_knn(X64, X64[rows], k + 1)
     # drop the self-match (first entry, distance 0) from the oracle row
@@ -269,19 +482,31 @@ def main() -> None:
                     f"{CPU_CHECK_QUERIES} queries: {n_cmp} rows compared, ids equal "
                     f"outside near-ties ({n_tied} near-tie rows), distances rtol 1e-5")
     del index, graph, gd
+    read_counts("build -> search", ("exact_knn",))
 
-    before = ex.launches["exact_knn"]
+    # path 2: the two-phase engine through its entry points
+    ex.reset_launch_counts()
+    for label, kk, qq, truth in (("exact_knn_twophase", 10, Y, true_s),
+                                 ("exact_knn_twophase", 64, Y[:100], true_big),
+                                 ("exact_search", 256, Y[:100], true_big)):
+        fn = tp.exact_knn_twophase if label == "exact_knn_twophase" else ann.exact_search
+        pids, pd = fn(X, qq.contiguous(), kk)
+        fence()
+        if pids.shape != (qq.shape[0], kk) or not torch.isfinite(pd).all():
+            raise AssertionError(f"{label} k={kk} returned a bad result")
+        tie = _tie_recall(X64, Y64[: qq.shape[0]], pids, truth[1], kk)
+        if tie != 1.0:
+            raise AssertionError(f"{label} k={kk}: recall up to ties {tie}, not 1.0")
+        phase("path", f"{label} n={N} m={qq.shape[0]} k={kk}: recall@{kk} up to "
+                      f"ties vs f64 oracle {tie:.4f}")
     results = {}
-    for label, sdt in (("f32", None), ("bf16", torch.bfloat16)):
-        srv = ann.Server.build(X, k, storage_dtype=sdt)
-        desc = srv.describe()
-        if desc["mode"] != "exact" or desc["exact_engine"] != "cuda-rank":
-            raise AssertionError(f"Server auto did not resolve to the exact kernel: {desc}")
-        sids, sd = srv.search(Y)  # warm-up
+
+    def serve(label, srv, **kw):
+        sids, sd = srv.search(Y, **kw)  # warm-up
         fence()
         reps = 20
         t0 = time.perf_counter()
-        outs = [srv.search(Y) for _ in range(reps)]
+        outs = [srv.search(Y, **kw) for _ in range(reps)]
         fence()
         qps = M * reps / (time.perf_counter() - t0)
         sids, sd = outs[-1]
@@ -289,26 +514,82 @@ def main() -> None:
             raise AssertionError("Server.search returned a bad result")
         rec, tie_rec = recall_up_to_ties(X64, Y64, sids, true_s, k)
         results[label] = (qps, rec, tie_rec)
-        phase("server", f"Server exact {label} n={N} m={M}: pipelined "
+        phase("server", f"Server {label} n={N} m={M}: pipelined "
                         f"{qps:.1f} QPS, recall@10 {rec:.4f} (up to ties {tie_rec:.4f})")
-        del srv, outs
-    if results["f32"][2] != 1.0:
-        raise AssertionError(f"f32 exact recall up to ties is {results['f32'][2]}, not 1.0")
-    server_launches = ex.launches["exact_knn"] - before
-    if server_launches < 1:
-        raise AssertionError("Server exact mode did not launch the kernel")
-    total = ex.launches["exact_knn"]
-    phase("counts", f"exact_knn launches on the main path: {total} "
-                    f"(build {build_launches}, Server {server_launches})")
+
+    servers = {}
+    for label, sdt in (("f32", None), ("bf16", torch.bfloat16)):
+        srv = ann.Server.build(X, k, storage_dtype=sdt)
+        desc = srv.describe()
+        if desc["mode"] != "exact" or desc["exact_engine"] != "cuda-twophase":
+            raise AssertionError(f"Server auto did not resolve to the two-phase engine: {desc}")
+        serve(f"exact {label} (cuda-twophase)", srv)
+        servers[label] = srv
+    if results["exact f32 (cuda-twophase)"][2] != 1.0:
+        raise AssertionError("f32 two-phase recall up to ties is not 1.0")
+    read_counts("two-phase engine", ("twophase_emit", "twophase_rescan"))
+
+    # path 3: the same server escaping the route runs the rank kernel
+    ex.reset_launch_counts()
+    for label in ("f32", "bf16"):
+        serve(f"exact {label} no_twophase (cuda-rank)", servers[label], no_twophase=True)
+    if results["exact f32 no_twophase (cuda-rank)"][2] != 1.0:
+        raise AssertionError("f32 rank recall up to ties is not 1.0")
+    read_counts("Server no_twophase", ("exact_knn",))
+
+    # -- phase 4: crossover and profile -----------------------------------------------
+    for label, Xs in (("f32", X), ("bf16", Xb)):
+        for n in (250_000, 500_000, N):
+            Xn = Xs[:n]
+            rank_ms = cuda_ms(lambda: ex.exact_knn(Xn, Y, k), reps=5)
+            two_ms = cuda_ms(lambda: tp.exact_knn_twophase(Xn, Y, k), reps=5)
+            phase("crossover", f"{label} n={n} m={M} k={k} seg={tp.auto_seg(n)}: rank "
+                               f"{rank_ms:.3f} ms two-phase {two_ms:.3f} ms "
+                               f"(two-phase/rank {two_ms / rank_ms:.3f})")
+    profile_serving(servers["f32"], Y)
+    del servers
 
     print(json.dumps({"kernels": [{
-        "name": "exact_knn", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": total, "max_abs_err": main_err,
-        "ms": kern_ms, "plain_ms": plain_ms}]}))
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "launches": total[name], "max_abs_err": errs[name],
+        "ms": timing[name][0], "plain_ms": timing[name][1],
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": timing[name][2]} for name, (src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def profile_serving(srv, Y, reps: int = 5) -> None:
+    """torch.profiler over ``reps`` pipelined searches: device time by
+    kernel and the card's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    srv.search(Y)
+    fence()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            srv.search(Y)
+        fence()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        # an aten op's device time is its kernels', which have rows of their own
+        if dev_us > 0 and not ev.key.startswith("aten::"):
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    phase("profile", f"Server f32 two-phase, {reps} calls: wall {wall_ms / reps:.3f} ms "
+                     f"per call, device {busy / reps:.3f} ms per call, idle share "
+                     f"{1 - busy / wall_ms:.3f}")
+    for ms, count, key in rows[:8]:
+        phase("profile", f"  {ms / reps:.3f} ms/call ({100 * ms / busy:.1f}%), "
+                         f"{count // reps} launches/call: {key[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The exact-kNN kernel's plain PyTorch version against the JAX Pallas
 kernel (run in interpret mode, as tests/test_pallas.py runs it) and the
-oracles, on the CPU; the CUDA kernel itself against the plain version on a
-card (``cuda`` marker; skipped without one).
+oracles, on the CPU; the CUDA kernels themselves (rank, two-phase emit and
+rescan) against their plain versions on a card (``cuda`` marker; skipped
+without one).
 
 Ids must be equal outside near-ties (adjacent reference distances within
 1e-5 relative); distances agree at rtol=1e-5, atol=1e-4 (different
@@ -156,10 +157,13 @@ def test_package_imports_no_jax():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rank", "emit", "rescan"])
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
-def test_kernel_matches_plain_on_card(dt):
+def test_kernel_matches_plain_on_card(dt, kernel):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from approximatenn_tpu_torch.ops import twophase as tp
+
     g = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
     p = torch.randn(5003, 96, generator=g).to(dev)
@@ -171,12 +175,59 @@ def test_kernel_matches_plain_on_card(dt):
         p = p.to(torch.float16)
     elif dt == "int8":
         p, scale = ex.quantize_corpus(p)
+    rtol = 1e-3 if dt in ("bf16", "f16") else 1e-5
     excl = torch.arange(300, dtype=torch.int32, device=dev)
-    for k, e in ((1, None), (10, excl), (128, None)):
-        before = ex.launches["exact_knn"]
-        ia, da = ex.exact_knn(p, q, k, exclude=e, scale=scale)
-        assert ex.launches["exact_knn"] == before + 1
-        ib, db = ex.exact_knn_plain(p, q, k + 1, exclude=e, scale=scale)
-        torch.cuda.synchronize()
-        assert_match(ia.cpu(), da.cpu(), ib[:, :k].cpu(), db.cpu(),
-                     rtol=1e-3 if dt in ("bf16", "f16") else 1e-5)
+    if kernel == "rank":
+        for k, e in ((1, None), (10, excl), (128, None)):
+            before = ex.launches["exact_knn"]
+            ia, da = ex.exact_knn(p, q, k, exclude=e, scale=scale)
+            assert ex.launches["exact_knn"] == before + 1
+            ib, db = ex.exact_knn_plain(p, q, k + 1, exclude=e, scale=scale)
+            torch.cuda.synchronize()
+            assert_match(ia.cpu(), da.cpu(), ib[:, :k].cpu(), db.cpu(), rtol=rtol)
+    elif kernel == "emit":
+        for seg, e in ((16, None), (64, excl), (128, None), (512, excl)):
+            before = ex.launches["twophase_emit"]
+            va, ia = tp.segment_minima(p, q, seg, exclude=e, scale=scale)
+            assert ex.launches["twophase_emit"] == before + 1
+            vb, ib = tp.segment_minima_plain(p, q, seg, exclude=e, scale=scale)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(vb)
+            assert torch.equal(fin, torch.isfinite(va))
+            np.testing.assert_allclose(va[fin].cpu().numpy(), vb[fin].cpu().numpy(),
+                                       rtol=1e-5, atol=1e-4)  # both widen to fp32
+            # argmin ids may differ only where two rows of a segment near-tie
+            qq, _, _ = ex._prepare(p, q, scale)  # as the kernel multiplies them
+            if dt in ("bf16", "f16"):
+                qq = qq.to(p.dtype).float()
+            x = p.double()
+            rows = torch.nonzero((ia != ib) & fin)
+            for r, s in rows.tolist()[:50]:
+                sa = (x[ia[r, s]] - qq[r].double()).pow(2).sum()
+                sb = (x[ib[r, s]] - qq[r].double()).pow(2).sum()
+                assert abs(float(sa - sb)) <= 1e-4 * abs(float(sb)) + 1e-3
+    else:
+        m = q.shape[0]
+        qq, _, _ = ex._prepare(p, q, scale)
+        for seg, k in ((64, 10), (128, 128), (32, None)):
+            P = 12 if k is None else k + 2
+            sel, _ = tp.segment_merge(p, q, P, seg, scale=scale)
+            starts = torch.where(sel < p.shape[0], sel // seg * seg,
+                                 torch.full_like(sel, p.shape[0]))
+            starts[0, -3:] = p.shape[0]  # exhausted picks
+            before = ex.launches["twophase_rescan"]
+            ia, da = tp.rescan_windows(p, qq, starts, seg, k)
+            assert ex.launches["twophase_rescan"] == before + 1
+            ib, db = tp.rescan_windows_plain(p, qq, starts, seg, k)
+            torch.cuda.synchronize()
+            assert ia.shape == ib.shape == (m, P * seg if k is None else k)
+            if k is None:
+                assert torch.equal(ia, ib)
+                fin = torch.isfinite(db)
+                assert torch.equal(fin, torch.isfinite(da))
+                np.testing.assert_allclose(da[fin].cpu().numpy(), db[fin].cpu().numpy(),
+                                           rtol=1e-5, atol=1e-4)
+            else:
+                _, d_next = tp.rescan_windows_plain(p, qq, starts, seg, min(k + 1, 128))
+                dref = torch.cat([db, d_next[:, k:]], 1) if k < 128 else db
+                assert_match(ia.cpu(), da.cpu(), ib.cpu(), dref.cpu())

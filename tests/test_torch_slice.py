@@ -196,3 +196,19 @@ def test_precomp_and_query_aliases(data):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     gi, gd = tann.build_graph_only(T(X[:500]), 5, tries=2, seed=4)
     assert torch.equal(gi, graph)
+
+
+def test_entry_points_default_to_the_card(data):
+    """A numpy corpus with no device goes to the CUDA card: without one,
+    ``build`` and ``Server.build`` raise rather than quietly running on the
+    CPU.  ``device="cpu"`` (or a CPU tensor) still asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    X, _ = data
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tann.build(X[:300], 5, tries=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tann.Server.build(X[:300], 5)
+    idx, _, _ = tann.build(X[:300], 5, tries=2, device="cpu")
+    assert idx.device.type == "cpu"
+    assert tann.Server.build(X[:300], 5, device="cpu").points.device.type == "cpu"

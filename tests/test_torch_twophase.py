@@ -1,0 +1,234 @@
+"""The port's two-phase exact engine (``ops/twophase.py``) against the JAX
+package's ``exact_knn_pallas(merge="twophase")`` and ``exact_knn_twophase``
+(Pallas in interpret mode, as tests/test_pallas.py runs them) and the float
+oracle, on the CPU where the plain versions of the emit and rescan kernels
+run; plus the routing of ``exact_search`` and ``Server``.  The kernels
+themselves are held against the plain versions on a card by the
+``cuda``-marked test in tests/test_torch_exact.py.
+
+JAX is imported only inside the tests that compare with it.
+"""
+
+import dataclasses
+import math
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import approximatenn_tpu_torch as tann
+from approximatenn_tpu_torch.ops import exact as ex
+from approximatenn_tpu_torch.ops import twophase as tp
+
+torch.set_num_threads(1)
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def test_segment_merge_matches_pallas_interpret(rng):
+    """Phases 1 + 2 (one candidate per segment) at the shape of
+    tests/test_pallas.py::test_twophase_merge_matches_reference_semantics."""
+    import jax.numpy as jnp
+
+    from approximatenn_tpu.ops.pallas_exact import exact_knn_pallas
+
+    n, d, m, k, seg = 4096, 32, 24, 5, 64
+    p = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((m, d)).astype(np.float32)
+    ji, jdd = exact_knn_pallas(jnp.asarray(p), jnp.asarray(q), k, tile=512,
+                               query_block=8, interpret=True, merge="twophase",
+                               twophase_seg=seg)
+    ti, tdd = ex.exact_knn(T(p), T(q), k, merge="twophase", twophase_seg=seg)
+    assert ti.dtype == torch.int32 and tdd.dtype == torch.float32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tdd.numpy(), np.asarray(jdd), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+def test_twophase_matches_jax_interpret_and_oracle(rng, dt):
+    """The exact engine at the shape of tests/test_pallas.py::
+    test_twophase_exact_engine_matches_oracle (n = 4099: a partial last
+    segment)."""
+    import jax.numpy as jnp
+
+    from approximatenn_tpu.ops.pallas_exact import exact_knn_twophase as j_twophase
+    from approximatenn_tpu.ops.pallas_exact import quantize_corpus as j_quantize
+
+    n, d, m, k, seg = 4099, 32, 30, 8, 64
+    p = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((m, d)).astype(np.float32)
+    jp, tpts, jscale, scale = jnp.asarray(p), T(p), None, None
+    oracle_p, oracle_q = T(p), T(q)
+    if dt == "bf16":
+        jp, tpts = jp.astype(jnp.bfloat16), tpts.to(torch.bfloat16)
+        oracle_p = tpts.float()
+        oracle_q = T(q).to(torch.bfloat16).float()
+    elif dt == "int8":
+        jp, jscale = j_quantize(jp)
+        tpts, scale = ex.quantize_corpus(tpts)
+        oracle_p = tpts.float() * scale
+        oracle_q = torch.clamp(torch.round(T(q) / scale), -127, 127) * scale
+    ji, jdd = j_twophase(jp, jnp.asarray(q), k, seg=seg, scale=jscale,
+                         interpret=True)
+    ti, tdd = tp.exact_knn_twophase(tpts, T(q), k, seg=seg, scale=scale)
+    oi, _ = tann.brute_force_knn(oracle_p.double(), oracle_q.double(), k)
+    assert ti.dtype == torch.int32 and tdd.dtype == torch.float32
+    np.testing.assert_array_equal(np.sort(ti.numpy(), 1), np.sort(np.asarray(ji), 1))
+    np.testing.assert_array_equal(np.sort(ti.numpy(), 1), np.sort(oi.numpy(), 1))
+    tol = 1e-5 if dt == "f32" else 1e-3
+    np.testing.assert_allclose(tdd.numpy(), np.asarray(jdd), rtol=tol, atol=1e-4)
+    assert (np.diff(tdd.numpy(), axis=1) >= 0).all()
+
+
+@pytest.mark.parametrize("rescan", ["dma", "xla"])
+def test_big_k_emit_all_matches_oracle(rng, rescan):
+    """k > 128: the rescan returns every window row and the final top-k
+    runs in PyTorch (the shape of tests/test_pallas.py::
+    test_twophase_bigk_matches_oracle, checked against the oracle because
+    that JAX test is slow in interpret mode)."""
+    n, d, m, k, seg = 3001, 17, 9, 150, 16
+    p = T(rng.standard_normal((n, d)).astype(np.float32))
+    q = T(rng.standard_normal((m, d)).astype(np.float32))
+    ti, tdd = tp.exact_knn_twophase(p, q, k, seg=seg, rescan=rescan)
+    oi, od = tann.brute_force_knn(p.double(), q.double(), k)
+    assert ti.shape == (m, k)
+    np.testing.assert_array_equal(np.sort(ti.numpy(), 1), np.sort(oi.numpy(), 1))
+    np.testing.assert_allclose(tdd.numpy(), od.numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1_000, 250_000, 1_000_000, 10_000_000])
+def test_auto_seg_is_the_jax_formula(n):
+    # ops/pallas_exact.py:exact_knn_twophase, seg=None (f32 align 8 never binds)
+    want = max(min(512, max(32, 1 << (math.isqrt(n) // 8).bit_length())), 8)
+    assert tp.auto_seg(n) == want
+    assert tp.auto_seg(n) & (tp.auto_seg(n) - 1) == 0
+
+
+def test_segment_minima_plain_semantics(rng):
+    """Segments are global and contiguous, the last one partial; the
+    excluded id and exhausted picks mask out; ties go to the smaller id."""
+    n, d, seg = 203, 8, 32
+    p = rng.standard_normal((n, d)).astype(np.float32)
+    p[40] = p[33]  # a tie inside segment 1
+    q = np.stack([p[33] * 0 + 0.1, p[5]]).astype(np.float32)
+    excl = torch.tensor([-1, 5], dtype=torch.int32)
+    mins, ids = tp.segment_minima(T(p), T(q), seg, exclude=excl)
+    assert mins.shape == (2, 7) and ids.dtype == torch.int32
+    score = (p * p).sum(-1)[None] - 2.0 * q @ p.T
+    score[1, 5] = np.inf
+    for s in range(7):
+        blk = score[:, s * seg: (s + 1) * seg]
+        np.testing.assert_allclose(mins[:, s].numpy(), blk.min(1), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(ids[:, s].numpy(), s * seg + blk.argmin(1))
+    assert int(ids[1, 0]) != 5
+    # k beyond the segment count: sentinel picks, then exhausted windows
+    si, sd = tp.segment_merge(T(p), T(q), 9, seg)
+    assert (si[:, 7:] == n).all() and torch.isinf(sd[:, 7:]).all()
+    ti, tdd = tp.exact_knn_twophase(T(p), T(q), 6, seg=128)  # P = 8 > 2 segments
+    oi, _ = tann.brute_force_knn(T(p).double(), T(q).double(), 6)
+    np.testing.assert_array_equal(np.sort(ti.numpy(), 1), np.sort(oi.numpy(), 1))
+
+
+def test_smallest_orders_by_distance_then_id():
+    d = torch.tensor([[1.0, -0.0, 0.0, -2.0, 1.0, float("inf")]])
+    ids = torch.tensor([[9, 7, 3, 8, 2, 1]], dtype=torch.int32)
+    out_d, out_i = tp.smallest(d, ids, 8)
+    assert out_i.tolist() == [[8, 3, 7, 2, 9, 1, 2**31 - 1, 2**31 - 1]]
+    assert out_d[0, :5].tolist() == [-2.0, 0.0, 0.0, 1.0, 1.0]
+    assert torch.isinf(out_d[0, 5:]).all()
+
+
+ROUTES = {
+    # name: (n, k, kw, no_twophase, engine on a CUDA corpus)
+    "small_n_rank": (100_000, 10, {}, False, "rank"),
+    "large_n_twophase": (500_000, 10, {}, False, "twophase"),
+    "two_phase_knobs": (500_000, 10, {"seg": 64, "rescan": "xla"}, False, "twophase"),
+    "k_plus_2_over_128": (500_000, 127, {}, False, "rank"),
+    "no_twophase": (500_000, 10, {}, True, "rank"),
+    "rank_knob_pinned": (500_000, 10, {"merge": "rank"}, False, "rank"),
+    "big_k": (10_000, 200, {}, False, "twophase"),
+    "big_k_no_twophase": (10_000, 200, {}, True, "twophase"),
+    "big_k_near_n": (1_000, 200, {}, False, "brute"),
+    "big_k_rank_knob": (10_000, 200, {"merge": "rank"}, False, "brute"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_exact_search_route(case):
+    n, k, kw, no_tp, want = ROUTES[case]
+    assert tp.route(n, k, kw, no_tp) == want
+
+
+def test_server_route_twophase_predicate(rng):
+    X = T(rng.standard_normal((3000, 16)).astype(np.float32))
+    srv = tann.Server.build(X, 10, twophase_min_n=1000)
+    assert srv.mode == "exact" and srv._twophase and srv.twophase_min_n == 1000
+    assert not srv._route_twophase(10)  # a CPU corpus runs the oracle
+    assert srv.describe()["exact_engine"] == "oracle"
+    assert not tann.Server.build(X, 10)._twophase  # below TWOPHASE_MIN_N
+    assert not tann.Server.build(X, 127, twophase_min_n=1000)._twophase
+    # the predicate's CUDA branches, no card needed: it reads only the
+    # corpus's device and row count
+    on_card = SimpleNamespace(device=torch.device("cuda"), shape=X.shape)
+    card = dataclasses.replace(srv, points=on_card)
+    assert card._route_twophase(10)
+    assert not card._route_twophase(10, no_twophase=True)
+    assert not card._route_twophase(10, skw={"merge": "rank"})
+    assert card._route_twophase(10, skw={"seg": 32, "pad_segments": 3})
+    assert not card._route_twophase(127)
+    # k > 128 rides the two-phase engine, no_twophase or not (the JAX
+    # package drops to brute force here: the no_twophase it forwards fails
+    # its big-k keyword gate, engine/serving.py:328, ops/pallas_exact.py:1635)
+    assert card._route_twophase(200)
+    assert card._route_twophase(200, no_twophase=True)
+    assert not card._route_twophase(2990)  # k close to n
+    assert card.exact_engine() == "cuda-twophase"
+    # a build below its twophase_min_n serves the rank kernel
+    below = dataclasses.replace(card, _twophase=False, twophase_min_n=5000)
+    assert not below._route_twophase(10)
+    assert below.exact_engine() == "cuda-rank"
+    assert below._route_twophase(200)
+    # the rule the predicate forwards to, with the Server's own threshold
+    assert tp.route(3000, 10, {}, min_n=1000) == "twophase"
+    assert tp.route(3000, 10, {}, min_n=5000) == "rank"
+    assert tp.route(3000, 10, {}, True, min_n=1000) == "rank"
+
+
+def test_server_big_k_matches_jax(rng):
+    """Server exact search at k > 128 on the CPU against the JAX Server.
+    Both run the oracle here; on an accelerator the JAX Server reaches it
+    only through the reference bug (no_twophase fails exact_search's big-k
+    gate, engine/serving.py:328), while the port routes the two-phase
+    engine on CUDA (see test_server_route_twophase_predicate)."""
+    import jax.numpy as jnp
+
+    import approximatenn_tpu as jann
+
+    X = rng.standard_normal((2000, 12)).astype(np.float32)
+    Y = rng.standard_normal((7, 12)).astype(np.float32)
+    ji, jdd = jann.Server.build(jnp.asarray(X), 150).search(jnp.asarray(Y))
+    srv = tann.Server.build(T(X), 150)
+    ti, tdd = srv.search(T(Y), no_twophase=True, seg=16)
+    assert srv.describe()["exact_engine"] == "oracle"
+    np.testing.assert_array_equal(np.sort(ti.numpy(), 1), np.sort(np.asarray(ji), 1))
+    np.testing.assert_allclose(tdd.numpy(), np.asarray(jdd), rtol=1e-5, atol=1e-4)
+
+
+def test_exact_knn_merge_options():
+    p = torch.zeros((10, 4))
+    q = torch.zeros((2, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ex.exact_knn(p, q, 3, merge="rescan")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ex.exact_knn(p, q, 3, stream=True)
+    with pytest.raises(ValueError):
+        ex.exact_knn(p, q, 3, merge="bogus")
+    with pytest.raises(ValueError):
+        tp.exact_knn_twophase(p, q, 3, seg=24)  # not a power of two
+    with pytest.raises(ValueError):
+        tp.exact_knn_twophase(p, q, 3, rescan="bogus")
+    ids, dd = ex.exact_knn(p, q, 200, merge="twophase", twophase_seg=4)  # any k
+    assert ids.shape == (2, 200) and (ids[:, 3:] == 10).all()
