@@ -9,13 +9,15 @@ never jax.
     index, graph, dists = build(points, k, tries=..., generator=...)  # precomp
     ids, dists = search(index, points, queries)                       # query
     ids, dists = exact_search(points, queries, k)                     # exact
+    pv = index.packed(dtype=torch.bfloat16, window=96)               # packed view
+    ids, dists = search_packed_fused(pv, queries, n_probes=18)       # probe kernel
 """
 
 from .config import ftype, itype, set_ftype
 from .engine.build import build, build_graph_only
-from .engine.search import search
+from .engine.search import search, search_packed, search_packed_fused
 from .engine.serving import Server
-from .index import ANNIndex
+from .index import ANNIndex, PackedIndex, stage_points
 from .ops.distance import brute_force_knn, brute_force_knn_self
 from .ops.exact import exact_search, quantize_corpus
 from .ops.twophase import exact_knn_twophase
@@ -43,7 +45,8 @@ def query(index: ANNIndex, points, y, **kw):
 
 
 __all__ = [
-    "ANNIndex", "Server", "build", "build_graph_only", "search", "precomp",
+    "ANNIndex", "PackedIndex", "Server", "build", "build_graph_only", "search",
+    "search_packed", "search_packed_fused", "stage_points", "precomp",
     "query", "brute_force_knn", "brute_force_knn_self", "exact_search",
     "exact_knn_twophase", "quantize_corpus", "ftype", "itype", "set_ftype",
 ]

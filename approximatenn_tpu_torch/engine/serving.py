@@ -1,18 +1,22 @@
 """Serving facade (port of ``approximatenn_tpu/engine/serving.py``).
 
 ``Server`` picks the engine for a corpus: **exact** or **hash** (the
-reference algorithm over the padded tables).  ``mode="auto"`` picks exact
-up to ``exact_max_n`` points and hash beyond.  Exact mode on a CUDA corpus
-runs the JAX package's routing: the two-phase engine (emit + rescan
-kernels, ``ops/twophase.py``) from ``twophase_min_n`` points when k + 2 <=
-128, and for every k > 128 unless k is close to n; the rank kernel
-otherwise.  On the CPU it runs the float oracle.
+reference algorithm, over the padded tables with ``layout="table"`` or
+over the packed bucket-CSR view with ``layout="packed"``).
+``mode="auto"`` picks exact up to ``exact_max_n`` points and hash beyond.
+Exact mode on a CUDA corpus runs the JAX package's routing: the two-phase
+engine (emit + rescan kernels, ``ops/twophase.py``) from
+``twophase_min_n`` points when k + 2 <= 128, and for every k > 128 unless
+k is close to n; the rank kernel otherwise.  On the CPU it runs the float
+oracle.  Packed hash serving on a CUDA view runs ``search_packed_fused``
+(the probe-window kernel) from ``fused_min_batch`` queries (0: always, the
+JAX default on an accelerator), the plain ``search_packed`` otherwise and
+on the CPU.
 
 The routing thresholds are injectable.  Their defaults are the JAX
 package's, which were measured on a TPU v5e and are not evidence for this
-card; PERF.md records the H100 crossover to retune them from.
+card; PERF.md records the H100 measurements to retune them from.
 The JAX package's lane-padded corpus is TPU layout and is not ported.
-``layout="packed"`` waits for the packed slice.
 """
 
 from __future__ import annotations
@@ -30,6 +34,25 @@ from ..ops.twophase import exact_knn_twophase, route
 
 # the JAX package's v5e-measured defaults (see the module docstring)
 EXACT_MAX_N_DEFAULT = 8_000_000
+# packed serving takes the probe kernel from this batch size on a CUDA view
+FUSED_MIN_BATCH = 0
+# the fused path's TPU knobs, which have no counterpart here
+_TPU_ONLY_KW = frozenset({"query_block", "interpret", "pos_mode"})
+
+
+def fused_min_batch(n: int) -> int:
+    """Smallest batch that packed serving sends to the probe kernel for an
+    n-point view: ``FUSED_MIN_BATCH`` at every n, as in the JAX package."""
+    return FUSED_MIN_BATCH
+
+
+def packed_route(n: int, batch: int, on_card: bool, min_batch: int | None = None) -> str:
+    """The engine a plain packed ``Server.search`` runs: "fused" (the probe
+    kernel) on a CUDA view from ``min_batch`` (default
+    :func:`fused_min_batch`) queries, else "plain" (``search_packed``; the
+    JAX package calls it "xla")."""
+    thr = fused_min_batch(n) if min_batch is None else min_batch
+    return "fused" if on_card and batch >= thr else "plain"
 
 
 @dataclass
@@ -46,28 +69,33 @@ class Server:
     mode: str
     metric: str = "l2"
     index: Any = None  # ANNIndex when mode == "hash"
+    packed: Any = None  # PackedIndex when layout == "packed"
     n_probes: int | None = None
     scale: float | None = None  # int8 storage tier's quantization step
     twophase_min_n: int = TWOPHASE_MIN_N
+    # packed serving's batch threshold for the probe kernel (None: default)
+    fused_min_batch: int | None = None
     # exact mode from twophase_min_n points with k + 2 <= 128 (set at build)
     _twophase: bool = False
 
     @classmethod
     def build(cls, points, k: int, *, mode: str = "auto", metric: str = "l2",
               exact_max_n: int | None = None, layout: str = "table",
-              n_probes: int | None = None, storage_dtype=None,
-              twophase_min_n: int | None = None, device=None,
-              **build_kw) -> "Server":
+              window: int | None = None, n_probes: int | None = None,
+              storage_dtype=None, packed_dtype=None,
+              twophase_min_n: int | None = None, fused_min_batch: int | None = None,
+              device=None, **build_kw) -> "Server":
         """``storage_dtype``: torch.bfloat16 / float16 store the corpus at
         half width (exact engine streams it as stored); torch.int8
         quantizes symmetrically (exact mode only, scale kept on the
-        server).  ``twophase_min_n`` overrides ``TWOPHASE_MIN_N``.
-        ``device`` defaults to a tensor's own device and to the CUDA card
-        otherwise (see :func:`config.default_device`)."""
-        if layout != "table":
-            raise NotImplementedError(
-                "layout='packed' is not ported to the PyTorch package yet "
-                "(ROADMAP queue A, item 9)")
+        server).  ``layout="packed"`` serves hash mode through the packed
+        view (``window`` read depth, ``packed_dtype`` row type, see
+        :meth:`ANNIndex.packed`).  ``twophase_min_n`` and
+        ``fused_min_batch`` override the routing defaults.  ``device``
+        defaults to a tensor's own device and to the CUDA card otherwise
+        (see :func:`config.default_device`)."""
+        if layout not in ("table", "packed"):
+            raise ValueError(f"unknown layout {layout!r}")
         points = torch.as_tensor(points, device=default_device(points, device))
         from ..data.preprocess import prepare_points
 
@@ -105,6 +133,7 @@ class Server:
         tp_min = TWOPHASE_MIN_N if twophase_min_n is None else twophase_min_n
         srv = cls(points=points, k=k, mode=mode, metric=metric,
                   n_probes=n_probes, scale=scale, twophase_min_n=tp_min,
+                  fused_min_batch=fused_min_batch,
                   _twophase=(mode == "exact" and n >= tp_min and k + 2 <= KMAX
                              and points.element_size() <= 4))
         if mode == "hash":
@@ -112,6 +141,8 @@ class Server:
 
             srv.index, _, _ = build(points, k, metric=metric, store_points=True,
                                     **build_kw)
+            if layout == "packed":
+                srv.packed = srv.index.packed(window=window, dtype=packed_dtype)
         return srv
 
     def _route_twophase(self, k: int, no_twophase: bool = False,
@@ -155,10 +186,35 @@ class Server:
             # re-make it with its own threshold
             return exact_search(self.points, queries, k, scale=self.scale,
                                 no_twophase=True, **skw)
+        kw.setdefault("n_probes", self.n_probes)
+        if self.packed is not None:
+            return self._search_packed(queries, kw)
         from .search import search
 
-        kw.setdefault("n_probes", self.n_probes)
         return search(self.index, queries=queries, **kw)
+
+    def _search_packed(self, queries, kw: dict):
+        """Packed hash serving: the probe kernel by ``packed_route`` unless
+        ``block_rows``/``budget_bytes`` pin the plain path; ``window``
+        reaches both.  The TPU kernel's knobs raise rather than being
+        ignored."""
+        from .search import search_packed, search_packed_fused
+
+        given = {key for key, v in kw.items() if v is not None}
+        tpu_only = sorted(_TPU_ONLY_KW & given)
+        if tpu_only:
+            raise ValueError(f"{tpu_only}: TPU-kernel knobs of the JAX package, with "
+                             "no counterpart on this package's probe kernel")
+        for key in _TPU_ONLY_KW:
+            kw.pop(key, None)
+        window = kw.pop("window", None)
+        plain_only = {"budget_bytes", "block_rows"} & given
+        on_card = self.packed.device.type == "cuda"
+        if not plain_only and packed_route(self.packed.n, queries.shape[0], on_card,
+                                           self.fused_min_batch) == "fused":
+            return search_packed_fused(self.packed, queries=queries, window=window, **kw)
+        pv = self.packed if window is None else self.packed.with_window(window)
+        return search_packed(pv, queries=queries, **kw)
 
     def exact_engine(self) -> str | None:
         """The engine a plain ``search`` runs in exact mode:
@@ -173,13 +229,50 @@ class Server:
             return "cuda-rank"
         return "oracle"
 
-    def add_points(self, *a, **kw):
-        raise NotImplementedError("Server.add_points is not ported to the "
-                                  "PyTorch package yet (ROADMAP queue A, item 10)")
+    def _repack(self) -> None:
+        if self.packed is not None:
+            self.packed = self.index.packed(window=self.packed.window,
+                                            dtype=self.packed.point_rows.dtype)
 
-    def remove_points(self, *a, **kw):
-        raise NotImplementedError("Server.remove_points is not ported to the "
-                                  "PyTorch package yet (ROADMAP queue A, item 10)")
+    def add_points(self, new_points) -> "Server":
+        """Append rows with ids n..n+m-1, in place (returns self).  Exact
+        mode: the rows are metric-prepared, converted to the stored tier
+        (int8 with the server's scale; values past the grid clip) and
+        appended.  Hash mode: :meth:`ANNIndex.add_points`, then a re-pack
+        of the packed view at its window and row type."""
+        new_points = torch.as_tensor(new_points, device=self.points.device)
+        if self.mode == "exact":
+            from ..data.preprocess import prepare_points
+
+            new_points = prepare_points(new_points.float(), self.metric)
+            if self.points.dtype == torch.int8:
+                new_points = torch.clamp(torch.round(new_points / self.scale),
+                                         -127, 127).to(torch.int8)
+            self.points = torch.cat([self.points, new_points.to(self.points.dtype)])
+            return self
+        self.index = self.index.add_points(new_points)
+        self.points = self.index.points
+        self._repack()
+        return self
+
+    def remove_points(self, ids) -> "Server":
+        """Remove rows by id, in place (returns self).  Exact mode compacts
+        the corpus (rows keep their order; ids above a removed row shift
+        down) and raises ``ValueError`` for an id outside [0, n).  Hash
+        mode tombstones through :meth:`ANNIndex.remove_points` (ids stay
+        stable) and re-packs."""
+        if self.mode == "exact":
+            n = self.points.shape[0]
+            uids = torch.unique(torch.as_tensor(ids).reshape(-1).long())
+            if uids.numel() and (int(uids[0]) < 0 or int(uids[-1]) >= n):
+                raise ValueError(f"ids to remove must lie in [0, {n})")
+            keep = torch.ones(n, dtype=torch.bool, device=self.points.device)
+            keep[uids.to(self.points.device)] = False
+            self.points = self.points[keep]
+            return self
+        self.index = self.index.remove_points(ids)
+        self._repack()
+        return self
 
     def describe(self) -> dict:
         d = {
@@ -198,6 +291,6 @@ class Server:
         if self.mode == "exact":
             d["exact_engine"] = self.exact_engine()
         if self.index is not None:
-            d["layout"] = "table"
-            d["index_mb"] = round(self.index.memory_bytes() / 2**20, 1)
+            d["layout"] = "packed" if self.packed is not None else "table"
+            d["index_mb"] = round((self.packed or self.index).memory_bytes() / 2**20, 1)
         return d

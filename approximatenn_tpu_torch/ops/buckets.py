@@ -1,9 +1,11 @@
 """Bucket (hash-table) construction and multiprobe candidate gather (port
-of ``approximatenn_tpu/ops/buckets.py``, padded table layout).
+of ``approximatenn_tpu/ops/buckets.py``): the padded tables and the packed
+bucket-CSR layout.
 
-Within-bucket order decides which entries an overflowing bucket drops, so
-the sort is stable (``torch.argsort(..., stable=True)``) and the JAX
-``mode="drop"`` scatter becomes an explicit ``rank < capacity`` mask.
+Within-bucket order decides which entries an overflowing bucket drops and
+where every point sits in the packed layout, so the sort is stable
+(``torch.argsort(..., stable=True)``) and the JAX ``mode="drop"`` scatter
+becomes an explicit ``rank < capacity`` mask.
 """
 
 from __future__ import annotations
@@ -42,6 +44,27 @@ def build_tables(codes: torch.Tensor, n_buckets: int, capacity: int,
     capacity)``, one table at a time (one sort workspace live)."""
     return torch.stack([build_table(c, n_buckets, capacity, sentinel)
                         for c in codes])
+
+
+def pack_table(codes: torch.Tensor, n_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """CSR layout of one table: ``(order (n,), starts (n_buckets,))`` int32,
+    point ids sorted stably by bucket code and the first slot of every
+    bucket in that order.  Bucket ``b`` owns ``order[starts[b]:starts[b+1]]``
+    (the final boundary is n); codes >= ``n_buckets`` sort past every
+    bucket."""
+    order = torch.argsort(codes, stable=True)
+    sorted_codes = codes[order]
+    starts = torch.searchsorted(
+        sorted_codes, torch.arange(n_buckets, dtype=codes.dtype, device=codes.device),
+        side="left")
+    return order.to(itype), starts.to(itype)
+
+
+def pack_tables(codes: torch.Tensor, n_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-table :func:`pack_table`: codes ``(tries, n)`` -> ``(order
+    (tries, n), starts (tries, n_buckets))``."""
+    parts = [pack_table(c, n_buckets) for c in codes]
+    return torch.stack([o for o, _ in parts]), torch.stack([s for _, s in parts])
 
 
 def multiprobe_gather(table: torch.Tensor, codes: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Exact k-NN: the hand-written CUDA kernels' build and launch counts, the
-rank kernel, its plain PyTorch twin, and the exact-search entry point.
+"""Exact k-NN: the hand-written CUDA kernels' build and launch counts (for
+every kernel source of the package), the rank kernel, its plain PyTorch
+twin, and the exact-search entry point.
 
 Port of ``approximatenn_tpu/ops/pallas_exact.py`` (the rank-merge Pallas
 kernel ``_kernel_rank`` behind ``exact_knn_pallas``, plus
@@ -33,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-from ..config import itype
+from ..config import default_device, itype
 
 KMAX = 128
 _MAX_SPLITS = 32
@@ -46,7 +47,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 # one shared library per kernel source; the headers are part of every one
 SOURCES = {"exact_knn": CSRC / "exact_knn.cu",
-           "twophase_knn": CSRC / "twophase_knn.cu"}
+           "twophase_knn": CSRC / "twophase_knn.cu",
+           "probe_knn": CSRC / "probe_knn.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -63,11 +65,13 @@ _ENTRY_POINTS = {
         "twophase_rescan_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                    _ci, _vp, _vp, _vp],
     },
+    "probe_knn": {"probe_topk_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
+                                        _ci, _ci, _ci, _vp, _vp, _vp]},
 }
 
 # kernel launches through the wrappers, plain counts a run reads to show
 # that its main path went through the kernels
-launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0}
+launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0, "probe_topk": 0}
 _libs: dict = {}
 
 
@@ -342,9 +346,19 @@ def quantize_corpus(points: torch.Tensor, scale=None,
     return out, scale
 
 
-def exact_search(points: torch.Tensor, queries: torch.Tensor, k: int, *,
-                 scale=None, matmul_precision: str = "highest",
-                 no_twophase: bool = False, **kw):
+def place(points, queries, device=None):
+    """(corpus, queries) of an exact entry point as tensors: the corpus on
+    :func:`config.default_device` (its own device for a tensor, ``device``
+    when given, else the card), the queries on the corpus's device in
+    float32 (float64 beside a float64 corpus, for the oracle)."""
+    points = torch.as_tensor(points, device=default_device(points, device))
+    qdt = torch.float64 if points.dtype == torch.float64 else torch.float32
+    return points, torch.as_tensor(queries, device=points.device).to(qdt)
+
+
+def exact_search(points, queries, k: int, *, scale=None,
+                 matmul_precision: str = "highest", no_twophase: bool = False,
+                 device=None, **kw):
     """Exact k-NN with the engine the tensors' device has, routed as the
     JAX package routes it on its accelerator (:func:`~.twophase.route`):
     on a CUDA corpus the two-phase engine at n >= ``TWOPHASE_MIN_N`` and
@@ -358,7 +372,9 @@ def exact_search(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     k = 128 there is no rank kernel to escape to.  An int8 corpus needs
     its ``scale``; on the CPU it is dequantised, and the queries snapped
     to the same grid, so both rank the same quantized values.  A bf16/f16
-    corpus is ranked on the CPU in float32 from its stored values."""
+    corpus is ranked on the CPU in float32 from its stored values.  Takes
+    tensors or array-likes (placed by :func:`place`)."""
+    points, queries = place(points, queries, device)
     if points.device.type == "cuda":
         from .twophase import TWOPHASE_ONLY_KW, exact_knn_twophase, route
 
@@ -366,7 +382,7 @@ def exact_search(points: torch.Tensor, queries: torch.Tensor, k: int, *,
         if pk.dtype not in _DTYPE_CODE:
             pk = pk.float()
         pk = pk.contiguous()
-        q = queries.to(device=pk.device, dtype=torch.float32).contiguous()
+        q = queries.float().contiguous()
         engine = route(pk.shape[0], k, kw, no_twophase)
         if engine == "twophase":
             return exact_knn_twophase(pk, q, k, scale=scale,
@@ -388,4 +404,4 @@ def exact_search(points: torch.Tensor, queries: torch.Tensor, k: int, *,
         # rank the stored values in float32: a half-precision |x|^2 (what
         # the JAX oracle computes for such a corpus) misranks neighbours
         points = points.float()
-    return brute_force_knn(points, queries.to(points.device), k)
+    return brute_force_knn(points, queries, k)

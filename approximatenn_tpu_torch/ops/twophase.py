@@ -32,7 +32,7 @@ import torch
 
 from ..config import itype
 from .exact import (_DTYPE_CODE, KMAX, _check, _prepare, device_index, launch_error,
-                    launches, splits, _library)
+                    launches, place, splits, _library)
 
 # At and above this corpus size exact serving takes the two-phase engine.
 # The JAX package's value, measured on a TPU v5e; the H100 crossover is
@@ -280,9 +280,9 @@ def rescan_windows_plain(points: torch.Tensor, q: torch.Tensor,
 
 # -- the engine -----------------------------------------------------------------
 
-def exact_knn_twophase(points: torch.Tensor, queries: torch.Tensor, k: int, *,
-                       seg: int | None = None, pad_segments: int = 2, scale=None,
-                       rescan: str = "dma", matmul_precision: str = "highest"):
+def exact_knn_twophase(points, queries, k: int, *, seg: int | None = None,
+                       pad_segments: int = 2, scale=None, rescan: str = "dma",
+                       matmul_precision: str = "highest", device=None):
     """EXACT two-phase k-NN: emit per-segment minima, pick the
     ``k + pad_segments`` best segments per query, rescan their rows.
     Returns (ids (m, k) int32 ascending, squared distances (m, k) float32
@@ -293,7 +293,9 @@ def exact_knn_twophase(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     ``seg`` (a power of two) defaults to :func:`auto_seg`.  ``rescan``:
     "dma" runs the rescan kernel on a CUDA corpus (the name is the JAX
     package's); "xla" the gather form, which is also the kernel's plain
-    version and what every CPU tensor runs."""
+    version and what every CPU tensor runs.  Takes tensors or array-likes,
+    placed as :func:`~.exact.exact_search` places them (``device``)."""
+    points, queries = place(points, queries, device)
     _check(points, queries, k, None, matmul_precision)
     if rescan not in ("dma", "xla"):
         raise ValueError(f"rescan must be 'dma' or 'xla', got {rescan!r}")

@@ -15,7 +15,10 @@ Phases, one line each, and a non-zero exit on the first failure:
    the serving shape (1M x 128 f32, m = 1000, k = 10: seg = 128, P = 12),
    k = 64 and k = 126, emit-all at k = 256 and k = 1000, n = 20,011 x 96
    (partial last segment), segments of 32 and 512 rows, bf16, f16, int8,
-   m = 1, exhausted windows, emit with ``exclude``;
+   m = 1, exhausted windows, emit with ``exclude``.  Probe kernel:
+   overlapping windows, clipped starts, a live bound below n, every window
+   past the live bound, k = 128 over fewer distinct slots, P = m = tries =
+   1, d = 96, bf16, f16, int8 (the main shape is checked in step 4);
 3. the main path at the SIFT-1M shape (n = 1M x d = 128 float32 from
    ``--seed``, 1000 queries, k = 10, tries = 10), each path with the launch
    counts set to 0 just before it and read just after: ``build`` (exact kNN
@@ -24,8 +27,19 @@ Phases, one line each, and a non-zero exit on the first failure:
    ``Server`` auto in f32 and bf16); the same servers with
    ``no_twophase=True`` (the rank kernel).  Results are checked against a float64 oracle on the
    card, and the card's hash search against the same search on the CPU;
-4. the rank/two-phase crossover on prefixes of the corpus (250k, 500k, 1M;
-   f32 and bf16) and a ``torch.profiler`` breakdown of two-phase serving.
+4. packed hash serving at the SIFT-1M stand-in's full width: a clustered
+   1M x 128 float32 corpus (``data/synthetic.clustered_gaussian``, 10,000
+   clusters) with queries drawn as the JAX package's stand-ins draw them;
+   ``Server(mode="hash", layout="packed")`` with bf16 rows at window 96 and
+   18 directed probes (the probe kernel, checked against its plain version
+   at that shape with k = 10 and 50), window 192 with ``rerank_width`` 50,
+   the f32 and int8 views; recall@10 against a float64 oracle (>= 0.75 at
+   window 96, a gross-error guard), the card against the same search on
+   the CPU on 50 queries;
+   then updates on that server (remove 1% of ids, add 10,000 points);
+5. the rank/two-phase crossover on prefixes of the corpus (250k, 500k, 1M;
+   f32 and bf16) and ``torch.profiler`` breakdowns of two-phase and packed
+   serving.
 
 Before the last line it prints one JSON object with each kernel's launch
 count on the main path, its error against the plain version, its time, the
@@ -37,6 +51,7 @@ without the package beside it, the script fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -46,8 +61,11 @@ import numpy as np
 import torch
 
 import approximatenn_tpu_torch as ann
+from approximatenn_tpu_torch.data.synthetic import clustered_gaussian, gaussian
+from approximatenn_tpu_torch.engine.search import probe_starts
 from approximatenn_tpu_torch.harness.scoring import ids_agree, recall_at_k
 from approximatenn_tpu_torch.ops import exact as ex
+from approximatenn_tpu_torch.ops import probe as pr
 from approximatenn_tpu_torch.ops import twophase as tp
 from approximatenn_tpu_torch.ops.distance import brute_force_knn
 from approximatenn_tpu_torch.ops.hash import query_codes
@@ -60,11 +78,22 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                       "approximatenn_tpu/ops/pallas_exact.py:383"),
     "twophase_rescan": ("approximatenn_tpu_torch/csrc/twophase_knn.cu",
                         "approximatenn_tpu/ops/pallas_exact.py:1144"),
+    "probe_topk": ("approximatenn_tpu_torch/csrc/probe_knn.cu",
+                   "approximatenn_tpu/ops/pallas_probe.py:59"),
 }
 N = 1_000_000  # SIFT-1M's shape: N x 128 float32
 M = 1000  # queries per batch
 GRAPH_CHUNK = 65536  # engine/build.py:exact_graph_chunked's chunk_q
 CPU_CHECK_QUERIES = 50
+# packed serving (the JAX package's fused SIFT-1M stand-in configuration)
+N_CLUSTERS = 10_000
+PACKED_WINDOW, PACKED_PROBES, RERANK = 96, 18, 50
+# recall@10 at window 96: a gross-error guard.  This corpus (Zipf 1.2 over
+# 10,000 clusters, spread 4) puts most points in buckets far deeper than
+# 96 slots; the port's recall equals the JAX package's on a 100k prefix
+# (tests/parity_packed_prefix.py), and the card's search equals the CPU's
+RECALL_GUARD = 0.75
+N_REMOVE, N_ADD = 10_000, 10_000
 # H100 SXM datasheet peaks at 700 W (not measured here): fp32 on the CUDA
 # cores and HBM3; a kernel's bound is the larger of its two times
 PEAK_FP32 = 67e12
@@ -221,6 +250,93 @@ def rescan_rows(starts, n, seg) -> tuple[int, int]:
     return pairs, int(torch.clamp(n - uniq, 0, seg).sum())
 
 
+def check_probe(label, rows, queries, starts, *, k, n, n_pad, window) -> float:
+    """The probe kernel against its plain version on the same prepared
+    inputs: per (query, table) the slots equal outside near-ties, distances
+    at rtol 1e-5 / atol 1e-4 (both widen to fp32; only the summation order
+    differs), (n, +inf) past the live candidates."""
+    pa, da = pr.probe_topk(rows, queries, starts, k=k, n=n, n_pad=n_pad, window=window)
+    q, st, w = pr.prepare(rows, queries, starts, n_pad=n_pad, window=window)
+    kk = min(k + 1, ex.KMAX)
+    pb, db = pr.probe_topk_plain(rows, q, st, k=kk, n=n, n_pad=n_pad, window=w)
+    fence()
+    m, tries = starts.shape[:2]
+    if pa.shape != (m, tries, k) or pa.dtype != torch.int32 or da.dtype != torch.float32:
+        raise AssertionError(f"probe {label}: bad output {pa.shape} {pa.dtype} {da.dtype}")
+    pa, da = pa.reshape(m * tries, k), da.reshape(m * tries, k)
+    pb, db = pb.reshape(m * tries, kk), db.reshape(m * tries, kk)
+    ok, tied = ids_agree(pa, pb[:, :k], db, rtol=1e-5)
+    if not ok:
+        raise AssertionError(f"probe {label}: slots differ outside near-ties")
+    db = db[:, :k]
+    fin = torch.isfinite(db)
+    if not torch.equal(fin, torch.isfinite(da)) or not bool((pa[~fin] == n).all()):
+        raise AssertionError(f"probe {label}: sentinel pattern differs")
+    if not torch.allclose(da[fin], db[fin], rtol=1e-5, atol=1e-4):
+        err = (da[fin] - db[fin]).abs().max().item()
+        raise AssertionError(f"probe {label}: distances differ, max abs {err}")
+    err = (da[fin] - db[fin]).abs().max().item() if fin.any() else 0.0
+    phase("kernel", f"probe {label}: ok (max_abs_err {err:.3g}, near-tie rows {tied})")
+    return err
+
+
+def union_slots(starts, window: int) -> torch.Tensor:
+    """Slots covered by the union of the equal-length windows of each row
+    of ``starts`` (..., P)."""
+    s, _ = torch.sort(starts.long(), dim=-1)
+    prev_end = torch.cat([s[..., :1], s[..., :-1] + window], dim=-1)
+    return torch.clamp(s + window - torch.maximum(s, prev_end), min=0).sum(-1)
+
+
+def probe_work(starts, window: int) -> tuple[int, int]:
+    """(distinct (query, table, slot) triples the probe scores, distinct
+    (table, slot) rows its windows cover) for widened ``starts`` (m, tries,
+    P): the triples set its operations; the rows are the least it must
+    read, since queries probing the same buckets share their rows."""
+    triples = int(union_slots(starts, window).sum())
+    rows = sum(int(union_slots(torch.unique(starts[:, t].reshape(-1))[None], window).sum())
+               for t in range(starts.shape[1]))
+    return triples, rows
+
+
+def synthetic_probe_checks(randn, dev) -> None:
+    """The probe kernel's degenerate shapes on random rows (the main shape
+    is checked on the packed view in :func:`packed_serving`)."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    n_pad = 4096
+
+    def case(label, dt, m, tries, P, d, window, k, n, starts=None, overlap=False):
+        rows = randn(tries * n_pad, d)
+        q = randn(m, d)
+        if dt == "int8":
+            rows, s8 = ex.quantize_corpus(rows)
+            q = q / s8
+        elif dt is not None:
+            rows = rows.to(dt)
+        hi = n_pad - window
+        if starts is None:
+            if overlap:
+                base = torch.randint(0, hi - window, (m, tries, 1), generator=g)
+                starts = base + torch.randint(0, window, (m, tries, P), generator=g)
+            else:
+                starts = torch.randint(0, hi + 1, (m, tries, P), generator=g)
+        starts = torch.clamp(starts, max=hi).to(torch.int32).to(dev)
+        check_probe(label, rows, q, starts, k=k, n=n, n_pad=n_pad, window=window)
+
+    case("overlapping windows m=500 tries=4 P=18 w=96 k=10", None, 500, 4, 18, 128, 96,
+         10, 4000, overlap=True)
+    case("clipped starts", None, 200, 4, 6, 128, 96, 10, 4000,
+         starts=torch.full((200, 4, 6), n_pad, dtype=torch.int32))
+    case("live bound 2000 < n", None, 200, 4, 18, 128, 96, 10, 2000)
+    case("every window past the live bound", None, 100, 2, 4, 128, 32, 10, 10,
+         starts=torch.randint(100, 4000, (100, 2, 4), generator=g))
+    case("k=128 over fewer distinct slots", None, 100, 2, 2, 128, 16, 128, 4000)
+    case("P=1 m=1 tries=1", None, 1, 1, 1, 128, 96, 10, 4000)
+    case("d=96", None, 300, 3, 8, 96, 40, 50, 4000, overlap=True)
+    for dt, label in ((torch.bfloat16, "bf16"), (torch.float16, "f16"), ("int8", "int8")):
+        case(f"{label} m=300 tries=3 P=8", dt, 300, 3, 8, 128, 96, 10, 3500, overlap=True)
+
+
 def oracle64(points64, queries64, k):
     """(ids, distances) of the exact neighbours in float64 on the card."""
     return brute_force_knn(points64, queries64, k)
@@ -246,29 +362,11 @@ def _tie_recall(points64, queries64, ids, kth_true, k) -> float:
 
 def check_search_on_cpu(index, points, queries, ids, dists) -> tuple[int, int]:
     """The card's hash search against the same search on the CPU (index
-    moved through ``ANNIndex.from_numpy``) for the given queries.  Rows whose
-    bucket codes agree must give ids equal outside near-ties (the k-th id
-    may differ only with an equal distance: its successor is not returned)
-    and distances within rtol 1e-5.  Returns (rows compared, near-tie rows)."""
+    moved through ``ANNIndex.from_numpy``) for the given queries
+    (:func:`compare_with_cpu`)."""
     cpu_index = ann.ANNIndex.from_numpy(index.to_numpy_dict(), device="cpu")
-    q_cpu = queries.cpu()
-    c_ids, c_d = ann.search(cpu_index, points.cpu(), q_cpu)
-    codes_card, _ = query_codes(index.row_means, index.bases, queries)
-    codes_cpu, _ = query_codes(cpu_index.row_means, cpu_index.bases, q_cpu)
-    same = (codes_card.cpu() == codes_cpu).all(1)
-    if int(same.sum()) < same.numel() - 1:
-        raise AssertionError(f"bucket codes differ card vs CPU in "
-                             f"{int((~same).sum())} of {same.numel()} rows")
-    a_i, a_d = ids.cpu()[same], dists.cpu()[same]
-    b_i, b_d = c_ids[same], c_d[same]
-    k = b_i.shape[1]
-    ok, tied = ids_agree(a_i[:, : k - 1], b_i[:, : k - 1], b_d)
-    if not ok:
-        raise AssertionError("hash search ids differ card vs CPU outside near-ties")
-    if not torch.allclose(a_d, b_d, rtol=1e-5, atol=1e-4):
-        err = (a_d - b_d).abs().max().item()
-        raise AssertionError(f"hash search distances differ card vs CPU, max abs {err}")
-    return int(same.sum()), tied
+    c_ids, c_d = ann.search(cpu_index, points.cpu(), queries.cpu())
+    return compare_with_cpu("hash search", index, queries, ids, dists, c_ids, c_d)
 
 
 def main() -> None:
@@ -328,6 +426,15 @@ def main() -> None:
     x101 = randn(101, 32)
     check_case("k=100 = n-1 exclude=self", x101, x101,
                100, exclude=torch.arange(101, dtype=torch.int32, device=dev))
+    # numpy inputs with no device go to the card, as tensors there do
+    for name, fn in (("exact_search", ann.exact_search),
+                     ("exact_knn_twophase", ann.exact_knn_twophase)):
+        a_ids, a_d = fn(x20.cpu().numpy(), q1k.cpu().numpy(), 10)
+        b_ids, b_d = fn(x20, q1k, 10)
+        if a_ids.device != dev or not (torch.equal(a_ids, b_ids) and torch.equal(a_d, b_d)):
+            raise AssertionError(f"{name} on numpy inputs differs from the card tensors")
+        phase("kernel", f"{name} on numpy inputs: ran on {a_ids.device}, same result as "
+                        "on card tensors")
 
     # the main path's serving shape: n x 128 f32, 1000 queries, k = 10
     rng = np.random.default_rng(args.seed)
@@ -396,6 +503,8 @@ def main() -> None:
                  window_starts(small, q1k[:50], P, 32), 32, k)
     check_rescan("exhausted emit-all n=100 seg=32 P=12", small, q1k[:50],
                  window_starts(small, q1k[:50], P, 32), 32, None)
+
+    synthetic_probe_checks(randn, dev)
 
     emit_ms = cuda_ms(lambda: tp.segment_minima(X, Y, seg), reps=10)
     emit_plain_ms = cuda_ms(lambda: tp.segment_minima_plain(X, Y, seg), reps=2)
@@ -537,7 +646,15 @@ def main() -> None:
         raise AssertionError("f32 rank recall up to ties is not 1.0")
     read_counts("Server no_twophase", ("exact_knn",))
 
-    # -- phase 4: crossover and profile -----------------------------------------------
+    # path 4: packed hash serving through the probe kernel, then updates
+    srv_packed, Yc, packed_err, packed_timing, packed_bound = packed_serving(
+        args.seed, dev, read_counts)
+    errs["probe_topk"] = packed_err
+    timing["probe_topk"] = packed_timing
+    bounds["probe_topk"] = packed_bound
+    updates(srv_packed, Yc, args.seed, dev, read_counts)
+
+    # -- phase 5: crossover and profiles -----------------------------------------------
     for label, Xs in (("f32", X), ("bf16", Xb)):
         for n in (250_000, 500_000, N):
             Xn = Xs[:n]
@@ -546,8 +663,9 @@ def main() -> None:
             phase("crossover", f"{label} n={n} m={M} k={k} seg={tp.auto_seg(n)}: rank "
                                f"{rank_ms:.3f} ms two-phase {two_ms:.3f} ms "
                                f"(two-phase/rank {two_ms / rank_ms:.3f})")
-    profile_serving(servers["f32"], Y)
+    profile_serving("Server f32 two-phase", servers["f32"], Y)
     del servers
+    profile_serving(f"Server packed bf16 w={PACKED_WINDOW} P={PACKED_PROBES}", srv_packed, Yc)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -561,7 +679,169 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def profile_serving(srv, Y, reps: int = 5) -> None:
+def packed_serving(seed: int, dev, read_counts):
+    """Path 4: the SIFT-1M stand-in served through ``Server(mode="hash",
+    layout="packed")``.  Returns (the bf16 server, its queries, the probe
+    kernel's max error, (kernel, plain, library) ms, (bound ms, bound_by))
+    at the main shape."""
+    rng = np.random.default_rng(seed)
+    Xc_np = clustered_gaussian(rng, N, 128, n_clusters=N_CLUSTERS)
+    # queries as the JAX package's stand-ins draw them (data/datasets.py)
+    Yc_np = Xc_np[rng.integers(0, N, M)] + 0.1 * gaussian(rng, M, 128)
+    Xc = torch.from_numpy(Xc_np).to(dev)
+    Yc = torch.from_numpy(Yc_np.astype(np.float32)).to(dev)
+    del Xc_np
+    truth = oracle64(Xc.double(), Yc.double(), 10)[0].cpu().numpy()
+    k = 10
+
+    ex.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = ann.Server.build(Xc, k, mode="hash", layout="packed", window=PACKED_WINDOW,
+                           packed_dtype=torch.bfloat16, n_probes=PACKED_PROBES,
+                           tries=10, capacity="auto", seed=seed)
+    fence()
+    build_s = time.perf_counter() - t0
+    pv = srv.packed
+    phase("packed", f"build n={N} d=128 clusters={N_CLUSTERS} k={k} tries=10 "
+                    f"d_short={pv.d_short} tmax={srv.index.tmax}: {build_s:.2f} s "
+                    f"(exact graph + bf16 pack); n_pad {pv.n_pad}, "
+                    f"index_mb {srv.describe()['index_mb']}")
+
+    def serve(label, s, **kw):
+        s.search(Yc, **kw)  # warm-up
+        fence()
+        before = ex.launches["probe_topk"]
+        reps = 20
+        t0 = time.perf_counter()
+        outs = [s.search(Yc, **kw) for _ in range(reps)]
+        fence()
+        qps = M * reps / (time.perf_counter() - t0)
+        ids, dd = outs[-1]
+        real = ids < s.packed.n
+        if ids.shape != (M, k) or not torch.isfinite(dd[real]).all() or not real.all():
+            raise AssertionError(f"packed {label}: bad result")
+        rec = recall_at_k(truth, ids.cpu().numpy(), k)
+        phase("packed", f"Server packed {label} n={N} m={M}: layout "
+                        f"{s.describe()['layout']}, pipelined {qps:.1f} QPS, recall@10 "
+                        f"{rec:.4f}, probe_topk launches {ex.launches['probe_topk'] - before}")
+        if ex.launches["probe_topk"] == before:
+            raise AssertionError(f"packed {label}: the probe kernel did not run")
+        return ids, dd, rec
+
+    ids, dd, rec = serve(f"bf16 w={PACKED_WINDOW} P={PACKED_PROBES}", srv)
+    if rec < RECALL_GUARD:
+        raise AssertionError(f"recall@10 {rec:.4f} at window {PACKED_WINDOW} is below "
+                             f"the {RECALL_GUARD} guard")
+    serve(f"bf16 w=192 P={PACKED_PROBES} rerank={RERANK}", srv, window=192,
+          rerank_width=RERANK)
+    for label, dt in (("f32", torch.float32), ("int8", torch.int8)):
+        view = dataclasses.replace(srv, packed=srv.index.packed(window=PACKED_WINDOW,
+                                                                dtype=dt))
+        serve(f"{label} w={PACKED_WINDOW} P={PACKED_PROBES}", view)
+        del view
+    read_counts("packed serving", ("exact_knn", "probe_topk"))
+
+    # the kernel against its plain version at the main shape (launches here
+    # are not counted on the path)
+    starts = probe_starts(pv, Yc, PACKED_PROBES, PACKED_WINDOW)
+    kw = dict(n=pv.live_bound, n_pad=pv.n_pad, window=PACKED_WINDOW)
+    err = check_probe(f"main shape n={N} m={M} tries=10 P={PACKED_PROBES} "
+                      f"w={PACKED_WINDOW} k=10 bf16", pv.point_rows, Yc, starts, k=10, **kw)
+    check_probe(f"main shape k={RERANK}", pv.point_rows, Yc, starts, k=RERANK, **kw)
+    kern_ms = cuda_ms(lambda: pr.probe_topk(pv.point_rows, Yc, starts, k=10, **kw), reps=20)
+    q, st, w = pr.prepare(pv.point_rows, Yc, starts, n_pad=pv.n_pad, window=PACKED_WINDOW)
+    plain_ms = cuda_ms(lambda: pr.probe_topk_plain(pv.point_rows, q, st, k=10, n=pv.live_bound,
+                                                   n_pad=pv.n_pad, window=w), reps=3)
+    triples, rows = probe_work(st, w)
+    b = bound(3.0 * 128 * triples,
+              2.0 * 128 * rows + 4.0 * (M * 128 + st.numel()) + 8.0 * M * pv.tries * 10)
+    phase("kernel", f"time probe n={N} m={M} tries=10 P={PACKED_PROBES} w={w} k=10 bf16: "
+                    f"kernel {kern_ms:.3f} ms plain {plain_ms:.3f} ms; {triples} distinct "
+                    f"(query, table, slot) triples over {rows} distinct rows; bound "
+                    f"{b[0]:.3f} ms ({b[1]})")
+
+    # the card against the same search on the CPU (plain probe), the view
+    # moved through PackedIndex.from_numpy
+    sub = slice(0, CPU_CHECK_QUERIES)
+    cpu_view = ann.PackedIndex.from_numpy(pv.to_numpy_dict(), device="cpu")
+    c_ids, c_d = ann.search_packed_fused(cpu_view, queries=Yc[sub].cpu(),
+                                         n_probes=PACKED_PROBES)
+    del cpu_view
+    n_cmp, n_tied = compare_with_cpu("packed search", pv, Yc[sub], ids[sub], dd[sub],
+                                     c_ids, c_d)
+    phase("packed", f"card vs CPU search_packed_fused on {CPU_CHECK_QUERIES} queries: "
+                    f"{n_cmp} rows compared, ids equal outside near-ties ({n_tied} "
+                    f"near-tie rows), distances rtol 1e-5")
+    return srv, Yc, err, (kern_ms, plain_ms, None), b
+
+
+def updates(srv, Yc, seed: int, dev, read_counts) -> None:
+    """Updates on the packed server: remove 1% of the ids (none may come
+    back), add 10,000 points drawn from the mixture's centre distribution
+    (each must find itself at distance 0); the re-packed view must still
+    run the probe kernel."""
+    ex.reset_launch_counts()
+    n0 = srv.packed.n
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    ids, _ = srv.search(Yc)
+    top = torch.unique(ids[:, 0].cpu().long())
+    perm = torch.randperm(n0, generator=g)
+    victims = torch.cat([top, perm[~torch.isin(perm, top)][: N_REMOVE - top.numel()]])
+    t0 = time.perf_counter()
+    srv.remove_points(victims.to(dev))
+    fence()
+    rm_s = time.perf_counter() - t0
+    vic = victims.to(dev)
+    ids, _ = srv.search(Yc)
+    if torch.isin(ids.long(), vic).any():
+        raise AssertionError("a removed id came back")
+    new = torch.from_numpy(4.0 * gaussian(np.random.default_rng(seed + 3), N_ADD, 128)).to(dev)
+    t0 = time.perf_counter()
+    srv.add_points(new)
+    fence()
+    add_s = time.perf_counter() - t0
+    found = 0
+    for lo in range(0, N_ADD, M):
+        ids, dd = srv.search(new[lo: lo + M])
+        own = n0 + lo + torch.arange(ids.shape[0], device=dev)
+        found += int(((ids[:, 0] == own) & (dd[:, 0] == 0)).sum())
+        if torch.isin(ids.long(), vic).any():
+            raise AssertionError("a removed id came back after add_points")
+    desc = srv.describe()
+    phase("updates", f"remove {N_REMOVE} ids: {rm_s:.2f} s (re-pack included), none "
+                     f"returned; add {N_ADD} points: {add_s:.2f} s (exact rows, reverse-edge "
+                     f"repair, re-pack); {found}/{N_ADD} find themselves at distance 0; "
+                     f"layout {desc['layout']}, n {desc['n']}, live {srv.packed.n_live}")
+    if found != N_ADD or desc["layout"] != "packed" or desc["n"] != n0 + N_ADD:
+        raise AssertionError("updates: new points not found or view not re-packed")
+    read_counts("updates", ("probe_topk",))
+
+
+def compare_with_cpu(label, view, queries, ids, dists, c_ids, c_d) -> tuple[int, int]:
+    """Card result (ids, dists) against the CPU result (c_ids, c_d) on the
+    rows whose bucket codes agree on both: ids equal outside near-ties (the
+    k-th may differ only at an equal distance: its successor is not
+    returned), distances within rtol 1e-5.  Returns (rows compared,
+    near-tie rows)."""
+    codes_card, _ = query_codes(view.row_means, view.bases, queries)
+    codes_cpu, _ = query_codes(view.row_means.cpu(), view.bases.cpu(), queries.cpu())
+    same = (codes_card.cpu() == codes_cpu).all(1)
+    if int(same.sum()) < same.numel() - 1:
+        raise AssertionError(f"{label}: bucket codes differ card vs CPU in "
+                             f"{int((~same).sum())} of {same.numel()} rows")
+    a_i, a_d = ids.cpu()[same], dists.cpu()[same]
+    b_i, b_d = c_ids[same], c_d[same]
+    k = b_i.shape[1]
+    ok, tied = ids_agree(a_i[:, : k - 1], b_i[:, : k - 1], b_d)
+    if not ok:
+        raise AssertionError(f"{label}: ids differ card vs CPU outside near-ties")
+    if not torch.allclose(a_d, b_d, rtol=1e-5, atol=1e-4):
+        err = (a_d - b_d).abs().max().item()
+        raise AssertionError(f"{label}: distances differ card vs CPU, max abs {err}")
+    return int(same.sum()), tied
+
+
+def profile_serving(label, srv, Y, reps: int = 5) -> None:
     """torch.profiler over ``reps`` pipelined searches: device time by
     kernel and the card's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -584,7 +864,7 @@ def profile_serving(srv, Y, reps: int = 5) -> None:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    phase("profile", f"Server f32 two-phase, {reps} calls: wall {wall_ms / reps:.3f} ms "
+    phase("profile", f"{label}, {reps} calls: wall {wall_ms / reps:.3f} ms "
                      f"per call, device {busy / reps:.3f} ms per call, idle share "
                      f"{1 - busy / wall_ms:.3f}")
     for ms, count, key in rows[:8]:

@@ -142,10 +142,41 @@ def test_exact_search_cpu_matches_jax(rng, dt):
     assert_match(ti, tdd, ji, jdd, rtol=1e-3 if dt == "bf16" else 1e-5)
 
 
+@pytest.mark.parametrize("engine", ["exact_search", "exact_knn_twophase"])
+def test_exact_entry_points_take_array_likes(rng, engine):
+    """numpy corpus and queries with ``device="cpu"`` give what CPU tensors
+    give (the JAX twins take any array)."""
+    from approximatenn_tpu_torch.ops import twophase as tp
+
+    fn = ex.exact_search if engine == "exact_search" else tp.exact_knn_twophase
+    p = rng.standard_normal((600, 12)).astype(np.float32)
+    q = rng.standard_normal((9, 12)).astype(np.float32)
+    a_ids, a_d = fn(p, q, 7, device="cpu")
+    b_ids, b_d = fn(T(p), T(q), 7)
+    assert a_ids.device.type == "cpu"
+    assert torch.equal(a_ids, b_ids) and torch.equal(a_d, b_d)
+    c_ids, _ = fn(T(p), q.astype(np.float64), 7)  # queries follow the corpus as float32
+    assert torch.equal(c_ids, b_ids)
+
+
+def test_exact_entry_points_default_to_the_card(rng):
+    """Without a card, numpy inputs and no device raise the
+    ``default_device`` error rather than quietly running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+    from approximatenn_tpu_torch.ops import twophase as tp
+
+    p = rng.standard_normal((100, 8)).astype(np.float32)
+    for fn in (ex.exact_search, tp.exact_knn_twophase):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            fn(p, p[:3], 4)
+
+
 def test_package_imports_no_jax():
     code = (
         "import sys; before = set(sys.modules)\n"
         "import approximatenn_tpu_torch, approximatenn_tpu_torch.ops.exact\n"
+        "import approximatenn_tpu_torch.ops.probe, approximatenn_tpu_torch.data.synthetic\n"
         "new = set(sys.modules) - before\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'approximatenn_tpu')]\n"
         "assert not bad, bad\n"

@@ -179,8 +179,8 @@ def test_server_routes_and_unported(data):
     ids, _ = srv.search(T(Y[:5]))
     assert ids.shape == (5, K)
     assert tann.Server.build(T(X), K, exact_max_n=100).mode == "hash"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tann.Server.build(T(X), K, mode="hash", layout="packed")
+    psrv = tann.Server.build(T(X), K, mode="hash", layout="packed", tries=2, seed=1)
+    assert psrv.describe()["layout"] == "packed" and psrv.search(T(Y[:5]))[0].shape == (5, K)
     with pytest.raises(ValueError):
         tann.Server.build(T(X), K, mode="hash", storage_dtype=torch.int8)
 
