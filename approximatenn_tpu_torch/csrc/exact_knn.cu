@@ -28,8 +28,9 @@
 //     that beat it into a sorted list in shared memory (warp-cooperative
 //     shift).  After warm-up only ~k ln(n) candidates per query are ever
 //     inserted, so selection costs little next to the dot products.
-//   * pass 2: one warp per query merges the `splits` sorted partial lists
-//     by (score, id), adds |q|^2 and applies the sentinel.
+//   * pass 2 (knn_common.cuh: split_merge_kernel): one warp per query
+//     merges the `splits` sorted partial lists by (score, id), adds |q|^2
+//     and applies the sentinel.
 // Ranking runs in the TPU kernel's score domain, |x|^2 - 2 q.x, with |q|^2
 // added at emit; ties order by (score, id), so the result does not depend
 // on the split or on the order in which candidates arrive.
@@ -132,46 +133,6 @@ knn_partial_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   }
 }
 
-// Pass 2: one warp per query merges `splits` sorted lists of length k.
-__global__ void knn_merge_kernel(const float* __restrict__ part_d,
-                                 const int* __restrict__ part_i,
-                                 const float* __restrict__ qn, int n, int m,
-                                 int k, int splits, float scale2,
-                                 float* __restrict__ out_d, int* __restrict__ out_i) {
-  const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (qi >= m) return;
-  const float inf = __int_as_float(0x7f800000);
-  const long long base = (long long)qi * splits * k;
-  int head = 0;
-  float hd = inf;
-  int hi = ID_NONE;
-  if (lane < splits) { hd = part_d[base + (long long)lane * k]; hi = part_i[base + (long long)lane * k]; }
-  const float qnorm = qn[qi];
-  for (int j = 0; j < k; ++j) {
-    float bd = hd;
-    int bi = hi, bl = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      const int ol = __shfl_xor_sync(0xffffffffu, bl, off);
-      if (lex_less(od, oi, bd, bi) || (od == bd && oi == bi && ol < bl)) { bd = od; bi = oi; bl = ol; }
-    }
-    if (lane == 0) {
-      const long long o = (long long)qi * k + j;
-      const bool real = bd < inf;
-      out_d[o] = real ? (bd + qnorm) * scale2 : inf;
-      out_i[o] = real ? bi : n;
-    }
-    if (lane == bl) {
-      ++head;
-      if (head < k) { hd = part_d[base + (long long)lane * k + head]; hi = part_i[base + (long long)lane * k + head]; }
-      else { hd = inf; hi = ID_NONE; }
-    }
-  }
-}
-
 template <typename T>
 size_t partial_smem(int k) {
   using S = typename Tr<T>::S;
@@ -195,10 +156,8 @@ int launch(const void* pts, const float* q, const int* excl, const float* qn,
       static_cast<const T*>(pts), q, excl, n, d, m, k, tps, splits, part_d, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int wpb = 8;
-  knn_merge_kernel<<<(m + wpb - 1) / wpb, 32 * wpb, 0, stream>>>(
-      part_d, part_i, qn, n, m, k, splits, scale2, out_d, out_i);
-  return (int)cudaGetLastError();
+  return (int)launch_split_merge(part_d, part_i, qn, n, m, k, splits, scale2, out_d,
+                                 out_i, stream);
 }
 
 }  // namespace

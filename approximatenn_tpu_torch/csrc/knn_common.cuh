@@ -1,7 +1,9 @@
-// Pieces shared by the exact-kNN kernels (exact_knn.cu, twophase_knn.cu):
-// the storage-type traits, the (distance, id) order, the warp-cooperative
-// insert into a sorted top-k list in shared memory, and the tiled dot
-// product that the rank kernel's pass 1 and the emit kernel both run.
+// Pieces shared by the exact-kNN kernels (exact_knn.cu, twophase_knn.cu,
+// rescan_merge_knn.cu, stream_knn.cu): the storage-type traits, the
+// (distance, id) order, the warp-cooperative insert into a sorted top-k list
+// in shared memory, the unsorted replace-the-worst top-k of the rescan-merge
+// and streaming kernels, the merge of per-split sorted lists, and the tiled
+// dot product that every exact kernel runs.
 
 #pragma once
 
@@ -93,33 +95,35 @@ __device__ __forceinline__ void warp_lex_min(float& d, int& i, int width) {
   }
 }
 
-// Dot products of the block's QB queries (from q0) with the corpus tile
-// [t0, t0 + TN), staged in shared memory in DC-feature chunks (Qs [DC][QB],
-// Ps [DC][PS]; queries >= m and rows >= hi stage as zeros).  Thread (warp
-// tq, lane tp) ends with acc[i][j] = q[q0 + 4 tq + i] . x[t0 + tp + 32 j],
-// and Pn [TN] holds the tile's |x|^2, visible to the whole block.  A block
-// of NT threads participates.
-template <typename T>
+// Dot products of the block's NW * QW queries (from q0) with the corpus
+// tile [t0, t0 + TN), staged in shared memory in DC-feature chunks (Qs
+// [DC][NW * QW], Ps [DC][PS]; queries >= m and rows >= hi stage as zeros).
+// Thread (warp tq, lane tp) ends with acc[i][j] = q[q0 + QW tq + i] .
+// x[t0 + tp + 32 j], and Pn [TN] holds the tile's |x|^2, visible to the
+// whole block.  ``pts`` may point to global or to shared memory.  A block of
+// NT threads participates.
+template <typename T, int QW = 4>
 __device__ __forceinline__ void tile_dots(const T* __restrict__ pts, const float* __restrict__ q,
                                           int q0, int m, int d, int t0, int hi,
                                           typename Tr<T>::S* Qs, typename Tr<T>::S* Ps,
                                           typename Tr<T>::S* Pn,
-                                          typename Tr<T>::S (&acc)[4][4]) {
+                                          typename Tr<T>::S (&acc)[QW][4]) {
   using S = typename Tr<T>::S;
+  constexpr int QBW = NW * QW;
   const int tid = threadIdx.x;
   const int tq = tid >> 5;
   const int tp = tid & 31;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < QW; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = S(0);
   S pacc = S(0);
   for (int c0 = 0; c0 < d; c0 += DC) {
     __syncthreads();  // the previous chunk (and tile) is consumed
-    for (int e = tid; e < QB * DC; e += NT) {
-      const int c = e / QB, qq = e % QB;
+    for (int e = tid; e < QBW * DC; e += NT) {
+      const int c = e / QBW, qq = e % QBW;
       const int qr = q0 + qq, col = c0 + c;
-      Qs[c * QB + qq] = (qr < m && col < d) ? Tr<T>::qv(q[(long long)qr * d + col]) : S(0);
+      Qs[c * QBW + qq] = (qr < m && col < d) ? Tr<T>::qv(q[(long long)qr * d + col]) : S(0);
     }
     for (int e = tid; e < TN * DC; e += NT) {
       const int r = e / DC, c = e % DC;
@@ -133,19 +137,143 @@ __device__ __forceinline__ void tile_dots(const T* __restrict__ pts, const float
     }
 #pragma unroll 4
     for (int c = 0; c < DC; ++c) {
-      S qv[4], pv[4];
+      S qv[QW], pv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[c * QB + tq * 4 + i];
+      for (int i = 0; i < QW; ++i) qv[i] = Qs[c * QBW + tq * QW + i];
 #pragma unroll
       for (int j = 0; j < 4; ++j) pv[j] = Ps[c * PS + tp + 32 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < QW; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] += qv[i] * pv[j];
     }
   }
   if (tid < TN) Pn[tid] = pacc;
   __syncthreads();
+}
+
+// The unsorted running top-k of the rescan-merge and streaming kernels (the
+// TPU kernels' run_d/run_i): k slots (rd, ri) in shared memory, owned by
+// one warp.  Empty slots hold (+inf, ID_NONE).
+
+// The worst slot: the largest distance, ties to the smallest slot.  Whole
+// warp participates; every lane ends with (wd, ws).
+__device__ __forceinline__ void worst_slot(const float* rd, int k, int lane,
+                                           float& wd, int& ws) {
+  float d = -pos_inf();
+  int s = ID_NONE;
+  for (int j = lane; j < k; j += 32)
+    if (rd[j] > d) { d = rd[j]; s = j; }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float od = __shfl_xor_sync(0xffffffffu, d, off);
+    const int os = __shfl_xor_sync(0xffffffffu, s, off);
+    if (od > d || (od == d && os < s)) { d = od; s = os; }
+  }
+  wd = d;
+  ws = s;
+}
+
+// Fold one tile into the running top-k, as the TPU kernels' insert loop
+// does: extract the tile's smallest (distance, id), ties to the smaller id;
+// while it beats the running worst, it replaces the worst slot; at most k
+// rounds.  Lane l holds the tile's rows l + 32 j as v[j] (+inf where
+// masked), whose ids are id0 + l + 32 j.  (wd, ws) is the running worst,
+// kept up to date.  Whole warp participates.
+__device__ __forceinline__ void replace_worst(float (&v)[4], int id0, float* rd, int* ri,
+                                             int k, float& wd, int& ws, int lane) {
+  for (int round = 0; round < k; ++round) {
+    float bd = v[0];
+    int bi = id0 + lane;
+#pragma unroll
+    for (int j = 1; j < 4; ++j)
+      if (lex_less(v[j], id0 + lane + 32 * j, bd, bi)) { bd = v[j]; bi = id0 + lane + 32 * j; }
+    warp_lex_min(bd, bi, 32);
+    if (!(bd < wd)) break;
+    if (lane == 0) { rd[ws] = bd; ri[ws] = bi; }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (id0 + lane + 32 * j == bi) v[j] = pos_inf();
+    __syncwarp();
+    worst_slot(rd, k, lane, wd, ws);
+  }
+}
+
+// The running top-k in ascending (distance, id) order into out_d/out_i, as
+// the TPU kernels' final extraction: k entries, distances times scale2,
+// (+inf, none_id) past the real ones.  Clobbers rd.  Whole warp
+// participates.
+__device__ __forceinline__ void extract_sorted(float* rd, const int* ri, int k, int lane,
+                                               float* out_d, int* out_i, float scale2,
+                                               int none_id) {
+  for (int j = 0; j < k; ++j) {
+    float bd = pos_inf();
+    int bi = ID_NONE;
+    for (int s = lane; s < k; s += 32)
+      if (lex_less(rd[s], ri[s], bd, bi)) { bd = rd[s]; bi = ri[s]; }
+    warp_lex_min(bd, bi, 32);
+    if (!(bd < pos_inf())) {
+      for (int r = j + lane; r < k; r += 32) { out_d[r] = pos_inf(); out_i[r] = none_id; }
+      break;
+    }
+    if (lane == 0) { out_d[j] = bd * scale2; out_i[j] = bi; }
+    for (int s = lane; s < k; s += 32)
+      if (ri[s] == bi) rd[s] = pos_inf();
+    __syncwarp();
+  }
+}
+
+// One warp per query merges `splits` ascending lists of length k by
+// (distance, id), adds |q|^2 (qn may be null: the lists already hold
+// distances), scales by scale2 and writes (n, +inf) past the real
+// candidates.
+__global__ void split_merge_kernel(const float* __restrict__ part_d,
+                                   const int* __restrict__ part_i,
+                                   const float* __restrict__ qn, int n, int m,
+                                   int k, int splits, float scale2,
+                                   float* __restrict__ out_d, int* __restrict__ out_i) {
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (qi >= m) return;
+  const float inf = pos_inf();
+  const long long base = (long long)qi * splits * k;
+  int head = 0;
+  float hd = inf;
+  int hi = ID_NONE;
+  if (lane < splits) { hd = part_d[base + (long long)lane * k]; hi = part_i[base + (long long)lane * k]; }
+  const float qnorm = qn ? qn[qi] : 0.0f;
+  for (int j = 0; j < k; ++j) {
+    float bd = hd;
+    int bi = hi, bl = lane;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+      const int ol = __shfl_xor_sync(0xffffffffu, bl, off);
+      if (lex_less(od, oi, bd, bi) || (od == bd && oi == bi && ol < bl)) { bd = od; bi = oi; bl = ol; }
+    }
+    if (lane == 0) {
+      const long long o = (long long)qi * k + j;
+      const bool real = bd < inf;
+      out_d[o] = real ? (qn ? (bd + qnorm) * scale2 : bd * scale2) : inf;
+      out_i[o] = real ? bi : n;
+    }
+    if (lane == bl) {
+      ++head;
+      if (head < k) { hd = part_d[base + (long long)lane * k + head]; hi = part_i[base + (long long)lane * k + head]; }
+      else { hd = inf; hi = ID_NONE; }
+    }
+  }
+}
+
+// Launch split_merge_kernel (8 warps a block) on `stream`.
+inline cudaError_t launch_split_merge(const float* part_d, const int* part_i, const float* qn,
+                                      int n, int m, int k, int splits, float scale2,
+                                      float* out_d, int* out_i, cudaStream_t stream) {
+  const int wpb = 8;
+  split_merge_kernel<<<(m + wpb - 1) / wpb, 32 * wpb, 0, stream>>>(
+      part_d, part_i, qn, n, m, k, splits, scale2, out_d, out_i);
+  return cudaGetLastError();
 }
 
 }  // namespace knn

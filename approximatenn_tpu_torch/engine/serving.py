@@ -7,11 +7,12 @@ over the packed bucket-CSR view with ``layout="packed"``).
 Exact mode on a CUDA corpus runs the JAX package's routing: the two-phase
 engine (emit + rescan kernels, ``ops/twophase.py``) from
 ``twophase_min_n`` points when k + 2 <= 128, and for every k > 128 unless
-k is close to n; the rank kernel otherwise.  On the CPU it runs the float
-oracle.  Packed hash serving on a CUDA view runs ``search_packed_fused``
-(the probe-window kernel) from ``fused_min_batch`` queries (0: always, the
-JAX default on an accelerator), the plain ``search_packed`` otherwise and
-on the CPU.
+k is close to n; the rank kernel otherwise, or the rescan-merge or
+streaming kernel when a search pins ``merge``/``stream``.  On the CPU it
+runs the float oracle.  Packed hash serving on a CUDA view runs
+``search_packed_fused`` (the probe-window kernel) from ``fused_min_batch``
+queries (0: always, the JAX default on an accelerator), the plain
+``search_packed`` otherwise and on the CPU.
 
 The routing thresholds are injectable.  Their defaults are the JAX
 package's, which were measured on a TPU v5e and are not evidence for this
@@ -27,7 +28,7 @@ from typing import Any
 import torch
 
 from ..config import default_device
-from ..ops.exact import KMAX, exact_search
+from ..ops.exact import KMAX, exact_kernel, exact_search, stream_dtype
 from ..ops.twophase import TWOPHASE_MIN_N
 from ..ops.twophase import TWOPHASE_ONLY_KW as _TWOPHASE_ONLY_KW
 from ..ops.twophase import exact_knn_twophase, route
@@ -216,17 +217,21 @@ class Server:
         pv = self.packed if window is None else self.packed.with_window(window)
         return search_packed(pv, queries=queries, **kw)
 
-    def exact_engine(self) -> str | None:
-        """The engine a plain ``search`` runs in exact mode:
-        "cuda-twophase" or "cuda-rank" (the hand-written kernels) on a CUDA
-        corpus, "oracle" on the CPU and for brute force on the card (k >
-        128 close to n)."""
+    def exact_engine(self, **kw) -> str | None:
+        """The engine ``search(queries, **kw)`` runs in exact mode:
+        "cuda-twophase", "cuda-rank", "cuda-rescan", "cuda-stream" or
+        "cuda-segment-merge" (``merge="twophase"``; the hand-written
+        kernels) on a CUDA corpus, "oracle" on the CPU and for brute force
+        on the card (k > 128 close to n)."""
         if self.mode != "exact":
             return None
-        if self._route_twophase(self.k):
+        skw = dict(kw)
+        no_tp = bool(skw.pop("no_twophase", False))
+        if self._route_twophase(self.k, no_tp, skw):
             return "cuda-twophase"
         if self.points.device.type == "cuda" and self.k <= KMAX:
-            return "cuda-rank"
+            kernel = exact_kernel(skw.get("merge", "rank"), skw.get("stream", False))
+            return "cuda-" + ("segment-merge" if kernel == "twophase" else kernel)
         return "oracle"
 
     def _repack(self) -> None:
@@ -274,7 +279,11 @@ class Server:
         self._repack()
         return self
 
-    def describe(self) -> dict:
+    def describe(self, **kw) -> dict:
+        """What the handle serves; ``kw``: the knobs of a ``search`` call
+        (``no_twophase``, ``merge``, ``stream``, ``compute_dtype``, ...),
+        for the exact engine that call runs and, on a CUDA kernel of the
+        rank family, the type its corpus streams at."""
         d = {
             "mode": self.mode,
             "n": int(self.points.shape[0]),
@@ -289,7 +298,11 @@ class Server:
             "device": str(self.points.device),
         }
         if self.mode == "exact":
-            d["exact_engine"] = self.exact_engine()
+            engine = self.exact_engine(**kw)
+            d["exact_engine"] = engine
+            if engine in ("cuda-rank", "cuda-rescan", "cuda-stream"):
+                cdt = stream_dtype(self.points.dtype, kw.get("compute_dtype"))
+                d["compute_dtype"] = str(cdt).replace("torch.", "")
         if self.index is not None:
             d["layout"] = "packed" if self.packed is not None else "table"
             d["index_mb"] = round((self.packed or self.index).memory_bytes() / 2**20, 1)

@@ -1,22 +1,28 @@
 """Exact k-NN: the hand-written CUDA kernels' build and launch counts (for
-every kernel source of the package), the rank kernel, its plain PyTorch
-twin, and the exact-search entry point.
+every kernel source of the package), the rank, rescan-merge and streaming
+kernels with their plain PyTorch twins, and the exact-search entry point.
 
-Port of ``approximatenn_tpu/ops/pallas_exact.py`` (the rank-merge Pallas
-kernel ``_kernel_rank`` behind ``exact_knn_pallas``, plus
+Port of ``approximatenn_tpu/ops/pallas_exact.py`` (``exact_knn_pallas``
+with its Pallas kernels ``_kernel_rank`` (merge="rank"), ``_kernel``
+(merge="rescan") and ``_stream_kernel`` (stream=True), plus
 ``quantize_corpus`` and ``exact_search``; the two-phase engine is in
 ``ops/twophase.py``).  The kernel sources are ``csrc/*.cu``; each is
 compiled with nvcc for ``sm_90a`` into ``_build/`` at first use and bound
 through ctypes (a plain C interface, so a build takes seconds).
 
-Contract (both versions): ids (m, k) int32 ascending by squared L2
+Contract (every version): ids (m, k) int32 ascending by squared L2
 distance on the raw coordinates, ties to the smaller id, (n, +inf) past the
 real candidates; optional per-query ``exclude`` id; f32, bf16, f16 or int8
-(+ ``scale``) corpora.  Ranking happens in the score domain
-``|x|^2 - 2 q.x`` and ``|q|^2`` is added to the k winners, as on the TPU.
-A bf16/f16 corpus multiplies queries rounded to its dtype; an int8 corpus
-multiplies queries quantised with its own scale (``round(q / scale)``
-clipped to [-127, 127]) and distances come back times scale^2.
+(+ ``scale``) corpora.  The rank kernel ranks in the score domain
+``|x|^2 - 2 q.x`` with the norms of the values it streams and adds
+``|q|^2`` to the k winners; the rescan-merge kernel forms ``(|q|^2 + pn) -
+2 q.x`` and the streaming kernel ``|q|^2 - (2 q.x - pn)``, both with norms
+``pn`` precomputed in float32 from the unrounded corpus, as on the TPU.
+The corpus streams at ``compute_dtype`` when one is given (int8 ignores
+it), else at its stored width; a bf16/f16 stream multiplies queries rounded
+to its dtype; an int8 corpus multiplies queries quantised with its own
+scale (``round(q / scale)`` clipped to [-127, 127]) and distances come back
+times scale^2.  ``|q|^2`` always comes from the unrounded float32 queries.
 
 ``exact_knn`` runs the kernel for a CUDA tensor and the plain version for
 a CPU tensor, never anything else: no fallback, no silent device move.
@@ -42,13 +48,18 @@ _QB = 32  # queries per block in the kernel (csrc/exact_knn.cu: QB)
 _TN = 128  # corpus rows per tile (csrc/exact_knn.cu: TN)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
 _PRECISIONS = ("highest", "split3", "default")
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_CUDA_INVALID_VALUE = 1  # cudaErrorInvalidValue
+PLAIN_TILE = 4096  # corpus rows per tile of the rescan-merge/stream plain versions
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 # one shared library per kernel source; the headers are part of every one
 SOURCES = {"exact_knn": CSRC / "exact_knn.cu",
            "twophase_knn": CSRC / "twophase_knn.cu",
-           "probe_knn": CSRC / "probe_knn.cu"}
+           "probe_knn": CSRC / "probe_knn.cu",
+           "rescan_merge_knn": CSRC / "rescan_merge_knn.cu",
+           "stream_knn": CSRC / "stream_knn.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -67,11 +78,17 @@ _ENTRY_POINTS = {
     },
     "probe_knn": {"probe_topk_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                         _ci, _ci, _ci, _vp, _vp, _vp]},
+    "rescan_merge_knn": {"exact_knn_rescan_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _vp, _ci,
+                                                     _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
+                                                     ctypes.c_float, _vp]},
+    "stream_knn": {"exact_knn_stream_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _vp, _ci, _ci,
+                                               _ci, _ci, _vp, _vp, ctypes.c_float, _vp]},
 }
 
 # kernel launches through the wrappers, plain counts a run reads to show
 # that its main path went through the kernels
-launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0, "probe_topk": 0}
+launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0, "probe_topk": 0,
+            "exact_knn_rescan": 0, "exact_knn_stream": 0}
 _libs: dict = {}
 
 
@@ -194,7 +211,7 @@ def _check(points, queries, k, exclude, matmul_precision):
 
 def _prepare(points, queries, scale):
     """(queries as the kernel multiplies them, |q|^2, scale^2) -- the
-    query-side conventions both versions share."""
+    query-side conventions every version shares."""
     _check_scale(points, scale)
     q = queries
     scale2 = 1.0
@@ -203,6 +220,65 @@ def _prepare(points, queries, scale):
         scale2 = float(s * s)
         q = torch.clamp(torch.round(q / float(s)), -127, 127)
     return q.contiguous(), (q * q).sum(-1), scale2
+
+
+def check_tpu_knobs(kw) -> None:
+    """Raise ``ValueError`` on the JAX kernels' TPU tiling knobs (``tile``,
+    ``query_block``, ``interpret``; one given as None is unset): the CUDA
+    kernels pick their own tiles."""
+    given = sorted(key for key in ("tile", "query_block", "interpret")
+                   if kw.get(key) is not None)
+    if given:
+        raise ValueError(f"{given}: TPU tiling knobs of the JAX package's Pallas "
+                         "kernels, with no counterpart on this package's CUDA kernels")
+
+
+def exact_kernel(merge: str = "rank", stream: bool = False) -> str:
+    """The kernel ``exact_knn`` runs for these knobs: "stream" (which takes
+    precedence over ``merge``, as in the JAX package), "rank", "rescan"
+    (the rescan merge) or "twophase" (the segment merge)."""
+    if stream:
+        return "stream"
+    if merge not in ("rank", "rescan", "twophase"):
+        raise ValueError(f"unknown merge style {merge!r}")
+    return merge
+
+
+def stream_dtype(dtype: torch.dtype, compute_dtype=None) -> torch.dtype:
+    """The type a corpus of ``dtype`` streams at through the kernels:
+    ``compute_dtype`` (float32, bfloat16 or float16) when one is given,
+    else the stored type (float32 for a type no kernel takes); an int8
+    corpus ignores the knob, as in the JAX package."""
+    if compute_dtype is not None and compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}")
+    if dtype == torch.int8:
+        return dtype
+    if compute_dtype is not None:
+        return compute_dtype
+    return dtype if dtype in _DTYPE_CODE else torch.float32
+
+
+def compute_corpus(points: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """The corpus as the kernels stream it (:func:`stream_dtype`)."""
+    cdt = stream_dtype(points.dtype, compute_dtype)
+    return points if points.dtype == cdt else points.to(cdt)
+
+
+def point_norms(points: torch.Tensor, chunk_rows: int = 1 << 18) -> torch.Tensor:
+    """|x|^2 per row in float32 from the stored values, in row chunks (no
+    corpus-sized float32 transient): the ``pn`` of the rescan-merge and
+    streaming kernels."""
+    n = points.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=points.device)
+    for lo in range(0, n, chunk_rows):
+        x = points[lo: lo + chunk_rows].float()
+        out[lo: lo + chunk_rows] = (x * x).sum(-1)
+    return out
+
+
+def _round_queries(pts: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Queries rounded to a half corpus's type, as the kernels multiply them."""
+    return q.to(pts.dtype).float() if pts.dtype in (torch.bfloat16, torch.float16) else q
 
 
 def splits(m: int, n: int, device, cap: int = _MAX_SPLITS) -> int:
@@ -219,77 +295,147 @@ def splits(m: int, n: int, device, cap: int = _MAX_SPLITS) -> int:
 def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
               exclude: torch.Tensor | None = None, scale=None,
               matmul_precision: str = "highest", merge: str = "rank",
-              twophase_seg: int = 512, stream: bool = False):
-    """Exact k nearest neighbours through the CUDA kernel (CUDA tensors) or
-    :func:`exact_knn_plain` (CPU tensors).  Returns (ids (m, k) int32,
-    squared distances (m, k) float32).  ``matmul_precision`` is validated;
-    every tier computes in IEEE fp32 (see the kernel source).
+              twophase_seg: int = 512, stream: bool = False, compute_dtype=None,
+              tile=None, query_block=None, interpret=None):
+    """Exact k nearest neighbours through a CUDA kernel (CUDA tensors) or its
+    plain version (CPU tensors): the rank kernel (``merge="rank"``), the
+    rescan-merge kernel (``merge="rescan"``) or the streaming kernel
+    (``stream=True``, which takes precedence over ``merge``).  Returns
+    (ids (m, k) int32, squared distances (m, k) float32).
+    ``matmul_precision`` is validated; every tier computes in IEEE fp32
+    (see the kernel sources).  ``compute_dtype`` (torch.float32, bfloat16
+    or float16) is the width the corpus streams at; see the module
+    docstring for the norms each kernel takes.  The JAX kernels' TPU knobs
+    (``tile``, ``query_block``, ``interpret``) raise ``ValueError``.
 
     ``merge="twophase"`` is the JAX package's two-phase merge: the emit
     kernel's per-``twophase_seg``-row segment minima, then the k best of
     them per query (one candidate per segment, so not exact on its own;
     :func:`~.twophase.exact_knn_twophase` is the exact engine).  It takes
     any k."""
-    if stream or merge == "rescan":
-        raise NotImplementedError(
-            "merge='rescan' and stream=True (the _kernel and _stream_kernel "
-            "TPU kernels) are not ported yet: ROADMAP queue B")
-    if merge not in ("rank", "twophase"):
-        raise ValueError(f"unknown merge style {merge!r}")
+    check_tpu_knobs({"tile": tile, "query_block": query_block, "interpret": interpret})
+    kernel = exact_kernel(merge, stream)
     _check(points, queries, k, exclude, matmul_precision)
-    if merge == "twophase":
+    if kernel == "twophase":
         from .twophase import segment_merge
 
-        return segment_merge(points, queries, k, twophase_seg, exclude=exclude,
-                             scale=scale, matmul_precision=matmul_precision)
+        return segment_merge(compute_corpus(points, compute_dtype), queries, k, twophase_seg,
+                             exclude=exclude, scale=scale,
+                             matmul_precision=matmul_precision)
     if k > KMAX:
         raise ValueError(f"exact_knn supports k <= {KMAX}, got {k}")
     if points.device.type == "cpu":
-        return exact_knn_plain(points, queries, k, exclude=exclude, scale=scale,
-                               matmul_precision=matmul_precision)
+        plain = {"rank": exact_knn_plain, "rescan": exact_knn_rescan_plain,
+                 "stream": exact_knn_stream_plain}[kernel]
+        return plain(points, queries, k, exclude=exclude, scale=scale,
+                     matmul_precision=matmul_precision, compute_dtype=compute_dtype)
     if points.device.type != "cuda":
         raise ValueError(f"exact_knn runs on cuda or cpu, not {points.device}")
     if not points.is_contiguous():
         raise ValueError("points must be contiguous")
-    n, d = points.shape
-    m = queries.shape[0]
-    dev = points.device
-    if m == 0:
-        return (torch.empty((0, k), dtype=itype, device=dev),
-                torch.empty((0, k), dtype=torch.float32, device=dev))
-    q, qn, scale2 = _prepare(points, queries, scale)
     if exclude is not None:
         exclude = exclude.contiguous()
+    if kernel == "stream":
+        return stream_cuda(points, queries, k, exclude=exclude, scale=scale,
+                           compute_dtype=compute_dtype)
+    if kernel == "rescan":
+        lib = _library("rescan_merge_knn")
+        pts, q, qn, pn, scale2 = _replace_worst_inputs(points, queries, scale, compute_dtype)
+        return _split_launch(lib, lib.exact_knn_rescan_launch, "exact_knn_rescan", pts, q, qn,
+                             pn, k, exclude, scale2)
+    lib = _library("exact_knn")
+    pts = compute_corpus(points, compute_dtype)
+    q, qn, scale2 = _prepare(pts, queries, scale)
+    return _split_launch(lib, lib.exact_knn_launch, "exact_knn", pts, q, qn, None, k, exclude,
+                         scale2)
+
+
+def _empty(k: int, dev):
+    return (torch.empty((0, k), dtype=itype, device=dev),
+            torch.empty((0, k), dtype=torch.float32, device=dev))
+
+
+def _split_launch(lib, launch, key: str, pts, q, qn, pn, k: int, exclude, scale2):
+    """Launch a corpus-split kernel of ``lib``: the rank kernel
+    (``launch = exact_knn_launch``, ``pn`` None) or the rescan merge
+    (``exact_knn_rescan_launch``, which takes the point norms ``pn`` after
+    ``qn``); per (32-query block, corpus split) a running top-k, then a
+    merge of the splits' ascending lists."""
+    n, d = pts.shape
+    m = q.shape[0]
+    dev = pts.device
+    if m == 0:
+        return _empty(k, dev)
     s = splits(m, n, dev)
     part_d = torch.empty((m, s, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((m, s, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((m, k), dtype=itype, device=dev)
-    lib = _library("exact_knn")
-    err = lib.exact_knn_launch(
-        device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
-        exclude.data_ptr() if exclude is not None else None, qn.data_ptr(),
-        n, d, m, k, s, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), scale2, torch.cuda.current_stream(dev).cuda_stream)
+    head = (device_index(dev), pts.data_ptr(), _DTYPE_CODE[pts.dtype], q.data_ptr(),
+            exclude.data_ptr() if exclude is not None else None, qn.data_ptr())
+    tail = (n, d, m, k, s, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), scale2, torch.cuda.current_stream(dev).cuda_stream)
+    err = launch(*head, *tail) if pn is None else launch(*head, pn.data_ptr(), *tail)
     if err != 0:
-        raise launch_error(lib, "exact_knn", err)
-    launches["exact_knn"] += 1
+        raise launch_error(lib, key, err)
+    launches[key] += 1
+    return out_i, out_d
+
+
+def _replace_worst_inputs(points, queries, scale, compute_dtype):
+    """(corpus as streamed, queries (quantised for int8), |q|^2 from the
+    unrounded queries, pn from the unrounded corpus, scale^2): the inputs
+    the rescan-merge and streaming kernels and their plain versions share."""
+    q, qn, scale2 = _prepare(points, queries, scale)
+    pts = compute_corpus(points, compute_dtype).contiguous()
+    return pts, q, qn, point_norms(points), scale2
+
+
+def stream_cuda(points, queries, k: int, *, exclude=None, scale=None, compute_dtype=None):
+    """The streaming kernel (``csrc/stream_knn.cu``) on checked CUDA
+    inputs: one block per 8 queries walks the whole corpus through a ring
+    of shared-memory tiles."""
+    pts, q, qn, pn, scale2 = _replace_worst_inputs(points, queries, scale, compute_dtype)
+    n, d = pts.shape
+    m = q.shape[0]
+    dev = pts.device
+    if m == 0:
+        return _empty(k, dev)
+    # tiles are copied as contiguous byte ranges in 16-byte units
+    if pts.data_ptr() % 16:
+        pts = pts.clone()
+    out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, k), dtype=itype, device=dev)
+    lib = _library("stream_knn")
+    err = lib.exact_knn_stream_launch(
+        device_index(dev), pts.data_ptr(), _DTYPE_CODE[pts.dtype], q.data_ptr(),
+        exclude.data_ptr() if exclude is not None else None, qn.data_ptr(), pn.data_ptr(),
+        n, d, m, k, out_d.data_ptr(), out_i.data_ptr(), scale2,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err == _CUDA_INVALID_VALUE:
+        raise ValueError(f"stream=True holds two {_TN}-row corpus tiles in a block's shared "
+                         f"memory: d = {d} at {pts.element_size()} bytes a value with k = {k} "
+                         "does not fit")
+    if err != 0:
+        raise launch_error(lib, "exact_knn_stream", err)
+    launches["exact_knn_stream"] += 1
     return out_i, out_d
 
 
 def exact_knn_plain(points: torch.Tensor, queries: torch.Tensor, k: int, *,
                     exclude: torch.Tensor | None = None, scale=None,
-                    matmul_precision: str = "highest"):
-    """Plain PyTorch version of the kernel, same contract and score domain:
-    a float32 matmul per query block, a stable sort (ties to the smaller
-    id), |q|^2 added to the winners.  Takes any k (a check may ask for
-    k + 1 to see the boundary)."""
+                    matmul_precision: str = "highest", compute_dtype=None):
+    """Plain PyTorch version of the rank kernel, same contract and score
+    domain: a float32 matmul per query block, a stable sort (ties to the
+    smaller id), |q|^2 added to the winners; the norms are those of the
+    corpus as streamed (rounded to ``compute_dtype``).  Takes any k (a check
+    may ask for k + 1 to see the boundary)."""
     _check(points, queries, k, exclude, matmul_precision)
+    points = compute_corpus(points, compute_dtype)
     n = points.shape[0]
     m = queries.shape[0]
     q, qn, scale2 = _prepare(points, queries, scale)
-    if points.dtype in (torch.bfloat16, torch.float16):
-        q = q.to(points.dtype).float()
+    q = _round_queries(points, q)
     x = points.float()
     pn = (x * x).sum(-1)
     kk = min(k, n)
@@ -317,8 +463,106 @@ def exact_knn_plain(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     return ids_out, d_out
 
 
+def _replace_worst_plain(points, queries, k, *, exclude, scale, matmul_precision,
+                         compute_dtype, tile, stream):
+    """The rescan-merge (``stream=False``) or streaming kernel's algorithm in
+    plain PyTorch, the TPU kernels' own loop: per ``tile``-row corpus tile
+    the distances (``(qn + pn) - 2 q.x``, or ``qn - s`` with ``s = 2 q.x -
+    pn`` for the stream), a skip test against each query's running worst,
+    then at most k rounds in which the tile's smallest (distance, id)
+    replaces the worst running slot (ties to the smallest slot) while it
+    beats it; at the end the unsorted running k in ascending order."""
+    _check(points, queries, k, exclude, matmul_precision)
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    pts, q, qn, pn, scale2 = _replace_worst_inputs(points, queries, scale, compute_dtype)
+    q = _round_queries(pts, q)
+    n = pts.shape[0]
+    m = q.shape[0]
+    dev = pts.device
+    inf = float("inf")
+    big = torch.iinfo(torch.int64).max
+    slots = torch.arange(k, device=dev)
+    run_d = torch.full((m, k), inf, device=dev)
+    run_i = torch.full((m, k), n, dtype=torch.int64, device=dev)
+    ex = exclude.long() if exclude is not None else None
+    block = max(1, min(m, (64 << 20) // tile))  # (block, tile) distances ~256 MB
+    for lo in range(0, m, block):
+        hi = min(m, lo + block)
+        qb, qnb = q[lo:hi], qn[lo:hi]
+        rd, ri = run_d[lo:hi], run_i[lo:hi]  # views: updated in place
+        rows = torch.arange(hi - lo, device=dev)
+        for t0 in range(0, n, tile):
+            x = pts[t0: t0 + tile].float()
+            gids = torch.arange(t0, t0 + x.shape[0], device=dev)
+            dots = qb @ x.T
+            pnt = pn[t0: t0 + tile]
+            masked = (gids[None, :] == ex[lo:hi, None]) if ex is not None else None
+            worst = rd.max(1).values
+            if stream:
+                s = 2.0 * dots - pnt[None, :]
+                smax = (s if masked is None else s.masked_fill(masked, -inf)).max(1).values
+                if not bool((qnb - smax < worst).any()):
+                    continue
+                dd = qnb[:, None] - s
+            else:
+                dd = (qnb[:, None] + pnt[None, :]) - 2.0 * dots
+            if masked is not None:
+                dd = dd.masked_fill(masked, inf)
+            if not stream and not bool((dd.min(1).values < worst).any()):
+                continue
+            for _ in range(k):
+                dmin = dd.min(1).values
+                imin = torch.where(dd == dmin[:, None], gids, big).min(1).values
+                wmax = rd.max(1).values
+                wslot = torch.where(rd == wmax[:, None], slots, k).min(1).values
+                hit = dmin < wmax
+                if not bool(hit.any()):
+                    break
+                rd[rows[hit], wslot[hit]] = dmin[hit]
+                ri[rows[hit], wslot[hit]] = imin[hit]
+                dd[rows, imin - t0] = inf
+    # ascending extraction of the running k
+    out_d, out_i = [], []
+    for _ in range(k):
+        dmin = run_d.min(1).values
+        imin = torch.where(run_d == dmin[:, None], run_i, big).min(1).values
+        imin = torch.where(torch.isinf(dmin), n, imin)
+        out_d.append(dmin)
+        out_i.append(imin)
+        run_d = torch.where(run_i == imin[:, None], inf, run_d)
+    return torch.stack(out_i, 1).to(itype), torch.stack(out_d, 1) * scale2
+
+
+def exact_knn_rescan_plain(points: torch.Tensor, queries: torch.Tensor, k: int, *,
+                           exclude: torch.Tensor | None = None, scale=None,
+                           matmul_precision: str = "highest", compute_dtype=None,
+                           tile: int = PLAIN_TILE):
+    """Plain PyTorch version of the rescan-merge kernel (JAX ``_kernel``):
+    distances ``(|q|^2 + pn) - 2 q.x`` with ``pn`` from the unrounded
+    corpus, the unsorted replace-the-worst merge over ``tile``-row tiles
+    (see :func:`_replace_worst_plain`).  Takes any k."""
+    return _replace_worst_plain(points, queries, k, exclude=exclude, scale=scale,
+                                matmul_precision=matmul_precision,
+                                compute_dtype=compute_dtype, tile=tile, stream=False)
+
+
+def exact_knn_stream_plain(points: torch.Tensor, queries: torch.Tensor, k: int, *,
+                           exclude: torch.Tensor | None = None, scale=None,
+                           matmul_precision: str = "highest", compute_dtype=None,
+                           tile: int = PLAIN_TILE):
+    """Plain PyTorch version of the streaming kernel (JAX ``_stream_kernel``):
+    the skip test on ``s = 2 q.x - pn`` before any distance exists, then
+    distances ``|q|^2 - s`` in the merge branch (about an ulp from the
+    rescan merge's association), the same replace-the-worst merge.  Takes
+    any k."""
+    return _replace_worst_plain(points, queries, k, exclude=exclude, scale=scale,
+                                matmul_precision=matmul_precision,
+                                compute_dtype=compute_dtype, tile=tile, stream=True)
+
+
 def exact_knn_self(points: torch.Tensor, k: int, **kw):
-    """Exact kNN graph with self-exclusion."""
+    """Exact kNN graph with self-exclusion (``kw`` as :func:`exact_knn`)."""
     n = points.shape[0]
     excl = torch.arange(n, dtype=torch.int32, device=points.device)
     q = points if points.dtype == torch.float32 else points.float()
@@ -366,14 +610,18 @@ def exact_search(points, queries, k: int, *, scale=None,
     k > 128 close to n; on the CPU the float oracle
     (:func:`brute_force_knn`), as the JAX package does off the TPU.
     ``kw`` takes the two-phase knobs (``seg``, ``pad_segments``,
-    ``rescan``) and the rank kernel's (``merge``, ``twophase_seg``,
-    ``stream``); pinning a rank-only knob keeps the rank kernel.
+    ``rescan``) and :func:`exact_knn`'s (``merge``, ``twophase_seg``,
+    ``stream``, ``compute_dtype``); pinning one of the latter keeps the
+    kernel family of :func:`exact_knn` (rank, rescan merge, stream), as in
+    the JAX package.  The JAX kernels' TPU knobs (``tile``,
+    ``query_block``, ``interpret``) raise ``ValueError``.
     ``no_twophase`` escapes the n >= ``TWOPHASE_MIN_N`` route only: past
     k = 128 there is no rank kernel to escape to.  An int8 corpus needs
     its ``scale``; on the CPU it is dequantised, and the queries snapped
     to the same grid, so both rank the same quantized values.  A bf16/f16
     corpus is ranked on the CPU in float32 from its stored values.  Takes
     tensors or array-likes (placed by :func:`place`)."""
+    check_tpu_knobs(kw)
     points, queries = place(points, queries, device)
     if points.device.type == "cuda":
         from .twophase import TWOPHASE_ONLY_KW, exact_knn_twophase, route

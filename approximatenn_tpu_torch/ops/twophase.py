@@ -39,7 +39,8 @@ from .exact import (_DTYPE_CODE, KMAX, _check, _prepare, device_index, launch_er
 # measured by chip_smoke.py and recorded in PERF.md, and this default
 # stands until it is retuned from those numbers.
 TWOPHASE_MIN_N = 500_000
-# keywords exact_knn_twophase takes; any other pins the rank kernel
+# keywords exact_knn_twophase takes; any other (merge, stream, compute_dtype)
+# pins exact_knn's kernel family: rank, rescan merge or stream
 TWOPHASE_KW = frozenset({"seg", "pad_segments", "scale", "rescan",
                          "matmul_precision"})
 # two-phase-only knobs, dropped before a rank-kernel dispatch
@@ -69,7 +70,8 @@ def big_k_route(n: int, k: int) -> bool:
 def route(n: int, k: int, kw, no_twophase: bool = False,
           min_n: int = TWOPHASE_MIN_N) -> str:
     """The engine an exact search runs on a CUDA corpus of n rows:
-    "twophase", "rank" or "brute" (``kw``: the extra keywords given;
+    "twophase", "rank" (:func:`~.exact.exact_knn`, whose ``merge`` and
+    ``stream`` pick its kernel) or "brute" (``kw``: the extra keywords given;
     ``min_n``: the corpus size from which k <= 128 takes the two-phase
     engine).  The one routing rule of ``exact_search`` and ``Server``."""
     tp_ok = set(kw) <= TWOPHASE_KW

@@ -18,15 +18,23 @@ Phases, one line each, and a non-zero exit on the first failure:
    m = 1, exhausted windows, emit with ``exclude``.  Probe kernel:
    overlapping windows, clipped starts, a live bound below n, every window
    past the live bound, k = 128 over fewer distinct slots, P = m = tries =
-   1, d = 96, bf16, f16, int8 (the main shape is checked in step 4);
+   1, d = 96, bf16, f16, int8 (the main shape is checked in step 4).
+   Rescan-merge and streaming kernels: the rank kernel's degenerate set
+   plus d = 33 and m = 37, ``compute_dtype=torch.bfloat16`` on an f32
+   corpus (the rank kernel too), and the serving shape;
 3. the main path at the SIFT-1M shape (n = 1M x d = 128 float32 from
    ``--seed``, 1000 queries, k = 10, tries = 10), each path with the launch
    counts set to 0 just before it and read just after: ``build`` (exact kNN
    graph through the rank kernel) -> ``search``; the two-phase engine
    (``exact_knn_twophase`` at k = 10 and 64, ``exact_search`` at k = 256,
    ``Server`` auto in f32 and bf16); the same servers with
-   ``no_twophase=True`` (the rank kernel).  Results are checked against a float64 oracle on the
-   card, and the card's hash search against the same search on the CPU;
+   ``no_twophase=True`` (the rank kernel); ``merge``: the f32 server with
+   ``no_twophase=True``, ``merge="rescan"`` and ``stream=True`` pinned, each
+   in f32 and with ``compute_dtype=torch.bfloat16`` (recall gated at 1.0 up
+   to ties in f32, ids equal to the rank kernel's outside near-ties,
+   ``describe()`` and the launch counts naming the pinned kernel).  Results
+   are checked against a float64 oracle on the card, and the card's hash
+   search against the same search on the CPU;
 4. packed hash serving at the SIFT-1M stand-in's full width: a clustered
    1M x 128 float32 corpus (``data/synthetic.clustered_gaussian``, 10,000
    clusters) with queries drawn as the JAX package's stand-ins draw them;
@@ -80,6 +88,16 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                         "approximatenn_tpu/ops/pallas_exact.py:1144"),
     "probe_topk": ("approximatenn_tpu_torch/csrc/probe_knn.cu",
                    "approximatenn_tpu/ops/pallas_probe.py:59"),
+    "exact_knn_rescan": ("approximatenn_tpu_torch/csrc/rescan_merge_knn.cu",
+                         "approximatenn_tpu/ops/pallas_exact.py:433"),
+    "exact_knn_stream": ("approximatenn_tpu_torch/csrc/stream_knn.cu",
+                         "approximatenn_tpu/ops/pallas_exact.py:544"),
+}
+# the rank family: kernel -> (exact_knn's keywords, plain version, launch key)
+VARIANTS = {
+    "rank": ({}, ex.exact_knn_plain, "exact_knn"),
+    "rescan": ({"merge": "rescan"}, ex.exact_knn_rescan_plain, "exact_knn_rescan"),
+    "stream": ({"stream": True}, ex.exact_knn_stream_plain, "exact_knn_stream"),
 }
 N = 1_000_000  # SIFT-1M's shape: N x 128 float32
 M = 1000  # queries per batch
@@ -120,10 +138,16 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def check_case(label, points, queries, k, *, exclude=None, scale=None,
-               rtol=1e-5, atol=1e-4) -> float:
-    ia, da = ex.exact_knn(points, queries, k, exclude=exclude, scale=scale)
-    ib, db = ex.exact_knn_plain(points, queries, k + 1, exclude=exclude, scale=scale)
+               rtol=1e-5, atol=1e-4, kernel="rank", compute_dtype=None) -> float:
+    """A kernel of the rank family against its plain version."""
+    kw, plain, _ = VARIANTS[kernel]
+    ia, da = ex.exact_knn(points, queries, k, exclude=exclude, scale=scale,
+                          compute_dtype=compute_dtype, **kw)
+    ib, db = plain(points, queries, k + 1, exclude=exclude, scale=scale,
+                   compute_dtype=compute_dtype)
     fence()
+    if kernel != "rank":
+        label = f"{kernel} {label}"
     m = queries.shape[0]
     if ia.shape != (m, k) or ia.dtype != torch.int32 or da.dtype != torch.float32:
         raise AssertionError(f"{label}: bad output {ia.shape} {ia.dtype} {da.dtype}")
@@ -506,13 +530,58 @@ def main() -> None:
 
     synthetic_probe_checks(randn, dev)
 
+    # the rescan-merge and streaming kernels: the rank kernel's degenerate set
+    x33, q33 = randn(20_011, 33), randn(999, 33)
+    bf16 = torch.bfloat16
+    check_case("compute_dtype=bf16 on f32 n=20000", x20, q1k, 10, compute_dtype=bf16, rtol=1e-3)
+    for kern in ("rescan", "stream"):
+        check_case("n=20000 d=128 m=1000 k=10 f32", x20, q1k, 10, kernel=kern)
+        check_case("k=1", x20, q1k, 1, kernel=kern)
+        check_case("k=128", x20, q1k, 128, kernel=kern)
+        check_case("n=20011 exclude=self k=10", x20b, x20b[:1000].contiguous(), 10,
+                   exclude=self_ids, kernel=kern)
+        check_case("d=33 n=20011 m=999", x33, q33, 10, kernel=kern)
+        check_case("d=96", x96, q96, 10, kernel=kern)
+        check_case("bf16 stored", x20.to(bf16), q1k, 10, rtol=1e-3, kernel=kern)
+        check_case("f16 stored", x20.to(torch.float16), q1k, 10, rtol=1e-3, kernel=kern)
+        check_case("int8 scale", x8, q1k, 10, scale=float(s8), kernel=kern)
+        check_case("m=1", x20, q1k[:1].contiguous(), 10, kernel=kern)
+        check_case("m=37", x20, q1k[:37].contiguous(), 10, kernel=kern)
+        check_case("k=128 > n=100", small, q1k[:50].contiguous(), 128, kernel=kern)
+        check_case("k=100 = n-1 exclude=self", x101, x101, 100,
+                   exclude=torch.arange(101, dtype=torch.int32, device=dev), kernel=kern)
+        check_case("compute_dtype=bf16 on f32 n=20000", x20, q1k, 10, compute_dtype=bf16,
+                   rtol=1e-3, kernel=kern)
+        errs[VARIANTS[kern][2]] = check_case(f"main shape n={N} m={M} k=10", X, Y, 10,
+                                             kernel=kern)
+    rescan_ms = cuda_ms(lambda: ex.exact_knn(X, Y, 10, merge="rescan"), reps=10)
+    rescan_plain_ms = cuda_ms(lambda: ex.exact_knn_rescan_plain(X, Y, 10), reps=2)
+    stream_ms = cuda_ms(lambda: ex.exact_knn(X, Y, 10, stream=True), reps=10)
+    stream_plain_ms = cuda_ms(lambda: ex.exact_knn_stream_plain(X, Y, 10), reps=2)
+    phase("kernel", f"time n={N} m={M} k=10: rescan merge {rescan_ms:.3f} ms plain "
+                    f"{rescan_plain_ms:.3f} ms; stream {stream_ms:.3f} ms plain "
+                    f"{stream_plain_ms:.3f} ms")
+    # half-width streams: a stored bf16 corpus, and bf16 compute on the f32
+    # corpus (which adds the per-call conversion)
+    half_ms = {label: cuda_ms(fn, reps=5) for label, fn in (
+        ("rank compute_dtype=bf16", lambda: ex.exact_knn(X, Y, 10, compute_dtype=bf16)),
+        ("rescan merge bf16 stored", lambda: ex.exact_knn(Xb, Y, 10, merge="rescan")),
+        ("rescan merge compute_dtype=bf16",
+         lambda: ex.exact_knn(X, Y, 10, merge="rescan", compute_dtype=bf16)),
+        ("stream bf16 stored", lambda: ex.exact_knn(Xb, Y, 10, stream=True)),
+        ("stream compute_dtype=bf16",
+         lambda: ex.exact_knn(X, Y, 10, stream=True, compute_dtype=bf16)),
+        ("bf16 conversion alone", lambda: ex.compute_corpus(X, bf16)))}
+    phase("kernel", f"time n={N} m={M} k=10 half width: "
+                    + ", ".join(f"{label} {t:.3f} ms" for label, t in half_ms.items()))
+
     emit_ms = cuda_ms(lambda: tp.segment_minima(X, Y, seg), reps=10)
     emit_plain_ms = cuda_ms(lambda: tp.segment_minima_plain(X, Y, seg), reps=2)
-    rescan_ms = cuda_ms(lambda: tp.rescan_windows(X, Y, starts, seg, k), reps=20)
-    rescan_plain_ms = cuda_ms(lambda: tp.rescan_windows_plain(X, Y, starts, seg, k), reps=3)
+    tp_rescan_ms = cuda_ms(lambda: tp.rescan_windows(X, Y, starts, seg, k), reps=20)
+    tp_rescan_plain_ms = cuda_ms(lambda: tp.rescan_windows_plain(X, Y, starts, seg, k), reps=3)
     phase("kernel", f"time n={N} m={M} k={k} seg={seg}: emit {emit_ms:.3f} ms plain "
-                    f"{emit_plain_ms:.3f} ms; rescan {rescan_ms:.3f} ms plain "
-                    f"{rescan_plain_ms:.3f} ms")
+                    f"{emit_plain_ms:.3f} ms; rescan {tp_rescan_ms:.3f} ms plain "
+                    f"{tp_rescan_plain_ms:.3f} ms")
     n_seg = -(-N // seg)
     pairs, distinct = rescan_rows(starts, N, seg)
     phase("kernel", f"rescan windows n={N} m={M} P={P} seg={seg}: {pairs} (query, row) "
@@ -524,9 +593,15 @@ def main() -> None:
         "twophase_rescan": bound(3.0 * pairs * 128,
                                  4.0 * (distinct * 128 + M * 128 + M * P) + 8.0 * M * k),
     }
+    # the rescan merge and the stream also read pn (n,) and |q|^2 (m,)
+    for name in ("exact_knn_rescan", "exact_knn_stream"):
+        bounds[name] = bound(2.0 * M * N * 128,
+                             4.0 * (N * 129 + M * 129) + 8.0 * M * k)
     timing = {"exact_knn": (kern_ms, plain_ms, lib_ms),
               "twophase_emit": (emit_ms, emit_plain_ms, None),
-              "twophase_rescan": (rescan_ms, rescan_plain_ms, None)}
+              "twophase_rescan": (tp_rescan_ms, tp_rescan_plain_ms, None),
+              "exact_knn_rescan": (rescan_ms, rescan_plain_ms, lib_ms),
+              "exact_knn_stream": (stream_ms, stream_plain_ms, lib_ms)}
     for name, (b_ms, b_by) in bounds.items():
         phase("kernel", f"bound {name}: {b_ms:.3f} ms ({b_by}); measured "
                         f"{timing[name][0]:.3f} ms")
@@ -610,7 +685,7 @@ def main() -> None:
                       f"ties vs f64 oracle {tie:.4f}")
     results = {}
 
-    def serve(label, srv, **kw):
+    def serve(label, srv, name="server", **kw):
         sids, sd = srv.search(Y, **kw)  # warm-up
         fence()
         reps = 20
@@ -623,8 +698,9 @@ def main() -> None:
             raise AssertionError("Server.search returned a bad result")
         rec, tie_rec = recall_up_to_ties(X64, Y64, sids, true_s, k)
         results[label] = (qps, rec, tie_rec)
-        phase("server", f"Server {label} n={N} m={M}: pipelined "
-                        f"{qps:.1f} QPS, recall@10 {rec:.4f} (up to ties {tie_rec:.4f})")
+        phase(name, f"Server {label} n={N} m={M}: pipelined "
+                    f"{qps:.1f} QPS, recall@10 {rec:.4f} (up to ties {tie_rec:.4f})")
+        return sids
 
     servers = {}
     for label, sdt in (("f32", None), ("bf16", torch.bfloat16)):
@@ -645,6 +721,7 @@ def main() -> None:
     if results["exact f32 no_twophase (cuda-rank)"][2] != 1.0:
         raise AssertionError("f32 rank recall up to ties is not 1.0")
     read_counts("Server no_twophase", ("exact_knn",))
+    merge_paths(servers["f32"], serve, results, read_counts, X, Y)
 
     # path 4: packed hash serving through the probe kernel, then updates
     srv_packed, Yc, packed_err, packed_timing, packed_bound = packed_serving(
@@ -677,6 +754,48 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def merge_paths(srv, serve, results, read_counts, X, Y) -> None:
+    """Path 3b (phase ``merge``): the f32 exact server with the rank
+    kernel, the rescan merge and the stream pinned, in f32 and with bf16
+    compute; each with the launch counts set to 0 just before it."""
+    exact_keys = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_emit",
+                  "twophase_rescan")
+    rank_ids = None
+    for cdt in (None, torch.bfloat16):
+        for label, kw, kernel in (("no_twophase", {"no_twophase": True}, "rank"),
+                                  ("merge=rescan", {"merge": "rescan"}, "rescan"),
+                                  ("stream", {"stream": True}, "stream")):
+            if cdt is not None:
+                kw = dict(kw, compute_dtype=cdt)
+                label += " compute_dtype=bf16"
+            key = VARIANTS[kernel][2]
+            desc = srv.describe(**kw)
+            if desc["exact_engine"] != f"cuda-{kernel}":
+                raise AssertionError(f"describe({kw}) names {desc['exact_engine']}")
+            ex.reset_launch_counts()
+            tag = f"f32 {label} (cuda-{kernel}, streams {desc['compute_dtype']})"
+            ids = serve(tag, srv, name="merge", **kw)
+            counts = read_counts(f"Server {label}", (key,))
+            stray = [name for name in exact_keys if name != key and counts[name]]
+            if stray:
+                raise AssertionError(f"Server {label} also launched {stray}")
+            if cdt is not None:
+                continue
+            if results[tag][2] != 1.0:
+                raise AssertionError(f"{tag}: recall up to ties {results[tag][2]}, not 1.0")
+            if kernel == "rank":
+                rank_ids = ids
+                continue
+            bad = torch.nonzero(ids != rank_ids)
+            if bad.numel():
+                pairs = torch.stack([bad[:, 0], ids[bad[:, 0], bad[:, 1]]], 1)
+                if not near_tie_ok(X, Y, pairs, rank_ids[bad[:, 0], bad[:, 1]]):
+                    raise AssertionError(f"{tag}: ids differ from the rank kernel's "
+                                         "outside near-ties")
+            phase("merge", f"{tag}: ids equal to the rank kernel's outside near-ties "
+                           f"({bad.shape[0]} near-tie positions)")
 
 
 def packed_serving(seed: int, dev, read_counts):

@@ -1,8 +1,8 @@
 """The exact-kNN kernel's plain PyTorch version against the JAX Pallas
 kernel (run in interpret mode, as tests/test_pallas.py runs it) and the
 oracles, on the CPU; the CUDA kernels themselves (rank, two-phase emit and
-rescan) against their plain versions on a card (``cuda`` marker; skipped
-without one).
+rescan, rescan merge, stream) against their plain versions on a card
+(``cuda`` marker; skipped without one).
 
 Ids must be equal outside near-ties (adjacent reference distances within
 1e-5 relative); distances agree at rtol=1e-5, atol=1e-4 (different
@@ -188,7 +188,7 @@ def test_package_imports_no_jax():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["rank", "emit", "rescan"])
+@pytest.mark.parametrize("kernel", ["rank", "emit", "rescan", "rescan_merge", "stream"])
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
 def test_kernel_matches_plain_on_card(dt, kernel):
     if not torch.cuda.is_available():
@@ -208,14 +208,38 @@ def test_kernel_matches_plain_on_card(dt, kernel):
         p, scale = ex.quantize_corpus(p)
     rtol = 1e-3 if dt in ("bf16", "f16") else 1e-5
     excl = torch.arange(300, dtype=torch.int32, device=dev)
-    if kernel == "rank":
-        for k, e in ((1, None), (10, excl), (128, None)):
-            before = ex.launches["exact_knn"]
-            ia, da = ex.exact_knn(p, q, k, exclude=e, scale=scale)
-            assert ex.launches["exact_knn"] == before + 1
-            ib, db = ex.exact_knn_plain(p, q, k + 1, exclude=e, scale=scale)
-            torch.cuda.synchronize()
-            assert_match(ia.cpu(), da.cpu(), ib[:, :k].cpu(), db.cpu(), rtol=rtol)
+    # (k, exclude, compute_dtype); bf16 compute on the f32 corpus
+    cases = [(1, None, None), (10, excl, None), (128, None, None)]
+    if dt == "f32":
+        cases.append((10, excl, torch.bfloat16))
+    if kernel in ("rank", "rescan_merge", "stream"):
+        key, kw, plain = {
+            "rank": ("exact_knn", {}, ex.exact_knn_plain),
+            "rescan_merge": ("exact_knn_rescan", {"merge": "rescan"}, ex.exact_knn_rescan_plain),
+            "stream": ("exact_knn_stream", {"stream": True}, ex.exact_knn_stream_plain),
+        }[kernel]
+        corpora = [p]
+        if kernel == "stream":
+            # d = 33 rows from an offset view (not 16-byte aligned: the
+            # wrapper re-aligns a copy); a partial last tile
+            raw = torch.randn(5004, 33, generator=g).to(dev)
+            if dt == "int8":
+                raw = torch.clamp(torch.round(raw / scale), -127, 127)
+            corpora.append(raw.to(p.dtype)[1:])
+            # two 128-row tiles of d = 2000 f32 values overflow shared memory
+            with pytest.raises(ValueError, match="shared memory"):
+                ex.exact_knn(torch.zeros(300, 2000, device=dev), torch.zeros(2, 2000, device=dev),
+                             3, stream=True)
+        for pts in corpora:
+            qq = q if pts.shape[1] == 96 else q[:, :33].contiguous()
+            for k, e, cdt in cases:
+                before = dict(ex.launches)
+                ia, da = ex.exact_knn(pts, qq, k, exclude=e, scale=scale, compute_dtype=cdt, **kw)
+                assert {name: c - before[name] for name, c in ex.launches.items() if c != before[name]} == {key: 1}
+                ib, db = plain(pts, qq, k + 1, exclude=e, scale=scale, compute_dtype=cdt)
+                torch.cuda.synchronize()
+                assert_match(ia.cpu(), da.cpu(), ib[:, :k].cpu(), db.cpu(),
+                             rtol=1e-3 if cdt is not None else rtol)
     elif kernel == "emit":
         for seg, e in ((16, None), (64, excl), (128, None), (512, excl)):
             before = ex.launches["twophase_emit"]

@@ -220,10 +220,13 @@ def test_server_big_k_matches_jax(rng):
 def test_exact_knn_merge_options():
     p = torch.zeros((10, 4))
     q = torch.zeros((2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.exact_knn(p, q, 3, merge="rescan")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.exact_knn(p, q, 3, stream=True)
+    # the rescan merge and the stream are ported (their plain versions run
+    # on the CPU); stream=True takes precedence over merge, as in JAX
+    for kw in ({"merge": "rescan"}, {"stream": True}, {"stream": True, "merge": "bogus"}):
+        ids, dd = ex.exact_knn(p, q, 3, **kw)
+        assert ids.tolist() == [[0, 1, 2]] * 2 and (dd == 0).all()  # ties to the smaller id
+        with pytest.raises(ValueError, match="k <= 128"):
+            ex.exact_knn(p, q, 129, **kw)
     with pytest.raises(ValueError):
         ex.exact_knn(p, q, 3, merge="bogus")
     with pytest.raises(ValueError):
