@@ -264,7 +264,7 @@ def _as_corpus(points, dtype):
 def search(index: ANNIndex, points=None, queries=None, *,
            budget_bytes: int = 128 << 20, block_rows: int | None = None,
            n_probes: int | None = None, supercharge_rounds: int = 1,
-           rerank_width: int | None = None):
+           rerank_width: int | None = None, chunked: bool | None = None):
     """The k approximate nearest neighbours of each query: (ids (m, k)
     int32 with sentinel n padding, squared distances).
 
@@ -274,9 +274,14 @@ def search(index: ANNIndex, points=None, queries=None, *,
     int = that many query-directed probes.  ``supercharge_rounds``: graph
     expansions after the bucket candidates (0 disables).  ``rerank_width``:
     keep this many (>= k) candidates through merge and supercharge.
+    ``chunked`` is the JAX package's switch between its one-program and
+    host-chunked drivers, whose results are identical; it is accepted and
+    ignored (there is one driver here).
     """
     if queries is None:
         points, queries = None, points
+    index._need_tables("this index serves through its packed view only "
+                       "(search_packed / search_packed_fused)")
     if points is None:
         if index.points is None:
             raise ValueError("index does not store points; pass the build-time "

@@ -22,7 +22,7 @@ The JAX package's lane-padded corpus is TPU layout and is not ported.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -73,6 +73,9 @@ class Server:
     packed: Any = None  # PackedIndex when layout == "packed"
     n_probes: int | None = None
     scale: float | None = None  # int8 storage tier's quantization step
+    # search knobs pinned on the handle (a tuned rerank_width, stream=True,
+    # ...): merged under every call's keywords, which override them
+    _search_kw: dict = field(default_factory=dict)
     twophase_min_n: int = TWOPHASE_MIN_N
     # packed serving's batch threshold for the probe kernel (None: default)
     fused_min_batch: int | None = None
@@ -173,7 +176,7 @@ class Server:
 
                 qdt = torch.float32 if self.points.dtype == torch.int8 else self.points.dtype
                 queries = prepare_points(queries.to(qdt), self.metric)
-            skw = dict(kw)
+            skw = {**self._search_kw, **kw}
             # popped whichever way routing goes: neither engine takes it
             no_tp = bool(skw.pop("no_twophase", False))
             if self._route_twophase(k, no_tp, skw):
@@ -187,6 +190,7 @@ class Server:
             # re-make it with its own threshold
             return exact_search(self.points, queries, k, scale=self.scale,
                                 no_twophase=True, **skw)
+        kw = {**self._search_kw, **kw}
         kw.setdefault("n_probes", self.n_probes)
         if self.packed is not None:
             return self._search_packed(queries, kw)
@@ -218,14 +222,14 @@ class Server:
         return search_packed(pv, queries=queries, **kw)
 
     def exact_engine(self, **kw) -> str | None:
-        """The engine ``search(queries, **kw)`` runs in exact mode:
-        "cuda-twophase", "cuda-rank", "cuda-rescan", "cuda-stream" or
-        "cuda-segment-merge" (``merge="twophase"``; the hand-written
-        kernels) on a CUDA corpus, "oracle" on the CPU and for brute force
+        """The engine ``search(queries, **kw)`` runs in exact mode (pinned
+        knobs under ``kw``, as ``search`` merges them): "cuda-twophase",
+        "cuda-rank", "cuda-rescan", "cuda-stream" or "cuda-segment-merge"
+        (``merge="twophase"``; the hand-written kernels) on a CUDA corpus, "oracle" on the CPU and for brute force
         on the card (k > 128 close to n)."""
         if self.mode != "exact":
             return None
-        skw = dict(kw)
+        skw = {**self._search_kw, **kw}
         no_tp = bool(skw.pop("no_twophase", False))
         if self._route_twophase(self.k, no_tp, skw):
             return "cuda-twophase"
@@ -241,18 +245,20 @@ class Server:
 
     def add_points(self, new_points) -> "Server":
         """Append rows with ids n..n+m-1, in place (returns self).  Exact
-        mode: the rows are metric-prepared, converted to the stored tier
-        (int8 with the server's scale; values past the grid clip) and
+        mode: the rows are metric-prepared (the angular normalisation in
+        float32), converted straight to the stored tier (int8 through
+        float32 with the server's scale; values past the grid clip) and
         appended.  Hash mode: :meth:`ANNIndex.add_points`, then a re-pack
         of the packed view at its window and row type."""
         new_points = torch.as_tensor(new_points, device=self.points.device)
         if self.mode == "exact":
             from ..data.preprocess import prepare_points
 
-            new_points = prepare_points(new_points.float(), self.metric)
+            if self.metric != "l2":
+                new_points = prepare_points(new_points.float(), self.metric)
             if self.points.dtype == torch.int8:
-                new_points = torch.clamp(torch.round(new_points / self.scale),
-                                         -127, 127).to(torch.int8)
+                new_points = torch.clamp(torch.round(new_points.float() / self.scale),
+                                         -127, 127)
             self.points = torch.cat([self.points, new_points.to(self.points.dtype)])
             return self
         self.index = self.index.add_points(new_points)
@@ -281,9 +287,9 @@ class Server:
 
     def describe(self, **kw) -> dict:
         """What the handle serves; ``kw``: the knobs of a ``search`` call
-        (``no_twophase``, ``merge``, ``stream``, ``compute_dtype``, ...),
-        for the exact engine that call runs and, on a CUDA kernel of the
-        rank family, the type its corpus streams at."""
+        (``no_twophase``, ``merge``, ``stream``, ``compute_dtype``, ...)
+        over the pinned ones, for the exact engine that call runs and, on a
+        CUDA kernel of the rank family, the type its corpus streams at."""
         d = {
             "mode": self.mode,
             "n": int(self.points.shape[0]),
@@ -301,7 +307,8 @@ class Server:
             engine = self.exact_engine(**kw)
             d["exact_engine"] = engine
             if engine in ("cuda-rank", "cuda-rescan", "cuda-stream"):
-                cdt = stream_dtype(self.points.dtype, kw.get("compute_dtype"))
+                cdt = stream_dtype(self.points.dtype,
+                                   {**self._search_kw, **kw}.get("compute_dtype"))
                 d["compute_dtype"] = str(cdt).replace("torch.", "")
         if self.index is not None:
             d["layout"] = "packed" if self.packed is not None else "table"

@@ -154,10 +154,10 @@ class ANNIndex:
         return int(base + tables + pts)
 
     # -- streaming updates (each returns a new index) -----------------------
-    def _need_tables(self) -> None:
+    def _need_tables(self, why: str = "updates need the padded tables; keep the "
+                                      "original index for add/remove") -> None:
         if self.tables is None:
-            raise ValueError("tables dropped (drop_tables): updates need the padded "
-                             "tables; keep the original index for add/remove")
+            raise ValueError(f"tables dropped (drop_tables): {why}")
 
     def add_points(self, new_points, points=None, *,
                    repair_reverse_edges: bool = True) -> "ANNIndex":
