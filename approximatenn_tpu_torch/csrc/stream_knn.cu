@@ -9,51 +9,82 @@
 // at the end.  What defines this kernel, and what it keeps:
 //   * the grid covers query blocks only: each block walks the whole corpus
 //     itself;
-//   * corpus tiles (128 rows) and their pn slices arrive in an n_buf-deep
-//     ring of shared-memory buffers filled ahead of the compute by
-//     asynchronous copies (cp.async with commit/wait groups), the Hopper
-//     counterpart of the TPU kernel's hand-issued DMA;
+//   * corpus tiles and their pn slices arrive in an n_buf-deep ring of
+//     shared-memory buffers filled ahead of the compute by asynchronous
+//     copies (cp.async with commit/wait groups), the Hopper counterpart of
+//     the TPU kernel's hand-issued DMA;
 //   * the skip test reads s = 2 q.x - pn (its maximum over the tile) before
 //     any distance exists; the distance qn - s is formed only in the merge
 //     branch.  This association differs from the rescan merge's
 //     (qn + pn) - 2 q.x by about an ulp.
-// A tile is copied as one contiguous byte range (128 rows x d x itemsize,
-// a multiple of 16 bytes), so rows need no alignment of their own: 16-byte
-// copies from a 16-byte aligned corpus base (the caller re-aligns any other)
-// and the tail of the partial last tile byte by byte.  The TPU's 128-row
-// corpus padding, its overlapping last tile and its n < 128 switch-off are
-// not needed: any n >= 1 runs.
+// The TPU's 128-row corpus padding, its overlapping last tile and its
+// n < 128 switch-off are not needed: any n >= 1 runs.
 //
-// What bounds it on this card: fp32 FMA throughput at the serving shape (as
-// the rank kernel), unless the blocks' corpus reads are not shared through
-// L2.  There are only ceil(m / 8) blocks of 8 queries (one a warp): at the
-// serving batch a smaller block fills more SMs, a larger one reads the
-// corpus fewer times.  Each block stages the ring's tile into the rank
-// kernel's tile_dots layout (a shared-to-shared pass) and computes an
-// 8 x 128 tile of dot products; each warp holds its query's distances in
-// registers and merges them itself.  The ring is as deep as fits in shared
-// memory beside the staging and running state (2 to 8 tiles).
+// What bounds it on this card.  A block of STREAM_QB queries reads the whole
+// corpus, so the card's L2 serves (m / STREAM_QB) x corpus bytes a call (HBM
+// only the corpus once, as far as the blocks walk in step): that traffic is
+// the floor.  Next comes the issue of shared-memory loads and mma.sync in
+// the tile loop; the arithmetic itself is far from the tensor cores' peak.
+// What the design does about it:
+//   * the dot products run on the tensor cores straight from the ring slot
+//     (knn_mma.cuh: tile_mma): the copies write each row at a padded stride
+//     (4 mod 8 words) at which the MMA's fragment loads are free of bank
+//     conflicts, so there is no staging pass and no barrier in the feature
+//     loop.  float32 takes three TF32 passes (ranks as IEEE fp32 does);
+//     bf16, f16 and int8 one pass at storage width, so a narrower corpus
+//     halves or quarters both the L2 traffic and the shared-memory loads;
+//   * each of the 8 warps multiplies 16 of the tile's rows by the block's
+//     queries, whose fragments are split once and kept in shared memory;
+//   * the results cross to the merge's layout (a warp per query, lane l
+//     holding rows l + 32 j) through a small padded array S; per tile the
+//     block meets three times: slot ready, S written, and the next tile's
+//     slot-ready barrier, which also says S was consumed;
+//   * the ring is as deep as fits beside the fragments and running state
+//     (2 to 8 slots of 128 rows; 64, 32 or 16 rows where d is so large that
+//     two 128-row slots do not fit: fewer warps then have rows to multiply).
+// Rows are copied one by one into the padded layout: in 16-byte units where
+// a row's bytes are a multiple of 16 (d a multiple of 4 floats, 8 halves, 16
+// int8; the caller aligns the corpus base to 16 bytes), else in 4-byte units
+// where they are a multiple of 4 (any other d in float32, even d in halves,
+// d a multiple of 4 in int8), else (odd d in halves, other d in int8) by
+// plain byte loads and stores, which do not overlap the compute.
 //
-// Precision: as the rank kernel (IEEE fp32 dots; bf16/f16 widened, queries
-// rounded to the corpus's type; int8 in int32).
+// Precision: float32 dots are 3xTF32 with fp32 accumulation (see
+// knn_mma.cuh), within fp32 summation error of the IEEE dot product; bf16 /
+// f16 multiply queries rounded to the corpus's type, exact products, fp32
+// accumulation; int8 in int32, exact.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
+//        -DSTREAM_QB=16 builds the kernel with 16 queries a block.
 
-#include "knn_common.cuh"
+#include "knn_mma.cuh"
+
+// queries per block: 8 or 16 (8 by measurement, see PERF.md)
+#ifndef STREAM_QB
+#define STREAM_QB 8
+#endif
 
 namespace {
 
 using namespace knn;
 
-constexpr int QW = 1;             // queries per warp
-constexpr int QBW = NW * QW;      // queries per block
-constexpr int MAX_BUF = 8;        // deepest ring
-constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
+constexpr int QBW = STREAM_QB;            // queries per block
+constexpr int NQ = QBW / MMA_QUERIES;     // groups of 8 queries per MMA row block
+constexpr int QW = QBW / NW;              // queries a warp merges
+constexpr int SS = TN + 4;                // row stride of S: 4 (mod 32) words
+constexpr int MAX_BUF = 8;                // deepest ring
+constexpr int SMEM_MAX = 232448;          // dynamic shared memory a block may use
+static_assert(QBW % MMA_QUERIES == 0 && QBW % NW == 0, "STREAM_QB must be 8 or 16");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -74,59 +105,78 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
     case 3: cp_async_wait<3>(); break;
     case 4: cp_async_wait<4>(); break;
     case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<7>(); break;
+    default: cp_async_wait<6>(); break;
   }
 }
 
-// Copy nbytes from global src to shared dst, both 16-byte aligned: whole
-// 16-byte units asynchronously, the tail byte by byte.  Whole block.
-__device__ __forceinline__ void copy_bytes(unsigned char* dst, const unsigned char* src,
-                                           long long nbytes) {
-  const long long body = nbytes / 16 * 16;
-  for (long long o = 16LL * threadIdx.x; o < body; o += 16LL * NT) cp_async16(dst + o, src + o);
-  for (long long o = body + threadIdx.x; o < nbytes; o += NT) dst[o] = src[o];
-}
-
+// tr: corpus rows per ring slot (128, 64, 32 or 16)
 template <typename T>
 __global__ void __launch_bounds__(NT)
 stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
               const float* __restrict__ qn, const float* __restrict__ pn,
-              const int* __restrict__ excl, int n, int d, int m, int k, int n_buf,
+              const int* __restrict__ excl, int n, int d, int m, int k, int n_buf, int tr,
               float scale2, float* __restrict__ out_d, int* __restrict__ out_i) {
-  using S = typename Tr<T>::S;
   extern __shared__ __align__(16) unsigned char smem[];
-  const long long slot_bytes = (long long)TN * d * sizeof(T);  // a multiple of 16
-  unsigned char* ring = smem;                                            // [n_buf][TN * d]
-  float* pn_ring = reinterpret_cast<float*>(smem + n_buf * slot_bytes);  // [n_buf][TN]
-  S* Qs = reinterpret_cast<S*>(pn_ring + n_buf * TN);                    // [DC][QBW]
-  S* Ps = Qs + DC * QBW;                                                 // [DC][PS]
-  S* Pn = Ps + DC * PS;                                 // [TN] (unused: norms are pn)
-  float* rd = reinterpret_cast<float*>(Pn + TN);        // [QBW][k]
-  int* ri = reinterpret_cast<int*>(rd + QBW * k);       // [QBW][k]
+  const int stride = padded_stride(d, sizeof(T));  // words
+  const int ksteps = row_words(d, sizeof(T)) / KSTEP_WORDS;
+  const int slot_words = tr * stride;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem);                    // [n_buf][tr][stride]
+  float* pn_ring = reinterpret_cast<float*>(ring + n_buf * slot_words);  // [n_buf][tr]
+  uint32_t* qf = reinterpret_cast<uint32_t*>(pn_ring + n_buf * tr);      // query fragments
+  float* Sm = reinterpret_cast<float*>(qf + fragment_words<T>(NQ, ksteps));  // [QBW][SS]
+  float* rd = Sm + QBW * SS;                                             // [QBW][k]
+  int* ri = reinterpret_cast<int*>(rd + QBW * k);                        // [QBW][k]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * QBW;
-  const int n_tiles = (n + TN - 1) / TN;
+  const int n_tiles = (n + tr - 1) / tr;
   const unsigned char* src = reinterpret_cast<const unsigned char*>(pts);
 
-  // tile t (rows [t TN, min((t + 1) TN, n))) and its norms into slot t % n_buf
+  // A tile is rows x row_bytes contiguous bytes of the corpus; unit e of it
+  // goes to row e / upr, unit e % upr of the slot.  This thread copies units
+  // tid, tid + NT, ...: (row0, u0) is its first, (drow, du) its step.
+  const int row_bytes = d * (int)sizeof(T);
+  const int unit = row_bytes % 16 == 0 ? 16 : (row_bytes % 4 == 0 ? 4 : 1);
+  const int upr = row_bytes / unit;
+  const int row0 = tid / upr, u0 = tid % upr, drow = NT / upr, du = NT % upr;
+
+  // tile t (rows [t tr, min((t + 1) tr, n))) and its norms into slot t % n_buf
   auto issue = [&](int t) {
     const int slot = t % n_buf;
-    const long long r0 = (long long)t * TN;
-    const long long rows = (n - r0) < TN ? (n - r0) : TN;
-    copy_bytes(ring + slot * slot_bytes, src + r0 * d * (long long)sizeof(T),
-               rows * d * (long long)sizeof(T));
-    copy_bytes(reinterpret_cast<unsigned char*>(pn_ring + slot * TN),
-               reinterpret_cast<const unsigned char*>(pn + r0), rows * 4);
+    const long long r0 = (long long)t * tr;
+    const int rows = (n - r0) < tr ? (int)(n - r0) : tr;
+    unsigned char* dst = reinterpret_cast<unsigned char*>(ring + slot * slot_words);
+    const unsigned char* s = src + r0 * row_bytes;
+    const int units = rows * upr;
+    int row = row0, u = u0;
+    for (int e = tid; e < units; e += NT) {
+      unsigned char* to = dst + (row * stride) * 4 + u * unit;
+      const unsigned char* from = s + (long long)e * unit;
+      if (unit == 16) cp_async16(to, from);
+      else if (unit == 4) cp_async4(to, from);
+      else *to = *from;
+      row += drow;
+      u += du;
+      if (u >= upr) { u -= upr; ++row; }
+    }
+    if (tid < rows) cp_async4(pn_ring + slot * tr + tid, pn + r0 + tid);
   };
-  // warm-up: n_buf - 1 tiles in flight (one commit group per tile, empty
-  // groups past the last tile keep the count uniform)
+  // warm-up: n_buf - 1 tiles in flight (one commit group per tile and thread,
+  // empty or not: wait counts are per thread)
   for (int t = 0; t < n_buf - 1; ++t) {
     if (t < n_tiles) issue(t);
     cp_async_commit();
   }
 
+  // bytes from a row's end to its last whole K step are zero in every slot;
+  // no copy writes them
+  {
+    const int pad = 4 * KSTEP_WORDS * ksteps - row_bytes;
+    unsigned char* base = reinterpret_cast<unsigned char*>(ring);
+    for (int e = tid; e < n_buf * tr * pad; e += NT)
+      base[(e / pad) * stride * 4 + row_bytes + e % pad] = 0;
+  }
+  stage_query_fragments<T, NQ>(q, q0, m, d, ksteps, qf);
   for (int e = tid; e < QBW * k; e += NT) { rd[e] = pos_inf(); ri[e] = ID_NONE; }
   float wd[QW], qnv[QW];
   int ws[QW], ex[QW];
@@ -139,25 +189,32 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
     ex[i] = (excl && qi < m) ? excl[qi] : -1;
   }
 
+  const int g = lane >> 2, tq = lane & 3;
   for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();  // the slot the prefetch overwrites was consumed at t - 1
-    if (t + n_buf - 1 < n_tiles) issue(t + n_buf - 1);
+    cp_async_wait_pending(n_buf - 2);  // this thread's copies of tile t landed
+    __syncthreads();  // and every thread's; tile t - 1 and its S are consumed
+    if (t + n_buf - 1 < n_tiles) issue(t + n_buf - 1);  // into tile t - 1's slot
     cp_async_commit();
-    cp_async_wait_pending(n_buf - 1);  // this thread's copies of tile t landed
-    __syncthreads();                   // and every thread's
     const int slot = t % n_buf;
-    const int t0 = t * TN;
-    const int rows = (n - t0) < TN ? (n - t0) : TN;
-    S acc[QW][4];
-    tile_dots<T, QW>(reinterpret_cast<const T*>(ring + slot * slot_bytes), q, q0, m, d, 0,
-                     rows, Qs, Ps, Pn, acc);
-    const float* pnt = pn_ring + slot * TN;
-    float pnv[4];
+    const int t0 = t * tr;
+    const int rows = (n - t0) < tr ? (n - t0) : tr;
+    const int wrow = MMA_ROWS * warp;  // this warp's first row of the tile
+    if (wrow < rows) {
+      typename Tr<T>::S dot[NQ][4];
+      tile_mma<T, NQ>(ring + slot * slot_words + wrow * stride, stride, ksteps, qf, lane, dot);
+      const float* pnt = pn_ring + slot * tr + wrow + g;
+      const float p0 = pnt[0], p1 = pnt[8];
+      float* sq = Sm + (2 * tq) * SS + wrow + g;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = lane + 32 * j;
-      pnv[j] = r < rows ? pnt[r] : 0.0f;
+      for (int nq = 0; nq < NQ; ++nq) {
+        float* s = sq + MMA_QUERIES * nq * SS;
+        s[0] = 2.0f * (float)dot[nq][0] - p0;
+        s[SS] = 2.0f * (float)dot[nq][1] - p0;
+        s[8] = 2.0f * (float)dot[nq][2] - p1;
+        s[SS + 8] = 2.0f * (float)dot[nq][3] - p1;
+      }
     }
+    __syncthreads();  // S written
 #pragma unroll
     for (int i = 0; i < QW; ++i) {
       const int qq = QW * warp + i;
@@ -168,7 +225,8 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = lane + 32 * j;
-        s[j] = 2.0f * (float)acc[i][j] - pnv[j];
+        s[j] = Sm[qq * SS + r];
+        // rows past the tile's end hold what an earlier tile left
         ok[j] = r < rows && t0 + r != ex[i];
         if (ok[j]) smax = fmaxf(smax, s[j]);
       }
@@ -195,29 +253,33 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
 }
 
 template <typename T>
-size_t stream_smem(int d, int k, int n_buf) {
-  using S = typename Tr<T>::S;
-  return (size_t)n_buf * TN * (d * sizeof(T) + sizeof(float)) +
-         sizeof(S) * (DC * QBW + DC * PS + TN) + (sizeof(float) + sizeof(int)) * (size_t)QBW * k;
+size_t stream_smem(int d, int k, int n_buf, int tr) {
+  const int ksteps = row_words(d, sizeof(T)) / KSTEP_WORDS;
+  return (size_t)n_buf * tr * (padded_stride(d, sizeof(T)) + 1) * 4 +
+         4 * (size_t)fragment_words<T>(NQ, ksteps) + sizeof(float) * QBW * SS +
+         (sizeof(float) + sizeof(int)) * (size_t)QBW * k;
 }
 
 template <typename T>
 int launch(const void* pts, const float* q, const int* excl, const float* qn, const float* pn,
            int n, int d, int m, int k, float scale2, float* out_d, int* out_i,
            cudaStream_t stream) {
-  // the deepest ring (no deeper than the tiles there are) that fits; two
-  // tiles at least
-  const int n_tiles = (n + TN - 1) / TN;
+  // the most rows per slot for which two slots fit, then the deepest ring
+  // (no deeper than the tiles there are) that fits
+  int tr = TN;
+  while (tr > MMA_ROWS && stream_smem<T>(d, k, 2, tr) > (size_t)SMEM_MAX) tr /= 2;
+  const int n_tiles = (n + tr - 1) / tr;
   int n_buf = n_tiles < 2 ? 2 : (n_tiles < MAX_BUF ? n_tiles : MAX_BUF);
-  while (n_buf > 2 && stream_smem<T>(d, k, n_buf) > (size_t)SMEM_MAX) --n_buf;
-  const size_t smem = stream_smem<T>(d, k, n_buf);
+  while (n_buf > 2 && stream_smem<T>(d, k, n_buf, tr) > (size_t)SMEM_MAX) --n_buf;
+  const size_t smem = stream_smem<T>(d, k, n_buf, tr);
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(stream_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   stream_kernel<T><<<(m + QBW - 1) / QBW, NT, smem, stream>>>(
-      static_cast<const T*>(pts), q, qn, pn, excl, n, d, m, k, n_buf, scale2, out_d, out_i);
+      static_cast<const T*>(pts), q, qn, pn, excl, n, d, m, k, n_buf, tr, scale2, out_d,
+      out_i);
   return (int)cudaGetLastError();
 }
 
@@ -229,8 +291,8 @@ extern "C" {
 // 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers,
 // pts and pn 16-byte aligned; excl may be null.  qn (m,) and pn (n,) are
 // float32; out_d/out_i hold m * k entries.  Returns the CUDA error code
-// (0 = launched); cudaErrorInvalidValue also when two corpus tiles of d
-// values do not fit in a block's shared memory.
+// (0 = launched); cudaErrorInvalidValue also when two 16-row corpus tiles
+// of d values do not fit in a block's shared memory.
 int exact_knn_stream_launch(int device, const void* pts, int dtype, const float* q,
                             const int* excl, const float* qn, const float* pn, int n, int d,
                             int m, int k, float* out_d, int* out_i, float scale2, void* stream) {

@@ -302,8 +302,11 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     rescan-merge kernel (``merge="rescan"``) or the streaming kernel
     (``stream=True``, which takes precedence over ``merge``).  Returns
     (ids (m, k) int32, squared distances (m, k) float32).
-    ``matmul_precision`` is validated; every tier computes in IEEE fp32
-    (see the kernel sources).  ``compute_dtype`` (torch.float32, bfloat16
+    ``matmul_precision`` is validated; every tier computes what "highest"
+    computes: IEEE fp32 on the CUDA cores in the rank and rescan-merge
+    kernels, three TF32 passes with fp32 accumulation on the tensor cores
+    in the streaming kernel (which ranks as IEEE fp32 does; see the kernel
+    sources).  ``compute_dtype`` (torch.float32, bfloat16
     or float16) is the width the corpus streams at; see the module
     docstring for the norms each kernel takes.  The JAX kernels' TPU knobs
     (``tile``, ``query_block``, ``interpret``) raise ``ValueError``.
@@ -394,14 +397,16 @@ def _replace_worst_inputs(points, queries, scale, compute_dtype):
 def stream_cuda(points, queries, k: int, *, exclude=None, scale=None, compute_dtype=None):
     """The streaming kernel (``csrc/stream_knn.cu``) on checked CUDA
     inputs: one block per 8 queries walks the whole corpus through a ring
-    of shared-memory tiles."""
+    of shared-memory tiles and multiplies on the tensor cores (float32 in
+    three TF32 passes, see :func:`split_tf32`; bf16, f16 and int8 at
+    storage width)."""
     pts, q, qn, pn, scale2 = _replace_worst_inputs(points, queries, scale, compute_dtype)
     n, d = pts.shape
     m = q.shape[0]
     dev = pts.device
     if m == 0:
         return _empty(k, dev)
-    # tiles are copied as contiguous byte ranges in 16-byte units
+    # rows are copied in 16-byte units where their width allows
     if pts.data_ptr() % 16:
         pts = pts.clone()
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
@@ -413,9 +418,9 @@ def stream_cuda(points, queries, k: int, *, exclude=None, scale=None, compute_dt
         n, d, m, k, out_d.data_ptr(), out_i.data_ptr(), scale2,
         torch.cuda.current_stream(dev).cuda_stream)
     if err == _CUDA_INVALID_VALUE:
-        raise ValueError(f"stream=True holds two {_TN}-row corpus tiles in a block's shared "
-                         f"memory: d = {d} at {pts.element_size()} bytes a value with k = {k} "
-                         "does not fit")
+        raise ValueError("stream=True holds two corpus tiles (of 16 rows at least) in a "
+                         f"block's shared memory: d = {d} at {pts.element_size()} bytes a "
+                         f"value with k = {k} does not fit")
     if err != 0:
         raise launch_error(lib, "exact_knn_stream", err)
     launches["exact_knn_stream"] += 1
@@ -559,6 +564,24 @@ def exact_knn_stream_plain(points: torch.Tensor, queries: torch.Tensor, k: int, 
     return _replace_worst_plain(points, queries, k, exclude=exclude, scale=scale,
                                 matmul_precision=matmul_precision,
                                 compute_dtype=compute_dtype, tile=tile, stream=True)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with ``x = hi + lo`` up to 2^-22 |x|, both representable in
+    TF32 (10 mantissa bits): ``hi`` is float32 ``x`` rounded to TF32 (to
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32``) by integer
+    arithmetic on its bits, ``lo`` the remainder rounded the same way.
+    The split the streaming kernel makes in registers; its float32 dot
+    product is the sum of ``lo*hi + hi*lo + hi*hi``."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        # the magnitude sits in the low 31 bits: adding half a TF32 ulp and
+        # clearing the 13 dropped bits rounds it, ties away from zero
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 def exact_knn_self(points: torch.Tensor, k: int, **kw):

@@ -286,3 +286,53 @@ def test_kernel_matches_plain_on_card(dt, kernel):
                 _, d_next = tp.rescan_windows_plain(p, qq, starts, seg, min(k + 1, 128))
                 dref = torch.cat([db, d_next[:, k:]], 1) if k < 128 else db
                 assert_match(ia.cpu(), da.cpu(), ib.cpu(), dref.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
+def test_stream_fragment_layout_on_card(dt):
+    """One-hot integer rows against unit-vector queries: every product is
+    exact in every type, so the tensor-core kernel must equal its plain
+    version bit for bit; a wrong fragment index moves a dot product to
+    another (row, query) and shows.  The plain version walks the kernel's
+    128-row tiles: among the many equal distances here, which ids the
+    replace-the-worst merge keeps depends on the tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from approximatenn_tpu_torch.data.synthetic import one_hot_rows
+
+    dev = torch.device("cuda")
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16,
+           "int8": torch.int8}[dt]
+    for n, d in ((1000, 128), (333, 40), (700, 33)):
+        X, Y = one_hot_rows(n, d)
+        pts, q = torch.from_numpy(X).to(dev).to(tdt), torch.from_numpy(Y).to(dev)
+        scale = 1.0 if dt == "int8" else None
+        excl = torch.arange(d, dtype=torch.int32, device=dev)
+        for k, e in ((10, None), (10, excl), (128, None)):
+            ia, da = ex.exact_knn(pts, q, k, exclude=e, scale=scale, stream=True)
+            ib, db = ex.exact_knn_stream_plain(pts, q, k, exclude=e, scale=scale, tile=128)
+            torch.cuda.synchronize()
+            assert torch.equal(ia, ib) and torch.equal(da, db), (dt, n, d, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [200, 256, 768])
+def test_stream_large_d_on_card(d):
+    """Past d = 200 (float32) two 128-row ring slots do not fit a block's
+    shared memory: the launcher takes 64-, 32- or 16-row slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator().manual_seed(d)
+    dev = torch.device("cuda")
+    p = torch.randn(3001, d, generator=g).to(dev)
+    q = torch.randn(100, d, generator=g).to(dev)
+    excl = torch.arange(100, dtype=torch.int32, device=dev)
+    for pts, rtol in ((p, 1e-5), (p.to(torch.bfloat16), 1e-3)):
+        for k, e in ((10, excl), (128, None)):
+            before = ex.launches["exact_knn_stream"]
+            ia, da = ex.exact_knn(pts, q, k, exclude=e, stream=True)
+            assert ex.launches["exact_knn_stream"] == before + 1
+            ib, db = ex.exact_knn_stream_plain(pts, q, k + 1, exclude=e)
+            torch.cuda.synchronize()
+            assert_match(ia.cpu(), da.cpu(), ib[:, :k].cpu(), db.cpu(), rtol=rtol)

@@ -229,3 +229,49 @@ def test_server_describes_the_pinned_kernel(rng):
         d = card.describe(**kw)
         assert d["exact_engine"] == engine and d.get("compute_dtype") == cdt, (kw, d)
     assert card.exact_engine() == "cuda-twophase"
+
+
+def _tf32_ranking(terms: int):
+    """Top-10 ids of 50 queries over a 2,000 x 128 float32 corpus with the
+    dot products summed from ``split_tf32`` factors (1 term: hi*hi; 3 terms:
+    lo*hi + hi*lo + hi*hi, as the streaming kernel's float32 path), ranked
+    as the stream ranks (qn - (2 q.x - pn)), beside the float64 oracle."""
+    from approximatenn_tpu_torch.harness.scoring import ids_agree
+
+    rng = np.random.default_rng(11)
+    # a common offset of 1 makes the dot products large beside the gaps
+    # between neighbours' distances, as in a corpus that is not centred
+    X = T(rng.standard_normal((2000, 128)).astype(np.float32) + np.float32(1))
+    Y = T(rng.standard_normal((50, 128)).astype(np.float32) + np.float32(1))
+    (xh, xl), (yh, yl) = ex.split_tf32(X), ex.split_tf32(Y)
+    dots = yh @ xh.T
+    if terms == 3:
+        dots = (yl @ xh.T + yh @ xl.T) + dots
+    dd = (Y * Y).sum(-1)[:, None] - (2.0 * dots - (X * X).sum(-1)[None, :])
+    ids = torch.sort(dd, dim=1, stable=True).indices[:, :10].int()
+    d64 = ((X.double()[None] - Y.double()[:, None]) ** 2).sum(-1)
+    v64, i64 = torch.sort(d64, dim=1, stable=True)
+    ok, _ = ids_agree(ids, i64[:, :10].int(), v64[:, :11].float(), rtol=1e-5)
+    err = (dots.double() - Y.double() @ X.double().T).abs().max().item()
+    return ok, err
+
+
+def test_split_tf32_halves_are_tf32_and_sum_to_x():
+    rng = np.random.default_rng(3)
+    x = T((rng.standard_normal(4096) * 10.0 ** rng.integers(-3, 4, 4096)).astype(np.float32))
+    hi, lo = ex.split_tf32(x)
+    for part in (hi, lo):
+        assert part.dtype == torch.float32
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())  # 10 mantissa bits
+    assert bool(((hi - x).abs() <= x.abs() * 2.0 ** -11).all())  # rounded to nearest
+    assert bool(((hi.double() + lo.double() - x.double()).abs() <= x.abs() * 2.0 ** -22).all())
+    # ties round away from zero, as cvt.rna does: 1 + 2^-11 lies halfway
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert ex.split_tf32(tie)[0].tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+
+
+def test_three_tf32_terms_rank_as_float64_and_one_term_does_not():
+    ok3, err3 = _tf32_ranking(3)
+    ok1, err1 = _tf32_ranking(1)
+    assert ok3 and err3 < 5e-4  # float32 summation error at |q.x| ~ 128
+    assert not ok1 and err1 > 20 * err3
