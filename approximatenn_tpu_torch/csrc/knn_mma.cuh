@@ -6,9 +6,12 @@
 // one warp multiplies 16 rows by NQ groups of 8 queries.  Per storage type:
 //   float32        m16n8k8  TF32, fp32 accumulators, three passes ("3xTF32"):
 //                  each factor splits in registers into
-//                    hi = cvt.rna.tf32(x),  lo = cvt.rna.tf32(x - hi),
-//                  the small products lo*hi + hi*lo are summed in one
-//                  accumulator and hi*hi in another, added at the end; lo*lo
+//                    hi = cvt.rna.tf32(x),  lo = cvt.rna.tf32(x - hi)
+//                  (the queries' once per block by that instruction, the
+//                  corpus values' in the tile loop by the same rounding in
+//                  integer arithmetic, see to_tf32_int); the small products
+//                  lo*hi and hi*lo and the large hi*hi sum in accumulators
+//                  of their own, added at the end, small ones first; lo*lo
 //                  (2^-22 of a product) is dropped.  Every product of two
 //                  TF32 values is exact in fp32, so what is left of the error
 //                  is the accumulation's, as in any fp32 dot product.
@@ -31,7 +34,8 @@
 // The tile's layout.  Rows lie at a padded stride: row_words(d) = the row's
 // bytes rounded up to a whole K step (32 bytes: 8 floats, 16 halves, 32
 // int8), and stride = row_words + 4, so stride = 4 (mod 8) words.  An A load
-// touches rows g = 0..7 at words t = 0..3: bank = (stride g + t) mod 32.
+// (each of the four 8-row phases of load_a's ldmatrix) touches rows
+// g = 0..7 at words t = 0..3: bank = (stride g + t) mod 32.
 // With stride = 8a + 4, stride g = 4 g (2a + 1) (mod 32); 2a + 1 is odd, so
 // g -> g (2a + 1) mod 8 is a permutation of 0..7 and the 32 lanes fall in
 // the 32 banks 4 perm(g) + t: conflict-free without a swizzle.
@@ -56,6 +60,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "knn_common.cuh"
 
 namespace knn {
@@ -73,16 +79,34 @@ __host__ __device__ inline int padded_stride(int d, int itemsize) {
   return row_words(d, itemsize) + 4;
 }
 
+// float32 to TF32 (10 mantissa bits), to nearest, ties away from zero.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
 }
 
-// x = hi + lo + (an error below 2^-22 |x|), both TF32
+// The same rounding by integer arithmetic on the bits (half a TF32 ulp added
+// to the magnitude, the 13 dropped bits cleared): what cvt.rna.tf32.f32
+// gives for every finite x, at the integer pipe's full rate.  The tile loop
+// splits 4 values per lane and K step, and the conversion unit is slower
+// there: the streaming kernel took 26.8 ms with cvt.rna in the loop against
+// 25.6 ms with this (1M x 128 float32, 1000 queries, NVIDIA H100 80GB HBM3).
+__device__ __forceinline__ uint32_t to_tf32_int(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + (an error below 2^-22 |x|), both TF32, rounded by
+// to_tf32_int (IN_LOOP) or to_tf32
+template <bool IN_LOOP>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
+  if constexpr (IN_LOOP) {
+    hi = to_tf32_int(x);
+    lo = to_tf32_int(x - __uint_as_float(hi));
+  } else {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  }
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -200,13 +224,26 @@ __device__ __forceinline__ void stage_query_fragments(const float* __restrict__ 
     uint32_t* out = qf + (long long)e * Mma<T>::FW;
     if constexpr (PW == 1) {
       uint32_t hi0, lo0, hi1, lo1;
-      split_tf32(__uint_as_float(b[0]), hi0, lo0);
-      split_tf32(__uint_as_float(b[1]), hi1, lo1);
+      split_tf32<false>(__uint_as_float(b[0]), hi0, lo0);
+      split_tf32<false>(__uint_as_float(b[1]), hi1, lo1);
       out[0] = hi0; out[1] = hi1; out[2] = lo0; out[3] = lo1;
     } else {
       out[0] = b[0]; out[1] = b[1];
     }
   }
+}
+
+// The A fragment of one K step in one instruction: seen as 8 x 8 matrices
+// of 16-bit values, the 16 rows x 8 words are four matrices (rows 0-7 and
+// 8-15, words 0-3 and 4-7), and ldmatrix hands lane l the word (row l / 4,
+// word l % 4) of each: a0..a3 as the MMAs want them.  ``addr`` is this
+// lane's row address (shared space): lanes 8i..8i + 7 name the rows of
+// matrix i.  Rows 16 bytes apart modulo 128 (the padded stride) are read
+// without bank conflicts.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
 }
 
 // dot[nq][c] = x[row] . q[query] for this warp's 16 rows, in the MMA's C
@@ -216,58 +253,80 @@ __device__ __forceinline__ void stage_query_fragments(const float* __restrict__ 
 // row's end to its last whole K step); qf holds the block's query fragments.
 // One warp; no barrier.  Rows that are not valid give values the caller
 // masks: a row's results depend on that row alone.
+//
+// The few warps of a block cannot hide a load's latency behind each other,
+// so the loop hides it itself: the fragments of K step ks + 1 are loaded
+// before the MMAs of K step ks are issued, and even and odd K steps sum into
+// accumulator sets of their own, which doubles the independent MMA chains.
 template <typename T, int NQ>
 __device__ __forceinline__ void tile_mma(const uint32_t* rows16, int stride, int ksteps,
                                          const uint32_t* qf, int lane,
                                          typename Tr<T>::S (&dot)[NQ][4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const uint32_t* ap = rows16 + g * stride + t;
-  const int up = 8 * stride;
-  if constexpr (Mma<T>::PER_WORD == 1) {
-    float big[NQ][4], small[NQ][4];
+  constexpr bool F32 = Mma<T>::PER_WORD == 1;
+  using S = typename Tr<T>::S;
+  using B = typename std::conditional<F32, uint4, uint2>::type;  // a lane's fragment
+  // this lane's row address for ldmatrix (see load_a)
+  const uint32_t a_addr = static_cast<uint32_t>(__cvta_generic_to_shared(
+      rows16 + ((lane & 7) + 8 * ((lane >> 3) & 1)) * stride + 4 * (lane >> 4)));
+  const B* bf = reinterpret_cast<const B*>(qf) + lane;
+  constexpr int NACC = F32 ? 3 : 1;  // float32: hi*hi, lo*hi, hi*lo
+  S acc[2][NACC][NQ][4];
 #pragma unroll
-    for (int nq = 0; nq < NQ; ++nq)
+  for (int p = 0; p < 2; ++p)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) big[nq][c] = small[nq][c] = 0.0f;
-    const uint4* bf = reinterpret_cast<const uint4*>(qf) + lane;
-#pragma unroll 4
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const uint32_t* a = ap + ks * KSTEP_WORDS;
-      const float x[4] = {__uint_as_float(a[0]), __uint_as_float(a[up]),
-                          __uint_as_float(a[4]), __uint_as_float(a[up + 4])};
+    for (int i = 0; i < NACC; ++i)
+#pragma unroll
+      for (int nq = 0; nq < NQ; ++nq)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[p][i][nq][c] = S(0);
+  uint32_t a[2][4];
+  B b[2][NQ];
+  auto load = [&](int ks, auto buffer) {
+    constexpr int p = decltype(buffer)::value;
+    load_a(a[p], a_addr + ks * (4 * KSTEP_WORDS));
+#pragma unroll
+    for (int nq = 0; nq < NQ; ++nq) b[p][nq] = bf[(ks * NQ + nq) * 32];
+  };
+  auto kstep = [&](int ks, auto parity) {
+    constexpr int p = decltype(parity)::value;
+    if (ks + 1 < ksteps) load(ks + 1, std::integral_constant<int, 1 - p>());
+    if constexpr (F32) {
       uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
+      for (int i = 0; i < 4; ++i)
+        split_tf32<true>(__uint_as_float(a[p][i]), hi[i], lo[i]);
 #pragma unroll
       for (int nq = 0; nq < NQ; ++nq) {
-        const uint4 b = bf[(ks * NQ + nq) * 32];  // hi0 hi1 lo0 lo1
-        mma_tf32(small[nq], lo, b.x, b.y);
-        mma_tf32(small[nq], hi, b.z, b.w);
-        mma_tf32(big[nq], hi, b.x, b.y);
+        const uint4 q = b[p][nq];  // hi0 hi1 lo0 lo1
+        mma_tf32(acc[p][1][nq], lo, q.x, q.y);
+        mma_tf32(acc[p][2][nq], hi, q.z, q.w);
+        mma_tf32(acc[p][0][nq], hi, q.x, q.y);
       }
+    } else {
+#pragma unroll
+      for (int nq = 0; nq < NQ; ++nq)
+        Mma<T>::step(acc[p][0][nq], a[p], b[p][nq].x, b[p][nq].y);
     }
-#pragma unroll
-    for (int nq = 0; nq < NQ; ++nq)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dot[nq][c] = big[nq][c] + small[nq][c];
-  } else {
-    using S = typename Tr<T>::S;
-#pragma unroll
-    for (int nq = 0; nq < NQ; ++nq)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dot[nq][c] = S(0);
-    const uint2* bf = reinterpret_cast<const uint2*>(qf) + lane;
-#pragma unroll 4
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const uint32_t* a = ap + ks * KSTEP_WORDS;
-      const uint32_t av[4] = {a[0], a[up], a[4], a[up + 4]};
-#pragma unroll
-      for (int nq = 0; nq < NQ; ++nq) {
-        const uint2 b = bf[(ks * NQ + nq) * 32];
-        Mma<T>::step(dot[nq], av, b.x, b.y);
-      }
-    }
+  };
+  load(0, std::integral_constant<int, 0>());
+  int ks = 0;
+#pragma unroll 2
+  for (; ks + 1 < ksteps; ks += 2) {
+    kstep(ks, std::integral_constant<int, 0>());
+    kstep(ks + 1, std::integral_constant<int, 1>());
   }
+  if (ks < ksteps) kstep(ks, std::integral_constant<int, 0>());
+#pragma unroll
+  for (int nq = 0; nq < NQ; ++nq)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if constexpr (F32)  // the small terms first, then the large ones
+        dot[nq][c] = ((acc[0][1][nq][c] + acc[1][1][nq][c]) +
+                      (acc[0][2][nq][c] + acc[1][2][nq][c])) +
+                     (acc[0][0][nq][c] + acc[1][0][nq][c]);
+      else
+        dot[nq][c] = acc[0][0][nq][c] + acc[1][0][nq][c];
+    }
 }
 
 }  // namespace knn

@@ -20,25 +20,35 @@
 // The TPU's 128-row corpus padding, its overlapping last tile and its
 // n < 128 switch-off are not needed: any n >= 1 runs.
 //
-// What bounds it on this card.  A block of STREAM_QB queries reads the whole
-// corpus, so the card's L2 serves (m / STREAM_QB) x corpus bytes a call (HBM
-// only the corpus once, as far as the blocks walk in step): that traffic is
-// the floor.  Next comes the issue of shared-memory loads and mma.sync in
-// the tile loop; the arithmetic itself is far from the tensor cores' peak.
-// What the design does about it:
+// What bounds it on this card (measured at 1M x 128, 1000 queries, k = 10
+// on an NVIDIA H100 80GB HBM3; the numbers are in PERF.md).  A block of
+// STREAM_QB queries reads the whole corpus, so L2 serves (m / STREAM_QB) x
+// corpus bytes a call: with the multiplying switched off the copies alone
+// take about as long as the whole float32 call with the copies switched off,
+// and neither side is near the tensor cores' arithmetic peak.  What is left
+// on the multiplying side is instruction issue in eight warps: the float32
+// split into TF32 halves (5 integer and float operations a value) costs more
+// than the three MMAs it feeds.  What the design does about it:
 //   * the dot products run on the tensor cores straight from the ring slot
 //     (knn_mma.cuh: tile_mma): the copies write each row at a padded stride
 //     (4 mod 8 words) at which the MMA's fragment loads are free of bank
 //     conflicts, so there is no staging pass and no barrier in the feature
 //     loop.  float32 takes three TF32 passes (ranks as IEEE fp32 does);
 //     bf16, f16 and int8 one pass at storage width, so a narrower corpus
-//     halves or quarters both the L2 traffic and the shared-memory loads;
-//   * each of the 8 warps multiplies 16 of the tile's rows by the block's
+//     halves or quarters the L2 traffic, the shared-memory loads and the
+//     instructions;
+//   * copying and multiplying are different warps' work: 8 warps issue
+//     nothing but the ring's copies, 8 warps nothing but MMAs and the merge.
+//     A warp that issues a tile's copies stalls on the memory system for
+//     about as long as the copies take; when the multiplying warps issued
+//     them, the two times added up (float32 21.4 ms against 15.6 ms);
+//   * each multiplying warp takes 16 of the tile's rows against the block's
 //     queries, whose fragments are split once and kept in shared memory;
 //   * the results cross to the merge's layout (a warp per query, lane l
-//     holding rows l + 32 j) through a small padded array S; per tile the
-//     block meets three times: slot ready, S written, and the next tile's
-//     slot-ready barrier, which also says S was consumed;
+//     holding rows l + 32 j) through a small padded array S, of which there
+//     are two, so that one barrier a tile is enough: it says that S is
+//     written, that the next tile has landed, and that this tile's slot may
+//     be overwritten;
 //   * the ring is as deep as fits beside the fragments and running state
 //     (2 to 8 slots of 128 rows; 64, 32 or 16 rows where d is so large that
 //     two 128-row slots do not fit: fewer warps then have rows to multiply).
@@ -47,7 +57,7 @@
 // int8; the caller aligns the corpus base to 16 bytes), else in 4-byte units
 // where they are a multiple of 4 (any other d in float32, even d in halves,
 // d a multiple of 4 in int8), else (odd d in halves, other d in int8) by
-// plain byte loads and stores, which do not overlap the compute.
+// plain byte loads and stores, which the copying warps wait for.
 //
 // Precision: float32 dots are 3xTF32 with fp32 accumulation (see
 // knn_mma.cuh), within fp32 summation error of the IEEE dot product; bf16 /
@@ -73,6 +83,9 @@ constexpr int QBW = STREAM_QB;            // queries per block
 constexpr int NQ = QBW / MMA_QUERIES;     // groups of 8 queries per MMA row block
 constexpr int QW = QBW / NW;              // queries a warp merges
 constexpr int SS = TN + 4;                // row stride of S: 4 (mod 32) words
+constexpr int NP = 8;                     // copying warps, after the NW multiplying ones
+constexpr int NPT = 32 * NP;              // copying threads
+constexpr int NTS = NT + NPT;             // threads per block
 constexpr int MAX_BUF = 8;                // deepest ring
 constexpr int SMEM_MAX = 232448;          // dynamic shared memory a block may use
 static_assert(QBW % MMA_QUERIES == 0 && QBW % NW == 0, "STREAM_QB must be 8 or 16");
@@ -109,9 +122,10 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
   }
 }
 
-// tr: corpus rows per ring slot (128, 64, 32 or 16)
+// tr: corpus rows per ring slot (128, 64, 32 or 16).  Warps 0..NW-1 multiply
+// and merge; warps NW..NW+NP-1 copy.
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NTS)
 stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
               const float* __restrict__ qn, const float* __restrict__ pn,
               const int* __restrict__ excl, int n, int d, int m, int k, int n_buf, int tr,
@@ -123,61 +137,65 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);                    // [n_buf][tr][stride]
   float* pn_ring = reinterpret_cast<float*>(ring + n_buf * slot_words);  // [n_buf][tr]
   uint32_t* qf = reinterpret_cast<uint32_t*>(pn_ring + n_buf * tr);      // query fragments
-  float* Sm = reinterpret_cast<float*>(qf + fragment_words<T>(NQ, ksteps));  // [QBW][SS]
-  float* rd = Sm + QBW * SS;                                             // [QBW][k]
+  float* Sm = reinterpret_cast<float*>(qf + fragment_words<T>(NQ, ksteps));  // [2][QBW][SS]
+  float* rd = Sm + 2 * QBW * SS;                                         // [QBW][k]
   int* ri = reinterpret_cast<int*>(rd + QBW * k);                        // [QBW][k]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool copier = warp >= NW;
+  const int ctid = tid - NT;  // a copier's index among the NPT copying threads
   const int q0 = blockIdx.x * QBW;
   const int n_tiles = (n + tr - 1) / tr;
   const unsigned char* src = reinterpret_cast<const unsigned char*>(pts);
 
   // A tile is rows x row_bytes contiguous bytes of the corpus; unit e of it
-  // goes to row e / upr, unit e % upr of the slot.  This thread copies units
-  // tid, tid + NT, ...: (row0, u0) is its first, (drow, du) its step.
+  // goes to row e / upr, unit e % upr of the slot.  A copier takes units
+  // ctid, ctid + NPT, ...: (row0, u0) is its first, (drow, du) its step.
   const int row_bytes = d * (int)sizeof(T);
   const int unit = row_bytes % 16 == 0 ? 16 : (row_bytes % 4 == 0 ? 4 : 1);
   const int upr = row_bytes / unit;
-  const int row0 = tid / upr, u0 = tid % upr, drow = NT / upr, du = NT % upr;
+  const int row0 = ctid / upr, u0 = ctid % upr, drow = NPT / upr, du = NPT % upr;
 
-  // tile t (rows [t tr, min((t + 1) tr, n))) and its norms into slot t % n_buf
-  auto issue = [&](int t) {
-    const int slot = t % n_buf;
-    const long long r0 = (long long)t * tr;
-    const int rows = (n - r0) < tr ? (int)(n - r0) : tr;
-    unsigned char* dst = reinterpret_cast<unsigned char*>(ring + slot * slot_words);
-    const unsigned char* s = src + r0 * row_bytes;
-    const int units = rows * upr;
-    int row = row0, u = u0;
-    for (int e = tid; e < units; e += NT) {
-      unsigned char* to = dst + (row * stride) * 4 + u * unit;
-      const unsigned char* from = s + (long long)e * unit;
-      if (unit == 16) cp_async16(to, from);
-      else if (unit == 4) cp_async4(to, from);
-      else *to = *from;
-      row += drow;
-      u += du;
-      if (u >= upr) { u -= upr; ++row; }
+  // tile t (rows [t tr, min((t + 1) tr, n))) and its norms into slot
+  // t % n_buf, and one commit group, empty past the last tile (wait counts
+  // are per thread).  Copiers only.
+  auto copy_tile = [&](int t) {
+    if (t < n_tiles) {
+      const int slot = t % n_buf;
+      const long long r0 = (long long)t * tr;
+      const int rows = (n - r0) < tr ? (int)(n - r0) : tr;
+      unsigned char* dst = reinterpret_cast<unsigned char*>(ring + slot * slot_words);
+      const unsigned char* s = src + r0 * row_bytes;
+      const int units = rows * upr;
+      int row = row0, u = u0;
+      for (int e = ctid; e < units; e += NPT) {
+        unsigned char* to = dst + (row * stride) * 4 + u * unit;
+        const unsigned char* from = s + (long long)e * unit;
+        if (unit == 16) cp_async16(to, from);
+        else if (unit == 4) cp_async4(to, from);
+        else *to = *from;
+        row += drow;
+        u += du;
+        if (u >= upr) { u -= upr; ++row; }
+      }
+      if (ctid < rows) cp_async4(pn_ring + slot * tr + ctid, pn + r0 + ctid);
     }
-    if (tid < rows) cp_async4(pn_ring + slot * tr + tid, pn + r0 + tid);
-  };
-  // warm-up: n_buf - 1 tiles in flight (one commit group per tile and thread,
-  // empty or not: wait counts are per thread)
-  for (int t = 0; t < n_buf - 1; ++t) {
-    if (t < n_tiles) issue(t);
     cp_async_commit();
-  }
+  };
+  // warm-up: n_buf - 1 tiles in flight
+  if (copier)
+    for (int t = 0; t < n_buf - 1; ++t) copy_tile(t);
 
   // bytes from a row's end to its last whole K step are zero in every slot;
   // no copy writes them
   {
     const int pad = 4 * KSTEP_WORDS * ksteps - row_bytes;
     unsigned char* base = reinterpret_cast<unsigned char*>(ring);
-    for (int e = tid; e < n_buf * tr * pad; e += NT)
+    for (int e = tid; e < n_buf * tr * pad; e += NTS)
       base[(e / pad) * stride * 4 + row_bytes + e % pad] = 0;
   }
   stage_query_fragments<T, NQ>(q, q0, m, d, ksteps, qf);
-  for (int e = tid; e < QBW * k; e += NT) { rd[e] = pos_inf(); ri[e] = ID_NONE; }
+  for (int e = tid; e < QBW * k; e += NTS) { rd[e] = pos_inf(); ri[e] = ID_NONE; }
   float wd[QW], qnv[QW];
   int ws[QW], ex[QW];
 #pragma unroll
@@ -185,26 +203,30 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
     const int qi = q0 + QW * warp + i;
     wd[i] = pos_inf();
     ws[i] = 0;
-    qnv[i] = qi < m ? qn[qi] : 0.0f;
-    ex[i] = (excl && qi < m) ? excl[qi] : -1;
+    qnv[i] = (!copier && qi < m) ? qn[qi] : 0.0f;
+    ex[i] = (!copier && excl && qi < m) ? excl[qi] : -1;
   }
+  cp_async_wait_pending(n_buf - 2);  // a copier's copies of tile 0 landed
+  __syncthreads();                   // and every copier's; the set-up is done
 
   const int g = lane >> 2, tq = lane & 3;
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_pending(n_buf - 2);  // this thread's copies of tile t landed
-    __syncthreads();  // and every thread's; tile t - 1 and its S are consumed
-    if (t + n_buf - 1 < n_tiles) issue(t + n_buf - 1);  // into tile t - 1's slot
-    cp_async_commit();
+    // Tile t is in its slot and tile t - 1 is consumed: the barrier of
+    // iteration t - 1 said both.
     const int slot = t % n_buf;
     const int t0 = t * tr;
     const int rows = (n - t0) < tr ? (n - t0) : tr;
     const int wrow = MMA_ROWS * warp;  // this warp's first row of the tile
-    if (wrow < rows) {
+    float* St = Sm + (t & 1) * (QBW * SS);  // two S: one filled while the other is merged
+    if (copier) {
+      copy_tile(t + n_buf - 1);          // into tile t - 1's slot
+      cp_async_wait_pending(n_buf - 2);  // this thread's copies of tile t + 1 landed
+    } else if (wrow < rows) {
       typename Tr<T>::S dot[NQ][4];
       tile_mma<T, NQ>(ring + slot * slot_words + wrow * stride, stride, ksteps, qf, lane, dot);
       const float* pnt = pn_ring + slot * tr + wrow + g;
       const float p0 = pnt[0], p1 = pnt[8];
-      float* sq = Sm + (2 * tq) * SS + wrow + g;
+      float* sq = St + (2 * tq) * SS + wrow + g;
 #pragma unroll
       for (int nq = 0; nq < NQ; ++nq) {
         float* s = sq + MMA_QUERIES * nq * SS;
@@ -214,7 +236,8 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
         s[SS + 8] = 2.0f * (float)dot[nq][3] - p1;
       }
     }
-    __syncthreads();  // S written
+    __syncthreads();  // S is written, tile t + 1 is in its slot, tile t is consumed
+    if (copier) continue;
 #pragma unroll
     for (int i = 0; i < QW; ++i) {
       const int qq = QW * warp + i;
@@ -225,7 +248,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = lane + 32 * j;
-        s[j] = Sm[qq * SS + r];
+        s[j] = St[qq * SS + r];
         // rows past the tile's end hold what an earlier tile left
         ok[j] = r < rows && t0 + r != ex[i];
         if (ok[j]) smax = fmaxf(smax, s[j]);
@@ -242,6 +265,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
     }
   }
   cp_async_wait<0>();
+  if (copier) return;
 #pragma unroll
   for (int i = 0; i < QW; ++i) {
     const int qq = QW * warp + i;
@@ -256,7 +280,7 @@ template <typename T>
 size_t stream_smem(int d, int k, int n_buf, int tr) {
   const int ksteps = row_words(d, sizeof(T)) / KSTEP_WORDS;
   return (size_t)n_buf * tr * (padded_stride(d, sizeof(T)) + 1) * 4 +
-         4 * (size_t)fragment_words<T>(NQ, ksteps) + sizeof(float) * QBW * SS +
+         4 * (size_t)fragment_words<T>(NQ, ksteps) + sizeof(float) * 2 * QBW * SS +
          (sizeof(float) + sizeof(int)) * (size_t)QBW * k;
 }
 
@@ -277,7 +301,7 @@ int launch(const void* pts, const float* q, const int* excl, const float* qn, co
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  stream_kernel<T><<<(m + QBW - 1) / QBW, NT, smem, stream>>>(
+  stream_kernel<T><<<(m + QBW - 1) / QBW, NTS, smem, stream>>>(
       static_cast<const T*>(pts), q, qn, pn, excl, n, d, m, k, n_buf, tr, scale2, out_d,
       out_i);
   return (int)cudaGetLastError();

@@ -107,30 +107,31 @@ def _nvcc() -> str:
                        f"{CSRC} on a machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple = ()) -> Path:
     """Where the library of kernel source ``name`` is built.  The file name
-    carries a hash of the source, the shared headers and the flags, so an
-    edit to any of them rebuilds."""
+    carries a hash of the source, the shared headers and the flags
+    (``defines``: extra ``-D`` flags), so an edit to any of them rebuilds."""
     data = SOURCES[name].read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         data += header.read_bytes()
-    tag = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join((*NVCC_FLAGS, *defines))
+    tag = hashlib.sha256(data + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
-def build_libraries(names=None, verbose: bool = False) -> dict:
+def build_libraries(names=None, verbose: bool = False, defines: tuple = ()) -> dict:
     """Compile the kernel sources ``names`` (default: all) that are not built
     yet, one nvcc per source, all started together; return {name: path}."""
     names = list(SOURCES) if names is None else list(names)
     jobs = []
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, *(["-Xptxas", "-v"] if verbose else []),
                "-o", tmp, str(SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                 text=True)
@@ -147,13 +148,16 @@ def build_libraries(names=None, verbose: bool = False) -> dict:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: library_path(name) for name in names}
+    return {name: library_path(name, defines) for name in names}
 
 
-def _library(name: str):
-    """The loaded library of kernel source ``name`` (built at first use)."""
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build_libraries([name])[name]))
+def _library(name: str, defines: tuple = ()):
+    """The loaded library of kernel source ``name`` (built at first use);
+    ``defines`` names a variant built with extra ``-D`` flags, which a
+    measurement may load beside the package's own."""
+    key = (name, *defines) if defines else name
+    if key not in _libs:
+        lib = ctypes.CDLL(str(build_libraries([name], defines=defines)[name]))
         for fn, argtypes in _ENTRY_POINTS[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _ci
@@ -161,8 +165,8 @@ def _library(name: str):
         err_fn.argtypes = [_ci]
         err_fn.restype = ctypes.c_char_p
         lib.error_string = err_fn
-        _libs[name] = lib
-    return _libs[name]
+        _libs[key] = lib
+    return _libs[key]
 
 
 def launch_error(lib, what: str, err: int) -> RuntimeError:

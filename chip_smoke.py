@@ -21,7 +21,13 @@ Phases, one line each, and a non-zero exit on the first failure:
    1, d = 96, bf16, f16, int8 (the main shape is checked in step 4).
    Rescan-merge and streaming kernels: the rank kernel's degenerate set
    plus d = 33 and m = 37, ``compute_dtype=torch.bfloat16`` on an f32
-   corpus (the rank kernel too), and the serving shape;
+   corpus (the rank kernel too), and the serving shape.  The streaming
+   kernel (tensor-core dot products) also: one-hot integer rows that show a
+   wrong fragment index (f32 and bf16, ids and distances exact), d = 256 and
+   768 (smaller ring slots), the float64 oracle at the serving shape
+   (recall@10 up to ties 1.0 in f32), its times beside the library call's
+   and the bound, its effective L2 read rate, and the time of a build with
+   16 queries a block;
 3. the main path at the SIFT-1M shape (n = 1M x d = 128 float32 from
    ``--seed``, 1000 queries, k = 10, tries = 10), each path with the launch
    counts set to 0 just before it and read just after: ``build`` (exact kNN
@@ -69,7 +75,7 @@ import numpy as np
 import torch
 
 import approximatenn_tpu_torch as ann
-from approximatenn_tpu_torch.data.synthetic import clustered_gaussian, gaussian
+from approximatenn_tpu_torch.data.synthetic import clustered_gaussian, gaussian, one_hot_rows
 from approximatenn_tpu_torch.engine.search import probe_starts
 from approximatenn_tpu_torch.harness.scoring import ids_agree, recall_at_k
 from approximatenn_tpu_torch.ops import exact as ex
@@ -115,7 +121,9 @@ N_REMOVE, N_ADD = 10_000, 10_000
 # H100 SXM datasheet peaks at 700 W (not measured here): fp32 on the CUDA
 # cores and HBM3; a kernel's bound is the larger of its two times
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12  # tensor cores, dense
 PEAK_BYTES = 3.35e12
+STREAM_QB = 8  # queries per block of the streaming kernel (csrc/stream_knn.cu)
 
 
 def phase(name: str, msg: str) -> None:
@@ -174,6 +182,40 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
     """(least milliseconds the card could take, what bounds it)."""
     t_ops, t_bytes = flop / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_stream_layout(dev) -> None:
+    """The streaming kernel's fragment layout: one-hot integer rows against
+    unit-vector queries (``one_hot_rows``).  Every product is exact in
+    every type, so ids and distances must equal the plain version's (on the
+    kernel's 128-row tiles, which decide the ids kept among equal
+    distances) bit for bit."""
+    for n, d in ((1000, 128), (700, 33)):
+        X, Y = (torch.from_numpy(a).to(dev) for a in one_hot_rows(n, d))
+        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for k in (10, 128):
+                ia, da = ex.exact_knn(X.to(dt), Y, k, stream=True)
+                ib, db = ex.exact_knn_stream_plain(X.to(dt), Y, k, tile=128)
+                fence()
+                if not (torch.equal(ia, ib) and torch.equal(da, db)):
+                    raise AssertionError(f"stream layout {label} n={n} d={d} k={k}: ids or "
+                                         "distances differ from the plain version's")
+        phase("kernel", f"stream fragment layout n={n} d={d} m={d} k=10,128 f32 bf16: ids "
+                        "and distances equal to the plain version's (max_abs_err 0)")
+
+
+def stream_qb16_ms(X, Y, ids8) -> float:
+    """Time of the streaming kernel built with 16 queries a block (the
+    package ships 8), its ids held to the shipped build's."""
+    shipped = ex._library("stream_knn")
+    ex._libs["stream_knn"] = ex._library("stream_knn", defines=("-DSTREAM_QB=16",))
+    try:
+        ids16, _ = ex.exact_knn(X, Y, 10, stream=True)
+        if not torch.equal(ids16, ids8):
+            raise AssertionError("stream built with 16 queries a block returns other ids")
+        return cuda_ms(lambda: ex.exact_knn(X, Y, 10, stream=True), reps=10)
+    finally:
+        ex._libs["stream_knn"] = shipped
 
 
 def near_tie_ok(points, q, ids_a, ids_b, rtol=1e-5) -> bool:
@@ -541,6 +583,10 @@ def main() -> None:
         check_case("n=20011 exclude=self k=10", x20b, x20b[:1000].contiguous(), 10,
                    exclude=self_ids, kernel=kern)
         check_case("d=33 n=20011 m=999", x33, q33, 10, kernel=kern)
+        if kern == "stream":  # 64- and 16-row ring slots
+            for dd in (256, 768):
+                check_case(f"d={dd} n=20011 m=999", randn(20_011, dd), randn(999, dd), 10,
+                           kernel=kern)
         check_case("d=96", x96, q96, 10, kernel=kern)
         check_case("bf16 stored", x20.to(bf16), q1k, 10, rtol=1e-3, kernel=kern)
         check_case("f16 stored", x20.to(torch.float16), q1k, 10, rtol=1e-3, kernel=kern)
@@ -554,6 +600,19 @@ def main() -> None:
                    rtol=1e-3, kernel=kern)
         errs[VARIANTS[kern][2]] = check_case(f"main shape n={N} m={M} k=10", X, Y, 10,
                                              kernel=kern)
+    check_stream_layout(dev)
+    # the stream's dot products are three TF32 passes, not the plain
+    # version's IEEE fp32: hold it to the float64 oracle directly as well
+    X64, Y64 = X.double(), Y.double()
+    true_s = oracle64(X64, Y64, 10)
+    stream_ids = {}
+    for label, pts in (("f32", X), ("bf16 stored", Xb)):
+        stream_ids[label], _ = ex.exact_knn(pts, Y, 10, stream=True)
+        rec, tie = recall_up_to_ties(X64, Y64, stream_ids[label], true_s, 10)
+        phase("kernel", f"stream {label} n={N} m={M} k=10 vs f64 oracle: recall@10 {rec:.4f} "
+                        f"(up to ties {tie:.4f})")
+        if label == "f32" and tie != 1.0:
+            raise AssertionError(f"stream f32 recall up to ties {tie}, not 1.0")
     rescan_ms = cuda_ms(lambda: ex.exact_knn(X, Y, 10, merge="rescan"), reps=10)
     rescan_plain_ms = cuda_ms(lambda: ex.exact_knn_rescan_plain(X, Y, 10), reps=2)
     stream_ms = cuda_ms(lambda: ex.exact_knn(X, Y, 10, stream=True), reps=10)
@@ -574,6 +633,25 @@ def main() -> None:
         ("bf16 conversion alone", lambda: ex.compute_corpus(X, bf16)))}
     phase("kernel", f"time n={N} m={M} k=10 half width: "
                     + ", ".join(f"{label} {t:.3f} ms" for label, t in half_ms.items()))
+
+    lib_bf16_ms = cuda_ms(lambda: torch.topk((Xb.float() ** 2).sum(-1)
+                                             - 2.0 * (Y.to(bf16) @ Xb.T).float(), 10,
+                                             largest=False), reps=5)
+    qb16_ms = stream_qb16_ms(X, Y, stream_ids["f32"])
+    sb_ms = half_ms["stream bf16 stored"]
+    b32, _ = bound(2.0 * M * N * 128, 4.0 * (N * 129 + M * 129) + 8.0 * M * 10)
+    b16 = 1e3 * max(2.0 * M * N * 128 / PEAK_BF16,
+                    (2.0 * N * 128 + 4.0 * (N + M * 129) + 8.0 * M * 10) / PEAK_BYTES)
+    phase("kernel", f"stream n={N} m={M} k=10: f32 {stream_ms:.3f} ms = "
+                    f"{stream_ms / lib_ms:.3f} x library topk {lib_ms:.3f} ms = "
+                    f"{stream_ms / b32:.2f} x bound {b32:.3f} ms; bf16 stored {sb_ms:.3f} ms = "
+                    f"{sb_ms / lib_bf16_ms:.3f} x library topk (bf16 matmul) "
+                    f"{lib_bf16_ms:.3f} ms = {sb_ms / b16:.2f} x bound {b16:.3f} ms (bf16 "
+                    f"tensor-core operations); f32 with 16 queries a block {qb16_ms:.3f} ms")
+    blocks = -(-M // STREAM_QB)
+    phase("kernel", f"stream effective L2 read rate ({blocks} blocks x corpus bytes / kernel "
+                    f"time): f32 {blocks * 4.0 * N * 128 / stream_ms / 1e9:.3f} TB/s, bf16 "
+                    f"stored {blocks * 2.0 * N * 128 / sb_ms / 1e9:.3f} TB/s")
 
     emit_ms = cuda_ms(lambda: tp.segment_minima(X, Y, seg), reps=10)
     emit_plain_ms = cuda_ms(lambda: tp.segment_minima_plain(X, Y, seg), reps=2)
@@ -610,9 +688,6 @@ def main() -> None:
         return
 
     # -- phase 3: main path ---------------------------------------------------------
-    X64 = X.double()
-    Y64 = Y.double()
-    true_s = oracle64(X64, Y64, k)
     true_big = oracle64(X64, Y64[:100], 256)
     fence()
     total = dict.fromkeys(ex.launches, 0)
