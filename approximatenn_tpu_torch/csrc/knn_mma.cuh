@@ -90,8 +90,8 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 // to the magnitude, the 13 dropped bits cleared): what cvt.rna.tf32.f32
 // gives for every finite x, at the integer pipe's full rate.  The tile loop
 // splits 4 values per lane and K step, and the conversion unit is slower
-// there: the streaming kernel took 26.8 ms with cvt.rna in the loop against
-// 25.6 ms with this (1M x 128 float32, 1000 queries, NVIDIA H100 80GB HBM3).
+// there: with cvt.rna in the loop the streaming kernel ran about a twentieth
+// longer (1M x 128 float32, 1000 queries, NVIDIA H100 80GB HBM3).
 __device__ __forceinline__ uint32_t to_tf32_int(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }

@@ -41,7 +41,7 @@
 //     nothing but the ring's copies, 8 warps nothing but MMAs and the merge.
 //     A warp that issues a tile's copies stalls on the memory system for
 //     about as long as the copies take; when the multiplying warps issued
-//     them, the two times added up (float32 21.4 ms against 15.6 ms);
+//     them, the two times added up (float32 21.4 ms against 15.5 ms);
 //   * each multiplying warp takes 16 of the tile's rows against the block's
 //     queries, whose fragments are split once and kept in shared memory;
 //   * the results cross to the merge's layout (a warp per query, lane l
@@ -67,12 +67,19 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
 //        -DSTREAM_QB=16 builds the kernel with 16 queries a block.
+//        -DSTREAM_PROBE=1 (no MMAs: every dot product is 0) and =2 (only the
+//        ring's first n_buf tiles are copied; later tiles multiply what the
+//        slots hold) build timing probes whose results mean nothing:
+//        chip_smoke.py times the copies and the multiplying alone with them.
 
 #include "knn_mma.cuh"
 
 // queries per block: 8 or 16 (8 by measurement, see PERF.md)
 #ifndef STREAM_QB
 #define STREAM_QB 8
+#endif
+#ifndef STREAM_PROBE
+#define STREAM_PROBE 0
 #endif
 
 namespace {
@@ -166,7 +173,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       const int rows = (n - r0) < tr ? (int)(n - r0) : tr;
       unsigned char* dst = reinterpret_cast<unsigned char*>(ring + slot * slot_words);
       const unsigned char* s = src + r0 * row_bytes;
-      const int units = rows * upr;
+      const int units = (STREAM_PROBE == 2 && t >= n_buf) ? 0 : rows * upr;
       int row = row0, u = u0;
       for (int e = ctid; e < units; e += NPT) {
         unsigned char* to = dst + (row * stride) * 4 + u * unit;
@@ -223,7 +230,12 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       cp_async_wait_pending(n_buf - 2);  // this thread's copies of tile t + 1 landed
     } else if (wrow < rows) {
       typename Tr<T>::S dot[NQ][4];
+#if STREAM_PROBE == 1
+      for (int nq = 0; nq < NQ; ++nq)
+        for (int c = 0; c < 4; ++c) dot[nq][c] = 0;
+#else
       tile_mma<T, NQ>(ring + slot * slot_words + wrow * stride, stride, ksteps, qf, lane, dot);
+#endif
       const float* pnt = pn_ring + slot * tr + wrow + g;
       const float p0 = pnt[0], p1 = pnt[8];
       float* sq = St + (2 * tq) * SS + wrow + g;

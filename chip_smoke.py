@@ -26,8 +26,8 @@ Phases, one line each, and a non-zero exit on the first failure:
    wrong fragment index (f32 and bf16, ids and distances exact), d = 256 and
    768 (smaller ring slots), the float64 oracle at the serving shape
    (recall@10 up to ties 1.0 in f32), its times beside the library call's
-   and the bound, its effective L2 read rate, and the time of a build with
-   16 queries a block;
+   and the bound, its effective L2 read rate, and the times of builds with
+   16 queries a block, without the MMAs and without the copies;
 3. the main path at the SIFT-1M shape (n = 1M x d = 128 float32 from
    ``--seed``, 1000 queries, k = 10, tries = 10), each path with the launch
    counts set to 0 just before it and read just after: ``build`` (exact kNN
@@ -70,6 +70,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -204,18 +205,34 @@ def check_stream_layout(dev) -> None:
                         "and distances equal to the plain version's (max_abs_err 0)")
 
 
-def stream_qb16_ms(X, Y, ids8) -> float:
-    """Time of the streaming kernel built with 16 queries a block (the
-    package ships 8), its ids held to the shipped build's."""
+STREAM_VARIANTS = {  # label: nvcc defines of csrc/stream_knn.cu
+    "16 queries a block": ("-DSTREAM_QB=16",),
+    "copies alone (no MMAs)": ("-DSTREAM_PROBE=1",),
+    "multiplying alone (first tiles' copies only)": ("-DSTREAM_PROBE=2",),
+}
+
+
+def stream_variants_ms(X, Y, ids8) -> dict:
+    """Float32 times of the streaming kernel built otherwise than the
+    package ships it (8 queries a block): with 16 queries a block, its ids
+    held to the shipped build's, and the two timing probes that switch the
+    MMAs or the copies off (their results mean nothing)."""
+    with ThreadPoolExecutor(len(STREAM_VARIANTS)) as pool:  # one nvcc each, together
+        list(pool.map(lambda v: ex.build_libraries(["stream_knn"], defines=v),
+                      STREAM_VARIANTS.values()))
     shipped = ex._library("stream_knn")
-    ex._libs["stream_knn"] = ex._library("stream_knn", defines=("-DSTREAM_QB=16",))
+    out = {}
     try:
-        ids16, _ = ex.exact_knn(X, Y, 10, stream=True)
-        if not torch.equal(ids16, ids8):
-            raise AssertionError("stream built with 16 queries a block returns other ids")
-        return cuda_ms(lambda: ex.exact_knn(X, Y, 10, stream=True), reps=10)
+        for label, defines in STREAM_VARIANTS.items():
+            ex._libs["stream_knn"] = ex._library("stream_knn", defines=defines)
+            if defines == ("-DSTREAM_QB=16",):
+                ids16, _ = ex.exact_knn(X, Y, 10, stream=True)
+                if not torch.equal(ids16, ids8):
+                    raise AssertionError("stream with 16 queries a block returns other ids")
+            out[label] = cuda_ms(lambda: ex.exact_knn(X, Y, 10, stream=True), reps=10)
     finally:
         ex._libs["stream_knn"] = shipped
+    return out
 
 
 def near_tie_ok(points, q, ids_a, ids_b, rtol=1e-5) -> bool:
@@ -637,21 +654,8 @@ def main() -> None:
     lib_bf16_ms = cuda_ms(lambda: torch.topk((Xb.float() ** 2).sum(-1)
                                              - 2.0 * (Y.to(bf16) @ Xb.T).float(), 10,
                                              largest=False), reps=5)
-    qb16_ms = stream_qb16_ms(X, Y, stream_ids["f32"])
-    sb_ms = half_ms["stream bf16 stored"]
-    b32, _ = bound(2.0 * M * N * 128, 4.0 * (N * 129 + M * 129) + 8.0 * M * 10)
-    b16 = 1e3 * max(2.0 * M * N * 128 / PEAK_BF16,
-                    (2.0 * N * 128 + 4.0 * (N + M * 129) + 8.0 * M * 10) / PEAK_BYTES)
-    phase("kernel", f"stream n={N} m={M} k=10: f32 {stream_ms:.3f} ms = "
-                    f"{stream_ms / lib_ms:.3f} x library topk {lib_ms:.3f} ms = "
-                    f"{stream_ms / b32:.2f} x bound {b32:.3f} ms; bf16 stored {sb_ms:.3f} ms = "
-                    f"{sb_ms / lib_bf16_ms:.3f} x library topk (bf16 matmul) "
-                    f"{lib_bf16_ms:.3f} ms = {sb_ms / b16:.2f} x bound {b16:.3f} ms (bf16 "
-                    f"tensor-core operations); f32 with 16 queries a block {qb16_ms:.3f} ms")
-    blocks = -(-M // STREAM_QB)
-    phase("kernel", f"stream effective L2 read rate ({blocks} blocks x corpus bytes / kernel "
-                    f"time): f32 {blocks * 4.0 * N * 128 / stream_ms / 1e9:.3f} TB/s, bf16 "
-                    f"stored {blocks * 2.0 * N * 128 / sb_ms / 1e9:.3f} TB/s")
+    variant_ms = stream_variants_ms(X, Y, stream_ids["f32"])
+    norms_ms = cuda_ms(lambda: ex.point_norms(X), reps=5)
 
     emit_ms = cuda_ms(lambda: tp.segment_minima(X, Y, seg), reps=10)
     emit_plain_ms = cuda_ms(lambda: tp.segment_minima_plain(X, Y, seg), reps=2)
@@ -675,6 +679,22 @@ def main() -> None:
     for name in ("exact_knn_rescan", "exact_knn_stream"):
         bounds[name] = bound(2.0 * M * N * 128,
                              4.0 * (N * 129 + M * 129) + 8.0 * M * k)
+    sb_ms = half_ms["stream bf16 stored"]
+    b32 = bounds["exact_knn_stream"][0]
+    b16 = 1e3 * max(2.0 * M * N * 128 / PEAK_BF16,
+                    (2.0 * N * 128 + 4.0 * (N + M * 129) + 8.0 * M * 10) / PEAK_BYTES)
+    phase("kernel", f"stream n={N} m={M} k=10: f32 {stream_ms:.3f} ms = "
+                    f"{stream_ms / lib_ms:.3f} x library topk {lib_ms:.3f} ms = "
+                    f"{stream_ms / b32:.2f} x bound {b32:.3f} ms; bf16 stored {sb_ms:.3f} ms = "
+                    f"{sb_ms / lib_bf16_ms:.3f} x library topk (bf16 matmul) "
+                    f"{lib_bf16_ms:.3f} ms = {sb_ms / b16:.2f} x bound {b16:.3f} ms (bf16 "
+                    f"tensor-core operations); f32 built otherwise: "
+                    + ", ".join(f"{label} {t:.3f} ms" for label, t in variant_ms.items())
+                    + f"; every time includes the call's point norms, {norms_ms:.3f} ms alone")
+    blocks = -(-M // STREAM_QB)
+    phase("kernel", f"stream effective L2 read rate ({blocks} blocks x corpus bytes / kernel "
+                    f"time): f32 {blocks * 4.0 * N * 128 / stream_ms / 1e9:.3f} TB/s, bf16 "
+                    f"stored {blocks * 2.0 * N * 128 / sb_ms / 1e9:.3f} TB/s")
     timing = {"exact_knn": (kern_ms, plain_ms, lib_ms),
               "twophase_emit": (emit_ms, emit_plain_ms, None),
               "twophase_rescan": (tp_rescan_ms, tp_rescan_plain_ms, None),

@@ -221,12 +221,13 @@ def test_kernel_matches_plain_on_card(dt, kernel):
         corpora = [p]
         if kernel == "stream":
             # d = 33 rows from an offset view (not 16-byte aligned: the
-            # wrapper re-aligns a copy); a partial last tile
+            # wrapper re-aligns a copy; rows copied in 4-byte units or byte
+            # by byte); a partial last tile
             raw = torch.randn(5004, 33, generator=g).to(dev)
             if dt == "int8":
                 raw = torch.clamp(torch.round(raw / scale), -127, 127)
             corpora.append(raw.to(p.dtype)[1:])
-            # two 128-row tiles of d = 2000 f32 values overflow shared memory
+            # even two 16-row tiles of d = 2000 f32 values overflow shared memory
             with pytest.raises(ValueError, match="shared memory"):
                 ex.exact_knn(torch.zeros(300, 2000, device=dev), torch.zeros(2, 2000, device=dev),
                              3, stream=True)
