@@ -3,7 +3,8 @@
 // (distance, id) order, the warp-cooperative insert into a sorted top-k list
 // in shared memory, the unsorted replace-the-worst top-k of the rescan-merge
 // and streaming kernels, the merge of per-split sorted lists, and the tiled
-// dot product that every exact kernel runs.
+// CUDA-core dot product of the rank, emit and rescan-merge kernels (the
+// streaming kernel's tensor-core one is knn_mma.cuh).
 
 #pragma once
 

@@ -256,7 +256,7 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t addr) {
 //
 // The few warps of a block cannot hide a load's latency behind each other,
 // so the loop hides it itself: the fragments of K step ks + 1 are loaded
-// before the MMAs of K step ks are issued, and even and odd K steps sum into
+// before the MMAs of K step ks start, and even and odd K steps sum into
 // accumulator sets of their own, which doubles the independent MMA chains.
 template <typename T, int NQ>
 __device__ __forceinline__ void tile_mma(const uint32_t* rows16, int stride, int ksteps,

@@ -12,7 +12,7 @@
 //   * corpus tiles and their pn slices arrive in an n_buf-deep ring of
 //     shared-memory buffers filled ahead of the compute by asynchronous
 //     copies (cp.async with commit/wait groups), the Hopper counterpart of
-//     the TPU kernel's hand-issued DMA;
+//     the TPU kernel's own DMA calls;
 //   * the skip test reads s = 2 q.x - pn (its maximum over the tile) before
 //     any distance exists; the distance qn - s is formed only in the merge
 //     branch.  This association differs from the rescan merge's
@@ -26,7 +26,7 @@
 // corpus bytes a call: with the multiplying switched off the copies alone
 // take about as long as the whole float32 call with the copies switched off,
 // and neither side is near the tensor cores' arithmetic peak.  What is left
-// on the multiplying side is instruction issue in eight warps: the float32
+// on the multiplying side is instruction count in eight warps: the float32
 // split into TF32 halves (5 integer and float operations a value) costs more
 // than the three MMAs it feeds.  What the design does about it:
 //   * the dot products run on the tensor cores straight from the ring slot
@@ -37,10 +37,10 @@
 //     bf16, f16 and int8 one pass at storage width, so a narrower corpus
 //     halves or quarters the L2 traffic, the shared-memory loads and the
 //     instructions;
-//   * copying and multiplying are different warps' work: 8 warps issue
+//   * copying and multiplying are different warps' work: 8 warps start
 //     nothing but the ring's copies, 8 warps nothing but MMAs and the merge.
-//     A warp that issues a tile's copies stalls on the memory system for
-//     about as long as the copies take; when the multiplying warps issued
+//     A warp that starts a tile's copies stalls on the memory system for
+//     about as long as the copies take; when the multiplying warps started
 //     them, the two times added up (float32 21.4 ms against 15.5 ms);
 //   * each multiplying warp takes 16 of the tile's rows against the block's
 //     queries, whose fragments are split once and kept in shared memory;

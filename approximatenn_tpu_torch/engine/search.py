@@ -275,8 +275,8 @@ def search(index: ANNIndex, points=None, queries=None, *,
     expansions after the bucket candidates (0 disables).  ``rerank_width``:
     keep this many (>= k) candidates through merge and supercharge.
     ``chunked`` is the JAX package's switch between its one-program and
-    host-chunked drivers, whose results are identical; it is accepted and
-    ignored (there is one driver here).
+    host-chunked search loops, whose results are identical; it is accepted
+    and ignored (there is one loop here).
     """
     if queries is None:
         points, queries = None, points
