@@ -7,9 +7,8 @@
 //   float32        m16n8k8  TF32, fp32 accumulators, three passes ("3xTF32"):
 //                  each factor splits in registers into
 //                    hi = cvt.rna.tf32(x),  lo = cvt.rna.tf32(x - hi)
-//                  (the queries' once per block by that instruction, the
-//                  corpus values' in the tile loop by the same rounding in
-//                  integer arithmetic, see to_tf32_int); the small products
+//                  (the queries' once per block, the corpus values' in
+//                  the tile loop); the small products
 //                  lo*hi and hi*lo and the large hi*hi sum in accumulators
 //                  of their own, added at the end, small ones first; lo*lo
 //                  (2^-22 of a product) is dropped.  Every product of two
@@ -86,27 +85,10 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-// The same rounding by integer arithmetic on the bits (half a TF32 ulp added
-// to the magnitude, the 13 dropped bits cleared): what cvt.rna.tf32.f32
-// gives for every finite x, at the integer pipe's full rate.  The tile loop
-// splits 4 values per lane and K step, and the conversion unit is slower
-// there: with cvt.rna in the loop the streaming kernel ran about a twentieth
-// longer (1M x 128 float32, 1000 queries, NVIDIA H100 80GB HBM3).
-__device__ __forceinline__ uint32_t to_tf32_int(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + (an error below 2^-22 |x|), both TF32, rounded by
-// to_tf32_int (IN_LOOP) or to_tf32
-template <bool IN_LOOP>
+// x = hi + lo + (an error below 2^-22 |x|), both TF32
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (IN_LOOP) {
-    hi = to_tf32_int(x);
-    lo = to_tf32_int(x - __uint_as_float(hi));
-  } else {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
-  }
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -224,8 +206,8 @@ __device__ __forceinline__ void stage_query_fragments(const float* __restrict__ 
     uint32_t* out = qf + (long long)e * Mma<T>::FW;
     if constexpr (PW == 1) {
       uint32_t hi0, lo0, hi1, lo1;
-      split_tf32<false>(__uint_as_float(b[0]), hi0, lo0);
-      split_tf32<false>(__uint_as_float(b[1]), hi1, lo1);
+      split_tf32(__uint_as_float(b[0]), hi0, lo0);
+      split_tf32(__uint_as_float(b[1]), hi1, lo1);
       out[0] = hi0; out[1] = hi1; out[2] = lo0; out[3] = lo1;
     } else {
       out[0] = b[0]; out[1] = b[1];
@@ -294,7 +276,7 @@ __device__ __forceinline__ void tile_mma(const uint32_t* rows16, int stride, int
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        split_tf32<true>(__uint_as_float(a[p][i]), hi[i], lo[i]);
+        split_tf32(__uint_as_float(a[p][i]), hi[i], lo[i]);
 #pragma unroll
       for (int nq = 0; nq < NQ; ++nq) {
         const uint4 q = b[p][nq];  // hi0 hi1 lo0 lo1

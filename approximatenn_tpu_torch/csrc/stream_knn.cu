@@ -22,13 +22,15 @@
 //
 // What bounds it on this card (measured at 1M x 128, 1000 queries, k = 10
 // on an NVIDIA H100 80GB HBM3; the numbers are in PERF.md).  A block of
-// STREAM_QB queries reads the whole corpus, so L2 serves (m / STREAM_QB) x
-// corpus bytes a call: with the multiplying switched off the copies alone
+// QBW = 8 queries reads the whole corpus, so L2 serves (m / 8) x corpus
+// bytes a call: with the multiplying switched off the copies alone
 // take about as long as the whole float32 call with the copies switched off,
 // and neither side is near the tensor cores' arithmetic peak.  What is left
 // on the multiplying side is instruction count in eight warps: the float32
-// split into TF32 halves (5 integer and float operations a value) costs more
-// than the three MMAs it feeds.  What the design does about it:
+// split into TF32 halves (two conversions and a subtraction a value) costs
+// more than the three MMAs it feeds.  With 16 queries a block (half the
+// blocks, half the L2 reads, two MMAs an A fragment) the float32 call took
+// longer, so there is one block size.  What the design does about it:
 //   * the dot products run on the tensor cores straight from the ring slot
 //     (knn_mma.cuh: tile_mma): the copies write each row at a padded stride
 //     (4 mod 8 words) at which the MMA's fragment loads are free of bank
@@ -41,7 +43,8 @@
 //     nothing but the ring's copies, 8 warps nothing but MMAs and the merge.
 //     A warp that starts a tile's copies stalls on the memory system for
 //     about as long as the copies take; when the multiplying warps started
-//     them, the two times added up (float32 21.4 ms against 15.5 ms);
+//     them, the two times added up (float32 took 21.4 ms, and about a
+//     quarter less with the work split);
 //   * each multiplying warp takes 16 of the tile's rows against the block's
 //     queries, whose fragments are split once and kept in shared memory;
 //   * the results cross to the merge's layout (a warp per query, lane l
@@ -66,36 +69,21 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
-//        -DSTREAM_QB=16 builds the kernel with 16 queries a block.
-//        -DSTREAM_PROBE=1 (no MMAs: every dot product is 0) and =2 (only the
-//        ring's first n_buf tiles are copied; later tiles multiply what the
-//        slots hold) build timing probes whose results mean nothing:
-//        chip_smoke.py times the copies and the multiplying alone with them.
 
 #include "knn_mma.cuh"
-
-// queries per block: 8 or 16 (8 by measurement, see PERF.md)
-#ifndef STREAM_QB
-#define STREAM_QB 8
-#endif
-#ifndef STREAM_PROBE
-#define STREAM_PROBE 0
-#endif
 
 namespace {
 
 using namespace knn;
 
-constexpr int QBW = STREAM_QB;            // queries per block
-constexpr int NQ = QBW / MMA_QUERIES;     // groups of 8 queries per MMA row block
-constexpr int QW = QBW / NW;              // queries a warp merges
+constexpr int QBW = MMA_QUERIES;          // queries per block: one MMA's, one a merging warp
 constexpr int SS = TN + 4;                // row stride of S: 4 (mod 32) words
 constexpr int NP = 8;                     // copying warps, after the NW multiplying ones
 constexpr int NPT = 32 * NP;              // copying threads
 constexpr int NTS = NT + NPT;             // threads per block
 constexpr int MAX_BUF = 8;                // deepest ring
 constexpr int SMEM_MAX = 232448;          // dynamic shared memory a block may use
-static_assert(QBW % MMA_QUERIES == 0 && QBW % NW == 0, "STREAM_QB must be 8 or 16");
+static_assert(QBW == NW, "a multiplying warp merges one query");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -144,7 +132,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);                    // [n_buf][tr][stride]
   float* pn_ring = reinterpret_cast<float*>(ring + n_buf * slot_words);  // [n_buf][tr]
   uint32_t* qf = reinterpret_cast<uint32_t*>(pn_ring + n_buf * tr);      // query fragments
-  float* Sm = reinterpret_cast<float*>(qf + fragment_words<T>(NQ, ksteps));  // [2][QBW][SS]
+  float* Sm = reinterpret_cast<float*>(qf + fragment_words<T>(1, ksteps));  // [2][QBW][SS]
   float* rd = Sm + 2 * QBW * SS;                                         // [QBW][k]
   int* ri = reinterpret_cast<int*>(rd + QBW * k);                        // [QBW][k]
 
@@ -173,7 +161,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       const int rows = (n - r0) < tr ? (int)(n - r0) : tr;
       unsigned char* dst = reinterpret_cast<unsigned char*>(ring + slot * slot_words);
       const unsigned char* s = src + r0 * row_bytes;
-      const int units = (STREAM_PROBE == 2 && t >= n_buf) ? 0 : rows * upr;
+      const int units = rows * upr;
       int row = row0, u = u0;
       for (int e = ctid; e < units; e += NPT) {
         unsigned char* to = dst + (row * stride) * 4 + u * unit;
@@ -201,18 +189,15 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
     for (int e = tid; e < n_buf * tr * pad; e += NTS)
       base[(e / pad) * stride * 4 + row_bytes + e % pad] = 0;
   }
-  stage_query_fragments<T, NQ>(q, q0, m, d, ksteps, qf);
+  stage_query_fragments<T, 1>(q, q0, m, d, ksteps, qf);
   for (int e = tid; e < QBW * k; e += NTS) { rd[e] = pos_inf(); ri[e] = ID_NONE; }
-  float wd[QW], qnv[QW];
-  int ws[QW], ex[QW];
-#pragma unroll
-  for (int i = 0; i < QW; ++i) {
-    const int qi = q0 + QW * warp + i;
-    wd[i] = pos_inf();
-    ws[i] = 0;
-    qnv[i] = (!copier && qi < m) ? qn[qi] : 0.0f;
-    ex[i] = (!copier && excl && qi < m) ? excl[qi] : -1;
-  }
+  // a multiplying warp merges query q0 + warp
+  const int qi = q0 + warp;
+  const bool merges = !copier && qi < m;
+  float wd = pos_inf();
+  int ws = 0;
+  const float qnv = merges ? qn[qi] : 0.0f;
+  const int ex = (merges && excl) ? excl[qi] : -1;
   cp_async_wait_pending(n_buf - 2);  // a copier's copies of tile 0 landed
   __syncthreads();                   // and every copier's; the set-up is done
 
@@ -229,70 +214,50 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       copy_tile(t + n_buf - 1);          // into tile t - 1's slot
       cp_async_wait_pending(n_buf - 2);  // this thread's copies of tile t + 1 landed
     } else if (wrow < rows) {
-      typename Tr<T>::S dot[NQ][4];
-#if STREAM_PROBE == 1
-      for (int nq = 0; nq < NQ; ++nq)
-        for (int c = 0; c < 4; ++c) dot[nq][c] = 0;
-#else
-      tile_mma<T, NQ>(ring + slot * slot_words + wrow * stride, stride, ksteps, qf, lane, dot);
-#endif
+      typename Tr<T>::S dot[1][4];
+      tile_mma<T, 1>(ring + slot * slot_words + wrow * stride, stride, ksteps, qf, lane, dot);
       const float* pnt = pn_ring + slot * tr + wrow + g;
       const float p0 = pnt[0], p1 = pnt[8];
-      float* sq = St + (2 * tq) * SS + wrow + g;
-#pragma unroll
-      for (int nq = 0; nq < NQ; ++nq) {
-        float* s = sq + MMA_QUERIES * nq * SS;
-        s[0] = 2.0f * (float)dot[nq][0] - p0;
-        s[SS] = 2.0f * (float)dot[nq][1] - p0;
-        s[8] = 2.0f * (float)dot[nq][2] - p1;
-        s[SS + 8] = 2.0f * (float)dot[nq][3] - p1;
-      }
+      float* s = St + (2 * tq) * SS + wrow + g;
+      s[0] = 2.0f * (float)dot[0][0] - p0;
+      s[SS] = 2.0f * (float)dot[0][1] - p0;
+      s[8] = 2.0f * (float)dot[0][2] - p1;
+      s[SS + 8] = 2.0f * (float)dot[0][3] - p1;
     }
     __syncthreads();  // S is written, tile t + 1 is in its slot, tile t is consumed
-    if (copier) continue;
+    if (!merges) continue;
+    float s[4];
+    bool ok[4];
+    float smax = -pos_inf();
 #pragma unroll
-    for (int i = 0; i < QW; ++i) {
-      const int qq = QW * warp + i;
-      if (q0 + qq >= m) break;
-      float s[4];
-      bool ok[4];
-      float smax = -pos_inf();
+    for (int j = 0; j < 4; ++j) {
+      const int r = lane + 32 * j;
+      s[j] = St[warp * SS + r];
+      // rows past the tile's end hold what an earlier tile left
+      ok[j] = r < rows && t0 + r != ex;
+      if (ok[j]) smax = fmaxf(smax, s[j]);
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = lane + 32 * j;
-        s[j] = St[qq * SS + r];
-        // rows past the tile's end hold what an earlier tile left
-        ok[j] = r < rows && t0 + r != ex[i];
-        if (ok[j]) smax = fmaxf(smax, s[j]);
-      }
+    for (int off = 16; off > 0; off >>= 1)
+      smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, off));
+    if (qnv - smax < wd) {
+      float v[4];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, off));
-      if (qnv[i] - smax < wd[i]) {
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = ok[j] ? qnv[i] - s[j] : pos_inf();
-        replace_worst(v, t0, rd + qq * k, ri + qq * k, k, wd[i], ws[i], lane);
-      }
+      for (int j = 0; j < 4; ++j) v[j] = ok[j] ? qnv - s[j] : pos_inf();
+      replace_worst(v, t0, rd + warp * k, ri + warp * k, k, wd, ws, lane);
     }
   }
   cp_async_wait<0>();
-  if (copier) return;
-#pragma unroll
-  for (int i = 0; i < QW; ++i) {
-    const int qq = QW * warp + i;
-    const int qi = q0 + qq;
-    if (qi >= m) break;
-    extract_sorted(rd + qq * k, ri + qq * k, k, lane, out_d + (long long)qi * k,
+  if (merges)
+    extract_sorted(rd + warp * k, ri + warp * k, k, lane, out_d + (long long)qi * k,
                    out_i + (long long)qi * k, scale2, n);
-  }
 }
 
 template <typename T>
 size_t stream_smem(int d, int k, int n_buf, int tr) {
   const int ksteps = row_words(d, sizeof(T)) / KSTEP_WORDS;
   return (size_t)n_buf * tr * (padded_stride(d, sizeof(T)) + 1) * 4 +
-         4 * (size_t)fragment_words<T>(NQ, ksteps) + sizeof(float) * 2 * QBW * SS +
+         4 * (size_t)fragment_words<T>(1, ksteps) + sizeof(float) * 2 * QBW * SS +
          (sizeof(float) + sizeof(int)) * (size_t)QBW * k;
 }
 
@@ -347,6 +312,10 @@ int exact_knn_stream_launch(int device, const void* pts, int dtype, const float*
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// queries per block: a call's blocks, each of which reads the whole corpus,
+// number ceil(m / this)
+int exact_knn_stream_query_block() { return QBW; }
 
 const char* stream_knn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -6,8 +6,6 @@ as the JAX package's functions.
 ``gaussian`` is iid N(0, 1) test data.  ``clustered_gaussian`` adds the
 skewed, clustered structure of real embedding corpora, which iid Gaussian
 lacks (and which exercises bucket occupancy realistically).
-``one_hot_rows`` (this package only) is the structured case that shows a
-kernel's wrong row, feature or query index, which random data hides.
 """
 
 from __future__ import annotations
@@ -45,17 +43,3 @@ def clustered_gaussian(
             (hi - lo, d)
         ).astype(np.float32)
     return out
-
-
-def one_hot_rows(n: int, d: int) -> tuple[np.ndarray, np.ndarray]:
-    """(corpus (n, d), queries (d, d)) float32 of small integers: row r
-    holds 1 + r // d in feature r % d and zeros elsewhere, query j is the
-    unit vector of feature j.  Then q_j . x_r is 1 + r // d where r % d == j
-    and 0 elsewhere, every value and distance is an integer that float32,
-    bf16, f16 and int8 (scale 1) hold exactly for n <= 127 d, and a kernel
-    that reads a wrong row, feature or query for any element returns ids or
-    distances that differ from a plain version's exactly."""
-    r = np.arange(n)
-    corpus = np.zeros((n, d), np.float32)
-    corpus[r, r % d] = 1 + r // d
-    return corpus, np.eye(d, dtype=np.float32)

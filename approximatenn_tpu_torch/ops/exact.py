@@ -107,31 +107,30 @@ def _nvcc() -> str:
                        f"{CSRC} on a machine with the CUDA toolkit")
 
 
-def library_path(name: str, defines: tuple = ()) -> Path:
+def library_path(name: str) -> Path:
     """Where the library of kernel source ``name`` is built.  The file name
-    carries a hash of the source, the shared headers and the flags
-    (``defines``: extra ``-D`` flags), so an edit to any of them rebuilds."""
+    carries a hash of the source, the shared headers and the flags, so an
+    edit to any of them rebuilds."""
     data = SOURCES[name].read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         data += header.read_bytes()
-    flags = " ".join((*NVCC_FLAGS, *defines))
-    tag = hashlib.sha256(data + flags.encode()).hexdigest()[:16]
+    tag = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
-def build_libraries(names=None, verbose: bool = False, defines: tuple = ()) -> dict:
+def build_libraries(names=None, verbose: bool = False) -> dict:
     """Compile the kernel sources ``names`` (default: all) that are not built
     yet, one nvcc per source, all started together; return {name: path}."""
     names = list(SOURCES) if names is None else list(names)
     jobs = []
     for name in names:
-        out = library_path(name, defines)
+        out = library_path(name)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *defines, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
                "-o", tmp, str(SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                 text=True)
@@ -148,16 +147,13 @@ def build_libraries(names=None, verbose: bool = False, defines: tuple = ()) -> d
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: library_path(name, defines) for name in names}
+    return {name: library_path(name) for name in names}
 
 
-def _library(name: str, defines: tuple = ()):
-    """The loaded library of kernel source ``name`` (built at first use);
-    ``defines`` names a variant built with extra ``-D`` flags, which a
-    measurement may load beside the package's own."""
-    key = (name, *defines) if defines else name
-    if key not in _libs:
-        lib = ctypes.CDLL(str(build_libraries([name], defines=defines)[name]))
+def _library(name: str):
+    """The loaded library of kernel source ``name`` (built at first use)."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build_libraries([name])[name]))
         for fn, argtypes in _ENTRY_POINTS[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _ci
@@ -165,8 +161,8 @@ def _library(name: str, defines: tuple = ()):
         err_fn.argtypes = [_ci]
         err_fn.restype = ctypes.c_char_p
         lib.error_string = err_fn
-        _libs[key] = lib
-    return _libs[key]
+        _libs[name] = lib
+    return _libs[name]
 
 
 def launch_error(lib, what: str, err: int) -> RuntimeError:
@@ -568,6 +564,13 @@ def exact_knn_stream_plain(points: torch.Tensor, queries: torch.Tensor, k: int, 
     return _replace_worst_plain(points, queries, k, exclude=exclude, scale=scale,
                                 matmul_precision=matmul_precision,
                                 compute_dtype=compute_dtype, tile=tile, stream=True)
+
+
+def stream_query_block() -> int:
+    """Queries per block of the streaming kernel, read from its built
+    library: a call with m queries runs ceil(m / this) blocks, each of which
+    reads the whole corpus."""
+    return _library("stream_knn").exact_knn_stream_query_block()
 
 
 def split_tf32(x: torch.Tensor):

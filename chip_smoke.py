@@ -70,13 +70,12 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import approximatenn_tpu_torch as ann
-from approximatenn_tpu_torch.data.synthetic import clustered_gaussian, gaussian, one_hot_rows
+from approximatenn_tpu_torch.data.synthetic import clustered_gaussian, gaussian
 from approximatenn_tpu_torch.engine.search import probe_starts
 from approximatenn_tpu_torch.harness.scoring import ids_agree, recall_at_k
 from approximatenn_tpu_torch.ops import exact as ex
@@ -122,9 +121,9 @@ N_REMOVE, N_ADD = 10_000, 10_000
 # H100 SXM datasheet peaks at 700 W (not measured here): fp32 on the CUDA
 # cores and HBM3; a kernel's bound is the larger of its two times
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12  # tensor cores, dense
 PEAK_BF16 = 989e12  # tensor cores, dense
 PEAK_BYTES = 3.35e12
-STREAM_QB = 8  # queries per block of the streaming kernel (csrc/stream_knn.cu)
 
 
 def phase(name: str, msg: str) -> None:
@@ -186,13 +185,17 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
 
 
 def check_stream_layout(dev) -> None:
-    """The streaming kernel's fragment layout: one-hot integer rows against
-    unit-vector queries (``one_hot_rows``).  Every product is exact in
-    every type, so ids and distances must equal the plain version's (on the
-    kernel's 128-row tiles, which decide the ids kept among equal
-    distances) bit for bit."""
+    """The streaming kernel's fragment layout: one-hot integer rows (row r
+    holds 1 + r // d in feature r % d) against unit-vector queries, so that
+    a wrong row, feature or query index of any element shows, which random
+    data hides.  Every product is exact in every type, so ids and distances
+    must equal the plain version's (on the kernel's 128-row tiles, which
+    decide the ids kept among equal distances) bit for bit."""
     for n, d in ((1000, 128), (700, 33)):
-        X, Y = (torch.from_numpy(a).to(dev) for a in one_hot_rows(n, d))
+        r = torch.arange(n, device=dev)
+        X = torch.zeros((n, d), device=dev)
+        X[r, r % d] = (1 + r // d).float()
+        Y = torch.eye(d, device=dev)
         for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             for k in (10, 128):
                 ia, da = ex.exact_knn(X.to(dt), Y, k, stream=True)
@@ -203,36 +206,6 @@ def check_stream_layout(dev) -> None:
                                          "distances differ from the plain version's")
         phase("kernel", f"stream fragment layout n={n} d={d} m={d} k=10,128 f32 bf16: ids "
                         "and distances equal to the plain version's (max_abs_err 0)")
-
-
-STREAM_VARIANTS = {  # label: nvcc defines of csrc/stream_knn.cu
-    "16 queries a block": ("-DSTREAM_QB=16",),
-    "copies alone (no MMAs)": ("-DSTREAM_PROBE=1",),
-    "multiplying alone (first tiles' copies only)": ("-DSTREAM_PROBE=2",),
-}
-
-
-def stream_variants_ms(X, Y, ids8) -> dict:
-    """Float32 times of the streaming kernel built otherwise than the
-    package ships it (8 queries a block): with 16 queries a block, its ids
-    held to the shipped build's, and the two timing probes that switch the
-    MMAs or the copies off (their results mean nothing)."""
-    with ThreadPoolExecutor(len(STREAM_VARIANTS)) as pool:  # one nvcc each, together
-        list(pool.map(lambda v: ex.build_libraries(["stream_knn"], defines=v),
-                      STREAM_VARIANTS.values()))
-    shipped = ex._library("stream_knn")
-    out = {}
-    try:
-        for label, defines in STREAM_VARIANTS.items():
-            ex._libs["stream_knn"] = ex._library("stream_knn", defines=defines)
-            if defines == ("-DSTREAM_QB=16",):
-                ids16, _ = ex.exact_knn(X, Y, 10, stream=True)
-                if not torch.equal(ids16, ids8):
-                    raise AssertionError("stream with 16 queries a block returns other ids")
-            out[label] = cuda_ms(lambda: ex.exact_knn(X, Y, 10, stream=True), reps=10)
-    finally:
-        ex._libs["stream_knn"] = shipped
-    return out
 
 
 def near_tie_ok(points, q, ids_a, ids_b, rtol=1e-5) -> bool:
@@ -622,10 +595,9 @@ def main() -> None:
     # version's IEEE fp32: hold it to the float64 oracle directly as well
     X64, Y64 = X.double(), Y.double()
     true_s = oracle64(X64, Y64, 10)
-    stream_ids = {}
     for label, pts in (("f32", X), ("bf16 stored", Xb)):
-        stream_ids[label], _ = ex.exact_knn(pts, Y, 10, stream=True)
-        rec, tie = recall_up_to_ties(X64, Y64, stream_ids[label], true_s, 10)
+        s_ids, _ = ex.exact_knn(pts, Y, 10, stream=True)
+        rec, tie = recall_up_to_ties(X64, Y64, s_ids, true_s, 10)
         phase("kernel", f"stream {label} n={N} m={M} k=10 vs f64 oracle: recall@10 {rec:.4f} "
                         f"(up to ties {tie:.4f})")
         if label == "f32" and tie != 1.0:
@@ -654,7 +626,6 @@ def main() -> None:
     lib_bf16_ms = cuda_ms(lambda: torch.topk((Xb.float() ** 2).sum(-1)
                                              - 2.0 * (Y.to(bf16) @ Xb.T).float(), 10,
                                              largest=False), reps=5)
-    variant_ms = stream_variants_ms(X, Y, stream_ids["f32"])
     norms_ms = cuda_ms(lambda: ex.point_norms(X), reps=5)
 
     emit_ms = cuda_ms(lambda: tp.segment_minima(X, Y, seg), reps=10)
@@ -683,15 +654,19 @@ def main() -> None:
     b32 = bounds["exact_knn_stream"][0]
     b16 = 1e3 * max(2.0 * M * N * 128 / PEAK_BF16,
                     (2.0 * N * 128 + 4.0 * (N + M * 129) + 8.0 * M * 10) / PEAK_BYTES)
+    # the kernel's own arithmetic: three TF32 passes on the tensor cores
+    b3 = 1e3 * 3 * 2.0 * M * N * 128 / PEAK_TF32
     phase("kernel", f"stream n={N} m={M} k=10: f32 {stream_ms:.3f} ms = "
                     f"{stream_ms / lib_ms:.3f} x library topk {lib_ms:.3f} ms = "
-                    f"{stream_ms / b32:.2f} x bound {b32:.3f} ms; bf16 stored {sb_ms:.3f} ms = "
+                    f"{stream_ms / b32:.2f} x bound {b32:.3f} ms (the function's fp32 "
+                    f"operations at the CUDA cores' peak, where the kernel does not run them) "
+                    f"= {stream_ms / b3:.2f} x {b3:.3f} ms (its three TF32 passes at the tensor "
+                    f"cores' dense TF32 peak); bf16 stored {sb_ms:.3f} ms = "
                     f"{sb_ms / lib_bf16_ms:.3f} x library topk (bf16 matmul) "
                     f"{lib_bf16_ms:.3f} ms = {sb_ms / b16:.2f} x bound {b16:.3f} ms (bf16 "
-                    f"tensor-core operations); f32 built otherwise: "
-                    + ", ".join(f"{label} {t:.3f} ms" for label, t in variant_ms.items())
-                    + f"; every time includes the call's point norms, {norms_ms:.3f} ms alone")
-    blocks = -(-M // STREAM_QB)
+                    f"tensor-core operations); every time includes the call's point norms, "
+                    f"{norms_ms:.3f} ms alone")
+    blocks = -(-M // ex.stream_query_block())
     phase("kernel", f"stream effective L2 read rate ({blocks} blocks x corpus bytes / kernel "
                     f"time): f32 {blocks * 4.0 * N * 128 / stream_ms / 1e9:.3f} TB/s, bf16 "
                     f"stored {blocks * 2.0 * N * 128 / sb_ms / 1e9:.3f} TB/s")

@@ -289,25 +289,35 @@ def test_kernel_matches_plain_on_card(dt, kernel):
                 assert_match(ia.cpu(), da.cpu(), ib.cpu(), dref.cpu())
 
 
+def one_hot_rows(n: int, d: int, dev):
+    """(corpus (n, d), queries (d, d)) float32 of small integers: row r
+    holds 1 + r // d in feature r % d and zeros elsewhere, query j is the
+    unit vector of feature j.  Then q_j . x_r is 1 + r // d where r % d == j
+    and 0 elsewhere, and every value and distance is an integer that
+    float32, bf16, f16 and int8 (scale 1) hold exactly for n <= 127 d."""
+    r = torch.arange(n, device=dev)
+    corpus = torch.zeros((n, d), device=dev)
+    corpus[r, r % d] = (1 + r // d).float()
+    return corpus, torch.eye(d, device=dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
 def test_stream_fragment_layout_on_card(dt):
-    """One-hot integer rows against unit-vector queries: every product is
-    exact in every type, so the tensor-core kernel must equal its plain
-    version bit for bit; a wrong fragment index moves a dot product to
+    """One-hot integer rows against unit-vector queries (``one_hot_rows``):
+    every product is exact in every type, so the tensor-core kernel must
+    equal its plain version bit for bit; a wrong fragment index moves a dot product to
     another (row, query) and shows.  The plain version walks the kernel's
     128-row tiles: among the many equal distances here, which ids the
     replace-the-worst merge keeps depends on the tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    from approximatenn_tpu_torch.data.synthetic import one_hot_rows
-
     dev = torch.device("cuda")
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16,
            "int8": torch.int8}[dt]
     for n, d in ((1000, 128), (333, 40), (700, 33)):
-        X, Y = one_hot_rows(n, d)
-        pts, q = torch.from_numpy(X).to(dev).to(tdt), torch.from_numpy(Y).to(dev)
+        X, q = one_hot_rows(n, d, dev)
+        pts = X.to(tdt)
         scale = 1.0 if dt == "int8" else None
         excl = torch.arange(d, dtype=torch.int32, device=dev)
         for k, e in ((10, None), (10, excl), (128, None)):

@@ -1,22 +1,38 @@
 """Places where the port once behaved differently from the JAX package,
-each held to the reference's behaviour on the CPU: ``search`` on an index
-whose tables were dropped, ``Server``'s pinned search knobs
-(``_search_kw``), exact-mode ``Server.add_points`` in the stored dtype, and
-``search``'s ``chunked`` switch.
+each held to the JAX package's behaviour on the same numpy inputs on the
+CPU: ``search`` on an index whose tables were dropped, ``Server``'s pinned
+search knobs (``_search_kw``) in hash and in exact mode, exact-mode
+``Server.add_points`` in the stored dtype, and ``search``'s ``chunked``
+switch.
 
-Tolerance: every comparison here is between two runs of the port on the
-same inputs, so ids and distances are compared for equality.
+The hash index is built once by the JAX package and loaded by the port
+from its saved file, so both search the same tables with the same
+transforms; queries whose bucket codes differ between the frameworks (a
+projection within rounding of a threshold) are left out, as in
+``test_torch_slice.py``.
+
+Tolerance: ids equal outside near-ties (relative distance gap 1e-5) and
+distances within rtol 1e-5 / atol 1e-5 between the frameworks; stored
+corpora and the raised errors' texts compared for equality.  Where a case
+also compares two runs of the port, those are compared for equality.
 """
 
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import approximatenn_tpu as jann
 import approximatenn_tpu_torch as tann
+from approximatenn_tpu.ops.hash import query_codes as j_query_codes
 from approximatenn_tpu_torch import config
 from approximatenn_tpu_torch.engine import serving
+from approximatenn_tpu_torch.harness.scoring import ids_agree
+from approximatenn_tpu_torch.index import ANNIndex
+from approximatenn_tpu_torch.ops.hash import query_codes as t_query_codes
 
 torch.set_num_threads(1)
 
@@ -24,72 +40,128 @@ N, D, K = 1500, 16, 5
 PINS = {"rerank_width": 25, "supercharge_rounds": 2}
 
 
-@pytest.fixture(scope="module")
-def data():
-    rng = np.random.default_rng(77)
-    X = rng.standard_normal((N, D)).astype(np.float32)
-    Y = rng.standard_normal((60, D)).astype(np.float32)
-    return torch.from_numpy(X), torch.from_numpy(Y)
-
-
-@pytest.fixture(scope="module")
-def hash_servers(data):
-    X, _ = data
-    table = tann.Server.build(X, K, mode="hash", tries=2, seed=3, n_probes=2)
-    packed = dataclasses.replace(table, packed=table.index.packed())
-    return {"table": table, "packed": packed}
+def T(a):
+    return torch.from_numpy(np.array(a))
 
 
 def same(a, b):
     return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-def test_search_on_dropped_tables_raises_the_reference_error(data, hash_servers):
-    X, Y = data
-    index = hash_servers["table"].index
-    slim = index.drop_tables()
+def assert_match(port, ref, rows=slice(None)):
+    """The port's (ids, distances) against the JAX package's."""
+    ia, da = (x[rows] for x in port)
+    ib, db = (T(x)[rows] for x in ref)
+    ok, _ = ids_agree(ia, ib, db, rtol=1e-5)
+    assert ok, (ia, ib)
+    fin = torch.isfinite(db)
+    assert torch.equal(fin, torch.isfinite(da))
+    np.testing.assert_allclose(da[fin].numpy(), db[fin].numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def built(tmp_path_factory):
+    """X, Y, the JAX index, the port's copy of it, and the queries whose
+    bucket codes agree in every table."""
+    rng = np.random.default_rng(77)
+    X = rng.standard_normal((N, D)).astype(np.float32)
+    Y = rng.standard_normal((60, D)).astype(np.float32)
+    jidx, _, _ = jann.build(jnp.asarray(X), K, tries=2, seed=3, store_points=True)
+    path = str(tmp_path_factory.mktemp("idx") / "j.npz")
+    jidx.save(path)
+    tidx = ANNIndex.load(path)
+    jc, _ = j_query_codes(jidx.row_means, jidx.bases, jnp.asarray(Y))
+    tc, _ = t_query_codes(tidx.row_means, tidx.bases, T(Y))
+    agree = tc.numpy() == np.asarray(jc)
+    assert agree.mean() >= 0.995
+    return X, Y, jidx, tidx, agree.all(1)
+
+
+@pytest.fixture(scope="module")
+def hash_servers(built):
+    """(JAX server, port server) over the one index, per layout, with
+    ``n_probes=2`` set at build as ``Server.build`` would."""
+    X, _, jidx, tidx, _ = built
+    out = {}
+    for layout in ("table", "packed"):
+        jsrv = jann.Server(points=jnp.asarray(X), k=K, mode="hash", index=jidx,
+                           n_probes=2, packed=jidx.packed() if layout == "packed" else None)
+        tsrv = tann.Server(points=T(X), k=K, mode="hash", index=tidx, n_probes=2,
+                           packed=tidx.packed() if layout == "packed" else None)
+        out[layout] = (jsrv, tsrv)
+    return out
+
+
+def test_search_on_dropped_tables_raises_the_reference_error(built):
+    X, Y, jidx, tidx, rows = built
+    jslim, slim = jidx.drop_tables(), tidx.drop_tables()
     assert slim.tables is None and slim.counts is None
-    with pytest.raises(ValueError, match="drop_tables.*packed view only"):
-        tann.search(slim, X, Y)
-    with pytest.raises(ValueError, match="drop_tables"):
-        tann.search(slim, Y)
-    # the packed view still builds from the slim index and serves identically
-    assert same(tann.search_packed(index.packed(X), X, Y),
-                tann.search_packed(slim.packed(X), X, Y))
+    for args in ((X, Y), (Y,)):
+        with pytest.raises(ValueError, match="drop_tables") as ref:
+            jann.search(jslim, *map(jnp.asarray, args))
+        with pytest.raises(ValueError, match="drop_tables") as port:
+            tann.search(slim, *map(T, args))
+        assert str(port.value) == str(ref.value)
+    # the packed view still builds from the slim index and serves as the
+    # reference's does
+    got = tann.search_packed(slim.packed(T(X)), T(X), T(Y))
+    assert same(got, tann.search_packed(tidx.packed(T(X)), T(X), T(Y)))
+    assert_match(got, jann.search_packed(jslim.packed(jnp.asarray(X)), jnp.asarray(X),
+                                         jnp.asarray(Y)), rows)
     # updates keep their own wording
     with pytest.raises(ValueError, match="updates need the padded tables"):
         slim.remove_points([0])
 
 
 @pytest.mark.parametrize("layout", ["table", "packed"])
-def test_server_pinned_hash_knobs_act_as_per_call_knobs(data, hash_servers, layout):
-    _, Y = data
-    srv = hash_servers[layout]
-    pinned = dataclasses.replace(srv, _search_kw=dict(PINS))
-    per_call = srv.search(Y, **PINS)
-    assert same(pinned.search(Y), per_call)
-    # and the pins do change the search
-    assert not torch.equal(srv.search(Y)[0], per_call[0])
-    assert srv._search_kw == {}
+def test_server_pinned_hash_knobs_act_as_per_call_knobs(built, hash_servers, layout):
+    _, Y, _, _, rows = built
+    jsrv, tsrv = hash_servers[layout]
+    jpinned = dataclasses.replace(jsrv, _search_kw=dict(PINS))
+    pinned = dataclasses.replace(tsrv, _search_kw=dict(PINS))
+    ref = jpinned.search(jnp.asarray(Y))
+    got = pinned.search(T(Y))
+    assert_match(got, ref, rows)
+    # in both packages the pins act as the same knobs passed per call, and
+    # they do change the search
+    assert_match(tsrv.search(T(Y), **PINS), jsrv.search(jnp.asarray(Y), **PINS), rows)
+    assert same(got, tsrv.search(T(Y), **PINS))
+    assert not np.array_equal(np.asarray(ref[0]), np.asarray(jsrv.search(jnp.asarray(Y))[0]))
+    assert not torch.equal(got[0], tsrv.search(T(Y))[0])
+    assert tsrv._search_kw == {}
 
 
 @pytest.mark.parametrize("layout", ["table", "packed"])
-def test_server_call_keyword_overrides_the_pinned_one(data, hash_servers, layout):
-    _, Y = data
-    srv = hash_servers[layout]
-    pinned = dataclasses.replace(srv, _search_kw=dict(PINS))
+def test_server_call_keyword_overrides_the_pinned_one(built, hash_servers, layout):
+    _, Y, _, _, rows = built
+    jsrv, tsrv = hash_servers[layout]
+    jpinned = dataclasses.replace(jsrv, _search_kw=dict(PINS))
+    pinned = dataclasses.replace(tsrv, _search_kw=dict(PINS))
     override = {"rerank_width": None, "supercharge_rounds": 0}
-    assert same(pinned.search(Y, **override), srv.search(Y, **override))
-    assert same(pinned.search(Y, rerank_width=40),
-                srv.search(Y, rerank_width=40, supercharge_rounds=2))
+    got = pinned.search(T(Y), **override)
+    assert_match(got, jpinned.search(jnp.asarray(Y), **override), rows)
+    assert same(got, tsrv.search(T(Y), **override))
+    # one pin overridden, the other kept
+    got = pinned.search(T(Y), rerank_width=40)
+    assert_match(got, jpinned.search(jnp.asarray(Y), rerank_width=40), rows)
+    assert same(got, tsrv.search(T(Y), rerank_width=40, supercharge_rounds=2))
     assert pinned._search_kw == PINS  # a call leaves the pins alone
 
 
-def test_server_pinned_exact_knob_reaches_the_exact_engine(data, monkeypatch):
-    X, Y = data
-    srv = tann.Server.build(X, K, mode="exact")
+def test_server_pinned_exact_knob_reaches_the_exact_engine(built, monkeypatch):
+    X, Y, *_ = built
+    jsrv = jann.Server.build(jnp.asarray(X), K, mode="exact")
+    srv = tann.Server.build(T(X), K, mode="exact")
+    # off the TPU the reference takes a pinned kernel knob and answers with
+    # its brute force; the port's CPU path is the streaming kernel's plain
+    # version: the same neighbours
+    jpinned = dataclasses.replace(jsrv, _search_kw={"stream": True})
     pinned = dataclasses.replace(srv, _search_kw={"stream": True})
-    assert same(pinned.search(Y), srv.search(Y, stream=True))
+    got = pinned.search(T(Y))
+    assert_match(got, jpinned.search(jnp.asarray(Y)))
+    assert same(got, srv.search(T(Y), stream=True))
+    assert_match(pinned.search(T(Y), stream=False),
+                 jpinned.search(jnp.asarray(Y), stream=False))
     seen = []
     real = serving.exact_search
 
@@ -98,67 +170,89 @@ def test_server_pinned_exact_knob_reaches_the_exact_engine(data, monkeypatch):
         return real(points, queries, k, **kw)
 
     monkeypatch.setattr(serving, "exact_search", spy)
-    pinned.search(Y)
-    pinned.search(Y, stream=False, merge="rescan")
+    pinned.search(T(Y))
+    pinned.search(T(Y), stream=False, merge="rescan")
     assert seen[0]["stream"] is True and seen[0]["no_twophase"] is True
     assert seen[1]["stream"] is False and seen[1]["merge"] == "rescan"
     # a pinned TPU tiling knob is refused as it is per call
     tiled = dataclasses.replace(srv, _search_kw={"tile": 256})
     with pytest.raises(ValueError, match="tile"):
-        tiled.search(Y)
-    assert same(tiled.search(Y, tile=None), srv.search(Y))
+        tiled.search(T(Y))
+    assert same(tiled.search(T(Y), tile=None), srv.search(T(Y)))
 
 
-def test_server_describe_names_the_engine_of_a_pinned_search(data):
-    # The reference's describe() takes no keywords and reads no pin; the
-    # port's names the engine that search(**kw) runs, so it reads the pins
-    # under the call's keywords exactly as search does.
-    X, _ = data
-    srv = tann.Server.build(X, K, mode="exact")
+def test_server_describe_names_the_engine_of_a_pinned_search(built):
+    X, *_ = built
+    jsrv = jann.Server.build(jnp.asarray(X), K, mode="exact")
+    srv = tann.Server.build(T(X), K, mode="exact")
     pins = {"stream": True, "compute_dtype": torch.bfloat16}
+    jpinned = dataclasses.replace(jsrv, _search_kw={"stream": True,
+                                                    "compute_dtype": jnp.bfloat16})
     pinned = dataclasses.replace(srv, _search_kw=pins)
+    # the reference's describe() takes no keywords and reads no pin: the
+    # keys the two packages share are the same with and without pins
+    for key in ("mode", "n", "d", "k", "metric", "recall", "storage_dtype"):
+        assert jpinned.describe()[key] == jsrv.describe()[key] == pinned.describe()[key], key
+    # the port's also names the engine that search(**kw) runs, so it reads
+    # the pins under the call's keywords exactly as search does
     assert pinned.describe() == srv.describe(**pins)
     assert pinned.exact_engine() == srv.exact_engine(**pins)
     assert pinned.describe(stream=False) == srv.describe(stream=False,
                                                          compute_dtype=torch.bfloat16)
-    # the routing predicate sees the merged knobs: a rank-family pin keeps a
-    # search off the two-phase engine
+    # the routing predicate sees the merged knobs, as the reference's does:
+    # a rank-family pin keeps a search off the two-phase engine
+    big = dataclasses.replace(jpinned, _twophase=True)
+    assert not big._route_twophase(K, False, dict(big._search_kw))
     assert serving.route(10**6, K, {**pins}, False) != "twophase"
 
 
 @pytest.mark.parametrize("case", ["float64", "float64-angular", "bfloat16", "int8"])
 def test_exact_add_points_prepares_rows_in_the_stored_dtype(case):
     rng = np.random.default_rng(5)
-    X = torch.from_numpy(rng.standard_normal((400, 12)))  # float64
+    X = rng.standard_normal((400, 12))  # float64
     metric = "angular" if case.endswith("angular") else "l2"
-    sdt = {"bfloat16": torch.bfloat16, "int8": torch.int8}.get(case)
+    jdt, sdt = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
+                "int8": (jnp.int8, torch.int8)}.get(case, (None, None))
     old = config.ftype()
     config.set_ftype("float64")
+    jax.config.update("jax_enable_x64", True)  # or the reference holds no float64
     try:
-        whole = tann.Server.build(X, K, mode="exact", metric=metric, storage_dtype=sdt)
-        grown = tann.Server.build(X[:200], K, mode="exact", metric=metric, storage_dtype=sdt)
+        whole = tann.Server.build(T(X), K, mode="exact", metric=metric, storage_dtype=sdt)
+        grown = tann.Server.build(T(X[:200]), K, mode="exact", metric=metric,
+                                  storage_dtype=sdt)
+        jgrown = jann.Server.build(jnp.asarray(X[:200]), K, mode="exact", metric=metric,
+                                   storage_dtype=jdt)
         if sdt == torch.int8:
-            grown.scale = whole.scale  # one grid for both
-            grown.points = whole.points[:200].clone()
-        grown.add_points(X[200:])
+            assert grown.scale == pytest.approx(float(jgrown._search_kw["scale"]), rel=1e-6)
+            grown.scale = float(jgrown._search_kw["scale"])  # one grid for both packages
+        grown.add_points(T(X[200:]))
+        jgrown.add_points(jnp.asarray(X[200:]))
+        ref = np.asarray(jgrown.points.astype(jnp.float64))
     finally:
+        jax.config.update("jax_enable_x64", False)
         config.set_ftype(old)
-    assert grown.points.dtype == whole.points.dtype
+    assert str(grown.points.dtype).replace("torch.", "") == str(jgrown.points.dtype)
+    added, ref_added = grown.points[200:].double().numpy(), ref[200:]
     if case == "float64":
         assert whole.points.dtype == torch.float64
         # not what a trip through float32 leaves
-        assert not torch.equal(X[200:].float().double(), X[200:])
+        assert not np.array_equal(X[200:].astype(np.float32).astype(np.float64), X[200:])
     if case == "float64-angular":
-        # the normalisation runs in float32 on added rows, as in the reference
+        # the normalisation runs in float32 on added rows in both packages
+        np.testing.assert_allclose(added, ref_added, rtol=1e-6, atol=1e-7)
         torch.testing.assert_close(grown.points, whole.points, rtol=1e-6, atol=1e-7)
     else:
-        assert torch.equal(grown.points, whole.points)
+        np.testing.assert_array_equal(added, ref_added)
+        if case != "int8":  # a one-shot int8 build sets its grid from all rows
+            assert torch.equal(grown.points, whole.points)
 
 
 @pytest.mark.parametrize("chunked", [True, False, None])
-def test_search_accepts_chunked_and_ignores_it(data, hash_servers, chunked):
-    X, Y = data
-    index = hash_servers["table"].index
-    assert same(tann.search(index, X, Y, chunked=chunked), tann.search(index, X, Y))
-    assert same(tann.search(index, Y, chunked=chunked, n_probes=3),
-                tann.search(index, Y, n_probes=3))
+def test_search_accepts_chunked_and_ignores_it(built, chunked):
+    X, Y, jidx, tidx, rows = built
+    got = tann.search(tidx, T(X), T(Y), chunked=chunked)
+    assert_match(got, jann.search(jidx, jnp.asarray(X), jnp.asarray(Y), chunked=chunked), rows)
+    assert same(got, tann.search(tidx, T(X), T(Y)))
+    got = tann.search(tidx, T(Y), chunked=chunked, n_probes=3)
+    assert_match(got, jann.search(jidx, jnp.asarray(Y), chunked=chunked, n_probes=3), rows)
+    assert same(got, tann.search(tidx, T(Y), n_probes=3))
