@@ -8,23 +8,26 @@
 // (n, +inf); an optional per-query excluded id; f32, bf16, f16 or int8
 // stored corpora.
 //
-// What bounds it on this card: fp32 FMA throughput.  At d = 128 a batch of
-// 1000 queries against 1M points is m*n*d*2 = 2.6e11 flop, while the
-// corpus read is 512 MB: ~500 flop per byte read.  By the H100 SXM
-// datasheet's figures (67 TFLOP/s fp32 on the CUDA cores, 3.35 TB/s of
-// HBM; neither measured here) the balance point is ~20 flop per byte, so
-// the arithmetic, not the read, sets the time.  The design therefore spends
-// its effort on keeping the
-// FMA pipes fed and reads the corpus once per block of 32 queries:
+// What bounds it on this card.  At d = 128 a batch of 1000 queries against
+// 1M points is m*n*d*2 = 2.6e11 flop against a 512 MB corpus read: by the
+// H100 SXM datasheet (67 TFLOP/s fp32 on the CUDA cores, 495 TF32 on the
+// tensor cores, 3.35 TB/s of HBM; none measured here) the arithmetic, not
+// the read, sets the least time.  On the tensor cores float32 takes three
+// TF32 passes (7.7e11 flop, 1.55 ms at the dense peak), and what is left is
+// the L2 traffic of reading the corpus once per block of 32 queries (16 GB
+// a call) and the instruction issue of the MMAs' operands.  The design:
 //   * pass 1, grid (query blocks x corpus splits): the TPU grid carries its
 //     running top-k from one step to the next; Hopper blocks run in
-//     parallel, so the corpus is cut into `splits` ranges (enough blocks to
-//     fill 132 SMs at m = 1000) and every block keeps its own top-k.  A
-//     block stages 128-row corpus tiles and its 32 queries in shared memory
-//     in 32-feature chunks and computes a 4x4 register tile of dot products
-//     per thread with fp32 FMAs on the CUDA cores (int32 multiply-adds for
-//     int8).  The tile's scores go to shared memory; one warp per query
-//     compares them with the query's current k-th best and inserts the few
+//     parallel, so the corpus is cut into `splits` ranges (so that the
+//     blocks fill the card's SMs in whole waves, ops/exact.py:splits) and
+//     every block keeps its own top-k.  The block walks its range's
+//     128-row tiles through the tile loop of knn_tile.cuh: copying warps
+//     fill a cp.async ring, eight multiplying warps take 16 rows each
+//     against the block's 32 queries on the tensor cores (knn_mma.cuh:
+//     tile_mma) and form the scores |x|^2 - 2 q.x in a padded array S,
+//     with |x|^2 summed from the values in the slot: the norms of the
+//     corpus as streamed.  Selection: one warp per query compares the
+//     tile's scores with the query's current k-th best and inserts the few
 //     that beat it into a sorted list in shared memory (warp-cooperative
 //     shift).  After warm-up only ~k ln(n) candidates per query are ever
 //     inserted, so selection costs little next to the dot products.
@@ -35,17 +38,19 @@
 // added at emit; ties order by (score, id), so the result does not depend
 // on the split or on the order in which candidates arrive.
 //
-// Precision: every tier ("highest", "split3", "default") computes the dot
-// product in IEEE fp32 on the CUDA cores, at least as exact as each TPU
-// tier.  bf16/f16 corpora are widened to fp32 as staged and the queries
-// rounded to the storage type first, as the TPU kernel feeds its MXU.
-// int8 corpora multiply int8-quantised queries in int32 (exact).  A
-// tensor-core path (3xTF32 or bf16x3, TF32) is later work.
+// Precision: every tier ("highest", "split3", "default") computes what
+// "highest" computes.  float32 dots are 3xTF32 with fp32 accumulation
+// (knn_mma.cuh), within fp32 summation error of the IEEE dot product, so
+// they rank as IEEE fp32 does; bf16 / f16 corpora multiply at storage width
+// with queries rounded to the corpus's type first, as the TPU kernel feeds
+// its MXU (exact products, fp32 accumulation); int8 corpora multiply
+// int8-quantised queries in int32 (exact).  Norms are fp32 sums of the
+// streamed values' squares (int32 for int8).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
 
-#include "knn_common.cuh"
+#include "knn_tile.cuh"
 
 namespace {
 
@@ -53,45 +58,39 @@ using namespace knn;
 
 constexpr int MAX_SPLITS = 32;
 
+// The rank kernel's selection step: sorted lists topd/topi [QB][k] in
+// shared memory; warp w owns queries w, w + NW, ...
 template <typename T>
-__global__ void __launch_bounds__(NT)
-knn_partial_kernel(const T* __restrict__ pts, const float* __restrict__ q,
-                   const int* __restrict__ excl, int n, int d, int m, int k,
-                   int tiles_per_split, int splits,
-                   float* __restrict__ part_d, int* __restrict__ part_i) {
-  using S = typename Tr<T>::S;
-  extern __shared__ __align__(16) unsigned char smem[];
-  S* Qs = reinterpret_cast<S*>(smem);                    // [DC][QB]
-  S* Ps = Qs + DC * QB;                                  // [DC][PS]
-  float* Ds = reinterpret_cast<float*>(Ps + DC * PS);    // [QB][TN]
-  S* Pn = reinterpret_cast<S*>(Ds + QB * TN);            // [TN]
-  float* topd = reinterpret_cast<float*>(Pn + TN);       // [QB][k]
-  int* topi = reinterpret_cast<int*>(topd + QB * k);     // [QB][k]
+struct RankSelect {
+  using S_t = typename Tr<T>::S;
+  static constexpr bool PN = false;     // no precomputed norms
+  static constexpr bool NORMS = true;   // norms of the values in the slot
+  static size_t state_bytes(int k) { return (sizeof(float) + sizeof(int)) * (size_t)tile::QB * k; }
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * QB;
-  const int split = blockIdx.y;
-  const long long lo = (long long)split * tiles_per_split * TN;
-  const long long hi_ll = lo + (long long)tiles_per_split * TN;
-  const int hi = (int)(hi_ll < n ? hi_ll : n);
+  float* topd;
+  int* topi;
+  const int* excl;
+  int q0, m, k, warp, lane;
+  float* part_d;
+  int* part_i;
 
-  for (int e = tid; e < QB * k; e += NT) { topd[e] = __int_as_float(0x7f800000); topi[e] = ID_NONE; }
+  __device__ RankSelect(const tile::TiledArgs& a, unsigned char* state, int q0_)
+      : topd(reinterpret_cast<float*>(state)),
+        topi(reinterpret_cast<int*>(state) + tile::QB * a.k), excl(a.excl), q0(q0_), m(a.m),
+        k(a.k), warp(threadIdx.x >> 5), lane(threadIdx.x & 31), part_d(a.part_d),
+        part_i(a.part_i) {
+    for (int e = threadIdx.x; e < tile::QB * k; e += blockDim.x) {
+      topd[e] = pos_inf();
+      topi[e] = ID_NONE;
+    }
+  }
 
-  const int tq = tid >> 5;   // query group: queries tq*4 .. tq*4+3
-  const int tp = tid & 31;   // point lane: rows tp + 32 j
-  for (int t0 = (int)lo; t0 < hi; t0 += TN) {
-    S acc[4][4];
-    tile_dots<T>(pts, q, q0, m, d, t0, hi, Qs, Ps, Pn, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tp + 32 * j;
-        Ds[(tq * 4 + i) * TN + r] = Tr<T>::score(Pn[r], acc[i][j]);
-      }
-    __syncthreads();
-    // selection: warp w owns queries w, w + NW, ...
-    for (int qq = warp; qq < QB; qq += NW) {
+  __device__ float score(S_t dot, S_t norm, float, int, int) const {
+    return Tr<T>::score(norm, dot);
+  }
+
+  __device__ void select(const float* S, int t0, int hi) {
+    for (int qq = warp; qq < tile::QB; qq += NW) {
       const int qi = q0 + qq;
       if (qi >= m) break;
       float* ld = topd + qq * k;
@@ -103,9 +102,8 @@ knn_partial_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       for (int r0 = 0; r0 < TN; r0 += 32) {
         const int r = r0 + lane;
         const int id = t0 + r;
-        const float dv = Ds[qq * TN + r];
-        const bool ok = id < hi && id != ex && dv < __int_as_float(0x7f800000) &&
-                        lex_less(dv, id, wd, wi);
+        const float dv = S[qq * tile::SS + r];
+        const bool ok = id < hi && id != ex && dv < pos_inf() && lex_less(dv, id, wd, wi);
         unsigned mask = __ballot_sync(0xffffffffu, ok);
         while (mask) {
           const int src = __ffs(mask) - 1;
@@ -121,43 +119,29 @@ knn_partial_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       }
     }
   }
-  __syncthreads();
-  for (int e = tid; e < QB * k; e += NT) {
-    const int qq = e / k, j = e % k;
-    const int qi = q0 + qq;
-    if (qi < m) {
-      const long long o = ((long long)qi * splits + split) * k + j;
-      part_d[o] = topd[e];
-      part_i[o] = topi[e];
+
+  __device__ void finish(int split, int splits) const {
+    for (int qq = warp; qq < tile::QB; qq += NW) {
+      const int qi = q0 + qq;
+      if (qi >= m) break;
+      const long long o = ((long long)qi * splits + split) * k;
+      for (int j = lane; j < k; j += 32) {
+        part_d[o + j] = topd[qq * k + j];
+        part_i[o + j] = topi[qq * k + j];
+      }
     }
   }
-}
+};
 
 template <typename T>
-size_t partial_smem(int k) {
-  using S = typename Tr<T>::S;
-  return sizeof(S) * (DC * QB + DC * PS + TN) + sizeof(float) * QB * TN +
-         (sizeof(float) + sizeof(int)) * (size_t)QB * k;
-}
-
-template <typename T>
-int launch(const void* pts, const float* q, const int* excl, const float* qn,
-           int n, int d, int m, int k, int splits, float* part_d, int* part_i,
-           float* out_d, int* out_i, float scale2, cudaStream_t stream) {
-  const int n_tiles = (n + TN - 1) / TN;
-  const int tps = (n_tiles + splits - 1) / splits;
-  const size_t smem = partial_smem<T>(k);
-  cudaError_t err = cudaFuncSetAttribute(knn_partial_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+int launch(const void* pts, const float* q, const int* excl, const float* qn, int n, int d,
+           int m, int k, int splits, float* part_d, int* part_i, float* out_d, int* out_i,
+           float scale2, cudaStream_t stream) {
+  tile::TiledArgs a{pts, q, nullptr, nullptr, excl, n, d, m, k, 0, 0, 0, part_d, part_i};
+  cudaError_t err = tile::launch_tiled<T, RankSelect<T>>(a, splits, stream);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid1((m + QB - 1) / QB, splits);
-  knn_partial_kernel<T><<<grid1, NT, smem, stream>>>(
-      static_cast<const T*>(pts), q, excl, n, d, m, k, tps, splits, part_d, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_split_merge(part_d, part_i, qn, n, m, k, splits, scale2, out_d,
-                                 out_i, stream);
+  return (int)launch_split_merge(part_d, part_i, qn, n, m, k, splits, scale2, out_d, out_i,
+                                 stream);
 }
 
 }  // namespace
@@ -165,14 +149,15 @@ int launch(const void* pts, const float* q, const int* excl, const float* qn,
 extern "C" {
 
 // device: the CUDA ordinal of every pointer.  dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers;
-// excl may be null.  part_d/part_i hold m * splits * k
+// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers,
+// pts 16-byte aligned; excl may be null.  part_d/part_i hold m * splits * k
 // entries, out_d/out_i m * k.  Returns the CUDA error code (0 = launched).
 int exact_knn_launch(int device, const void* pts, int dtype, const float* q,
                      const int* excl, const float* qn, int n, int d, int m, int k,
                      int splits, float* part_d, int* part_i, float* out_d,
                      int* out_i, float scale2, void* stream) {
-  if (k < 1 || k > knn::KMAX || splits < 1 || splits > MAX_SPLITS || n < 1 || d < 1 || m < 1)
+  if (k < 1 || k > knn::KMAX || splits < 1 || splits > MAX_SPLITS || n < 1 || d < 1 || m < 1 ||
+      reinterpret_cast<uintptr_t>(pts) % 16)
     return (int)cudaErrorInvalidValue;
   // this library carries its own CUDA runtime: select the caller's device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -186,6 +171,11 @@ int exact_knn_launch(int device, const void* pts, int dtype, const float* q,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// queries per block and corpus rows per tile: a call's pass 1 runs
+// ceil(m / query block) x splits blocks over 128-row tiles
+int exact_knn_query_block() { return knn::tile::QB; }
+int exact_knn_tile_rows() { return knn::TN; }
 
 const char* exact_knn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

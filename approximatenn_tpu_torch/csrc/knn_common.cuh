@@ -3,8 +3,8 @@
 // (distance, id) order, the warp-cooperative insert into a sorted top-k list
 // in shared memory, the unsorted replace-the-worst top-k of the rescan-merge
 // and streaming kernels, the merge of per-split sorted lists, and the tiled
-// CUDA-core dot product of the rank, emit and rescan-merge kernels (the
-// streaming kernel's tensor-core one is knn_mma.cuh).
+// CUDA-core dot product of the two-phase emit kernel alone (the other exact
+// kernels multiply on the tensor cores: knn_mma.cuh, knn_tile.cuh).
 
 #pragma once
 
@@ -18,7 +18,7 @@ namespace knn {
 constexpr int KMAX = 128;
 constexpr int ID_NONE = 0x7fffffff;
 
-constexpr int QB = 32;        // queries per tiled block
+constexpr int QB = 32;        // queries per block of tile_dots
 constexpr int TN = 128;       // corpus rows per tile
 constexpr int DC = 32;        // features per staged chunk
 constexpr int NT = 256;       // threads per block (8 warps)
@@ -96,7 +96,8 @@ __device__ __forceinline__ void warp_lex_min(float& d, int& i, int width) {
   }
 }
 
-// Dot products of the block's NW * QW queries (from q0) with the corpus
+// The emit kernel's dot products (twophase_knn.cu; its move to the tensor
+// cores is still to come): the block's NW * QW queries (from q0) with the corpus
 // tile [t0, t0 + TN), staged in shared memory in DC-feature chunks (Qs
 // [DC][NW * QW], Ps [DC][PS]; queries >= m and rows >= hi stage as zeros).
 // Thread (warp tq, lane tp) ends with acc[i][j] = q[q0 + QW tq + i] .

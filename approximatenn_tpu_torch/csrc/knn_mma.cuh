@@ -54,8 +54,9 @@
 // in shared memory in lane order: one 16-byte (float32: b0 hi, b1 hi, b0 lo,
 // b1 lo) or 8-byte (b0, b1) load per lane and K step, conflict-free.
 //
-// Nothing here knows where the tile came from: the streaming kernel hands it
-// a ring slot; a kernel that reads its corpus otherwise can do the same.
+// Nothing here knows where the tile came from: the streaming kernel and the
+// tile loop of the rank kernel and the rescan merge (knn_tile.cuh) hand it
+// a ring slot, or one feature chunk of it.
 
 #pragma once
 
@@ -179,17 +180,19 @@ __host__ __device__ inline int fragment_words(int nq, int ksteps) {
   return ksteps * nq * 32 * Mma<T>::FW;
 }
 
-// Make the fragments of queries [q0, q0 + 8 NQ) of q (m, d) float32 in qf
-// (fragment_words<T>(NQ, ksteps) words of shared memory, 16-byte aligned):
-// entry ((ks NQ + nq) 32 + lane) holds lane's B words of K step ks for query
-// group nq.  Queries >= m and features >= d are zero.  Whole block; the
-// caller synchronises before tile_mma reads qf.
+// Make the fragments of queries [q0, q0 + 8 NQ) of q (m, d) float32 over
+// K steps [ks0, ks0 + ksteps) in qf (fragment_words<T>(NQ, ksteps) words of
+// shared memory, 16-byte aligned): entry ((ks NQ + nq) 32 + lane) holds
+// lane's B words of K step ks0 + ks for query group nq.  Queries >= m and
+// features >= d are zero.  Thread tid of nthreads; the caller synchronises
+// before tile_mma reads qf.
 template <typename T, int NQ>
 __device__ __forceinline__ void stage_query_fragments(const float* __restrict__ q, int q0, int m,
-                                                      int d, int ksteps, uint32_t* qf) {
+                                                      int d, int ks0, int ksteps, uint32_t* qf,
+                                                      int tid, int nthreads) {
   constexpr int PW = Mma<T>::PER_WORD;
-  for (int e = threadIdx.x; e < ksteps * NQ * 32; e += blockDim.x) {
-    const int lane = e & 31, nq = (e >> 5) % NQ, ks = (e >> 5) / NQ;
+  for (int e = tid; e < ksteps * NQ * 32; e += nthreads) {
+    const int lane = e & 31, nq = (e >> 5) % NQ, ks = ks0 + (e >> 5) / NQ;
     const int g = lane >> 2, t = lane & 3;
     const int qi = q0 + MMA_QUERIES * nq + g;
     uint32_t b[2];
@@ -238,8 +241,10 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t addr) {
 //
 // The few warps of a block cannot hide a load's latency behind each other,
 // so the loop hides it itself: the fragments of K step ks + 1 are loaded
-// before the MMAs of K step ks start, and even and odd K steps sum into
-// accumulator sets of their own, which doubles the independent MMA chains.
+// before the MMAs of K step ks start.  With one query group (NQ = 1) even
+// and odd K steps sum into accumulator sets of their own, which doubles the
+// independent MMA chains; from NQ = 4 up the groups' own chains are enough
+// (4 x 3 for float32) and one set keeps the registers.
 template <typename T, int NQ>
 __device__ __forceinline__ void tile_mma(const uint32_t* rows16, int stride, int ksteps,
                                          const uint32_t* qf, int lane,
@@ -252,9 +257,10 @@ __device__ __forceinline__ void tile_mma(const uint32_t* rows16, int stride, int
       rows16 + ((lane & 7) + 8 * ((lane >> 3) & 1)) * stride + 4 * (lane >> 4)));
   const B* bf = reinterpret_cast<const B*>(qf) + lane;
   constexpr int NACC = F32 ? 3 : 1;  // float32: hi*hi, lo*hi, hi*lo
-  S acc[2][NACC][NQ][4];
+  constexpr int NSET = NQ >= 4 ? 1 : 2;
+  S acc[NSET][NACC][NQ][4];
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
+  for (int p = 0; p < NSET; ++p)
 #pragma unroll
     for (int i = 0; i < NACC; ++i)
 #pragma unroll
@@ -271,6 +277,7 @@ __device__ __forceinline__ void tile_mma(const uint32_t* rows16, int stride, int
   };
   auto kstep = [&](int ks, auto parity) {
     constexpr int p = decltype(parity)::value;
+    constexpr int ps = p % NSET;  // this K step's accumulator set
     if (ks + 1 < ksteps) load(ks + 1, std::integral_constant<int, 1 - p>());
     if constexpr (F32) {
       uint32_t hi[4], lo[4];
@@ -280,14 +287,14 @@ __device__ __forceinline__ void tile_mma(const uint32_t* rows16, int stride, int
 #pragma unroll
       for (int nq = 0; nq < NQ; ++nq) {
         const uint4 q = b[p][nq];  // hi0 hi1 lo0 lo1
-        mma_tf32(acc[p][1][nq], lo, q.x, q.y);
-        mma_tf32(acc[p][2][nq], hi, q.z, q.w);
-        mma_tf32(acc[p][0][nq], hi, q.x, q.y);
+        mma_tf32(acc[ps][1][nq], lo, q.x, q.y);
+        mma_tf32(acc[ps][2][nq], hi, q.z, q.w);
+        mma_tf32(acc[ps][0][nq], hi, q.x, q.y);
       }
     } else {
 #pragma unroll
       for (int nq = 0; nq < NQ; ++nq)
-        Mma<T>::step(acc[p][0][nq], a[p], b[p][nq].x, b[p][nq].y);
+        Mma<T>::step(acc[ps][0][nq], a[p], b[p][nq].x, b[p][nq].y);
     }
   };
   load(0, std::integral_constant<int, 0>());
@@ -302,12 +309,19 @@ __device__ __forceinline__ void tile_mma(const uint32_t* rows16, int stride, int
   for (int nq = 0; nq < NQ; ++nq)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      if constexpr (F32)  // the small terms first, then the large ones
-        dot[nq][c] = ((acc[0][1][nq][c] + acc[1][1][nq][c]) +
-                      (acc[0][2][nq][c] + acc[1][2][nq][c])) +
-                     (acc[0][0][nq][c] + acc[1][0][nq][c]);
-      else
-        dot[nq][c] = acc[0][0][nq][c] + acc[1][0][nq][c];
+      if constexpr (NSET == 2) {
+        if constexpr (F32)  // the small terms first, then the large ones
+          dot[nq][c] = ((acc[0][1][nq][c] + acc[1][1][nq][c]) +
+                        (acc[0][2][nq][c] + acc[1][2][nq][c])) +
+                       (acc[0][0][nq][c] + acc[1][0][nq][c]);
+        else
+          dot[nq][c] = acc[0][0][nq][c] + acc[1][0][nq][c];
+      } else {
+        if constexpr (F32)
+          dot[nq][c] = (acc[0][1][nq][c] + acc[0][2][nq][c]) + acc[0][0][nq][c];
+        else
+          dot[nq][c] = acc[0][0][nq][c];
+      }
     }
 }
 

@@ -17,28 +17,31 @@
 //     it beats it, at most k rounds;
 //   * at the end the running k leave in ascending order.
 //
-// What bounds it on this card: fp32 FMA throughput, as the rank kernel (at
-// 1M x 128 and 1000 queries, 2.6e11 flop against a 512 MB corpus read).
-// The TPU grid walks the corpus tiles of a query block in sequence; Hopper
-// blocks run in parallel, so, as in the rank kernel, the corpus is cut into
-// `splits` ranges (enough blocks to fill 132 SMs at m = 1000), each block
-// keeps the running top-k of its 32 queries over its range, and a second
-// pass (knn_common.cuh: split_merge_kernel) merges the splits' ascending
-// lists by (distance, id).  A block computes a 32-query x 128-row tile of
-// dot products with the rank kernel's tile_dots; warp w holds the 128
-// distances of its queries 4w..4w+3 in registers (4 per lane), tests the
-// tile's minimum against the running worst with one warp reduction, and
-// runs the replace-the-worst rounds itself, so distances never pass
-// through shared memory.
+// What bounds it on this card: as the rank kernel (at 1M x 128 and 1000
+// queries, 2.6e11 flop against a 512 MB corpus read; on the tensor cores
+// the L2 reads of the corpus once per 32-query block and the MMAs' operand
+// issue).  The TPU grid walks the corpus tiles of a query block in
+// sequence; Hopper blocks run in parallel, so, as in the rank kernel, the
+// corpus is cut into `splits` ranges, each block keeps the running top-k
+// of its 32 queries over its range, and a second pass (knn_common.cuh:
+// split_merge_kernel) merges the splits' ascending lists by (distance,
+// id).  A block runs the rank kernel's tile loop (knn_tile.cuh: cp.async
+// ring, tensor-core dot products through knn_mma.cuh:tile_mma); the ring
+// also brings each tile's slice of pn, and the multiplying warps write the
+// distances into S.  Warp w reads the 128 distances of its queries
+// 4w..4w+3 from S (4 per lane), tests the tile's minimum against the
+// running worst with one warp reduction, and runs the replace-the-worst
+// rounds itself.
 //
-// Precision: every tier computes the dot product in IEEE fp32 on the CUDA
-// cores; bf16/f16 corpora are widened as staged and the queries rounded to
-// the corpus's type first; int8 multiplies int8-quantised queries in int32.
+// Precision: every tier computes what "highest" computes: float32 dots in
+// three TF32 passes with fp32 accumulation (ranks as IEEE fp32 does),
+// bf16 / f16 at storage width with queries rounded to the corpus's type,
+// int8 in int32 (exact); see exact_knn.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
 
-#include "knn_common.cuh"
+#include "knn_tile.cuh"
 
 namespace {
 
@@ -46,62 +49,66 @@ using namespace knn;
 
 constexpr int MAX_SPLITS = 32;
 
+// The rescan merge's selection step: unsorted running lists rd/ri [QB][k]
+// in shared memory; warp w owns queries QPW w .. QPW w + QPW - 1 and keeps
+// their running worst (wd, ws), |q|^2 and excluded id in registers.
 template <typename T>
-__global__ void __launch_bounds__(NT)
-rescan_merge_kernel(const T* __restrict__ pts, const float* __restrict__ q,
-                    const float* __restrict__ qn, const float* __restrict__ pn,
-                    const int* __restrict__ excl, int n, int d, int m, int k,
-                    int tiles_per_split, int splits,
-                    float* __restrict__ part_d, int* __restrict__ part_i) {
-  using S = typename Tr<T>::S;
-  extern __shared__ __align__(16) unsigned char smem[];
-  S* Qs = reinterpret_cast<S*>(smem);                    // [DC][QB]
-  S* Ps = Qs + DC * QB;                                  // [DC][PS]
-  S* Pn = Ps + DC * PS;                                  // [TN] (unused: norms are pn)
-  float* rd = reinterpret_cast<float*>(Pn + TN);         // [QB][k]
-  int* ri = reinterpret_cast<int*>(rd + QB * k);         // [QB][k]
+struct RescanSelect {
+  using S_t = typename Tr<T>::S;
+  static constexpr bool PN = true;      // pn's slice of each tile rides in the ring
+  static constexpr bool NORMS = false;
+  static size_t state_bytes(int k) { return (sizeof(float) + sizeof(int)) * (size_t)tile::QB * k; }
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * QB;
-  const int split = blockIdx.y;
-  const long long lo = (long long)split * tiles_per_split * TN;
-  const long long hi_ll = lo + (long long)tiles_per_split * TN;
-  const int hi = (int)(hi_ll < n ? hi_ll : n);
+  float* rd;
+  int* ri;
+  int q0, m, k, warp, lane;
+  float* part_d;
+  int* part_i;
+  float wd[tile::QPW], qnv[tile::QPW];
+  int ws[tile::QPW], ex[tile::QPW];
+  float qnl[tile::NQ][2];  // |q|^2 of this lane's C-fragment queries
 
-  for (int e = tid; e < QB * k; e += NT) { rd[e] = pos_inf(); ri[e] = ID_NONE; }
-  // warp w owns queries q0 + 4w + i: their running worst, |q|^2, exclusion
-  float wd[4], qnv[4];
-  int ws[4], ex[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * warp + i;
-    wd[i] = pos_inf();
-    ws[i] = 0;
-    qnv[i] = qi < m ? qn[qi] : 0.0f;
-    ex[i] = (excl && qi < m) ? excl[qi] : -1;
-  }
-  __syncthreads();
-
-  for (int t0 = (int)lo; t0 < hi; t0 += TN) {
-    S acc[4][4];
-    tile_dots<T>(pts, q, q0, m, d, t0, hi, Qs, Ps, Pn, acc);
-    float pnv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = t0 + lane + 32 * j;
-      pnv[j] = row < hi ? pn[row] : 0.0f;
+  __device__ RescanSelect(const tile::TiledArgs& a, unsigned char* state, int q0_)
+      : rd(reinterpret_cast<float*>(state)),
+        ri(reinterpret_cast<int*>(state) + tile::QB * a.k), q0(q0_), m(a.m), k(a.k),
+        warp(threadIdx.x >> 5), lane(threadIdx.x & 31), part_d(a.part_d), part_i(a.part_i) {
+    for (int e = threadIdx.x; e < tile::QB * k; e += blockDim.x) {
+      rd[e] = pos_inf();
+      ri[e] = ID_NONE;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qq = 4 * warp + i;
+    for (int i = 0; i < tile::QPW; ++i) {
+      const int qi = q0 + tile::QPW * warp + i;
+      wd[i] = pos_inf();
+      ws[i] = 0;
+      qnv[i] = qi < m ? a.qn[qi] : 0.0f;
+      ex[i] = (a.excl && qi < m) ? a.excl[qi] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < tile::NQ; ++j)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int qi = q0 + MMA_QUERIES * j + 2 * (lane & 3) + b;
+        qnl[j][b] = qi < m ? a.qn[qi] : 0.0f;
+      }
+  }
+
+  __device__ float score(S_t dot, S_t, float pn, int j, int b) const {
+    return (qnl[j][b] + pn) - 2.0f * (float)dot;
+  }
+
+  __device__ void select(const float* S, int t0, int hi) {
+#pragma unroll
+    for (int i = 0; i < tile::QPW; ++i) {
+      const int qq = tile::QPW * warp + i;
       if (q0 + qq >= m) break;
       float v[4];
       float tmin = pos_inf();
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int row = t0 + lane + 32 * j;
-        v[j] = (row < hi && row != ex[i]) ? (qnv[i] + pnv[j]) - 2.0f * (float)acc[i][j]
-                                          : pos_inf();
+        // rows past the tile's end hold what an earlier tile left
+        v[j] = (row < hi && row != ex[i]) ? S[qq * tile::SS + lane + 32 * j] : pos_inf();
         tmin = fminf(tmin, v[j]);
       }
 #pragma unroll
@@ -111,37 +118,25 @@ rescan_merge_kernel(const T* __restrict__ pts, const float* __restrict__ q,
         replace_worst(v, t0, rd + qq * k, ri + qq * k, k, wd[i], ws[i], lane);
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qq = 4 * warp + i;
-    const int qi = q0 + qq;
-    if (qi >= m) break;
-    const long long o = ((long long)qi * splits + split) * k;
-    extract_sorted(rd + qq * k, ri + qq * k, k, lane, part_d + o, part_i + o, 1.0f, ID_NONE);
-  }
-}
 
-template <typename T>
-size_t rescan_merge_smem(int k) {
-  using S = typename Tr<T>::S;
-  return sizeof(S) * (DC * QB + DC * PS + TN) + (sizeof(float) + sizeof(int)) * (size_t)QB * k;
-}
+  __device__ void finish(int split, int splits) {
+#pragma unroll
+    for (int i = 0; i < tile::QPW; ++i) {
+      const int qq = tile::QPW * warp + i;
+      const int qi = q0 + qq;
+      if (qi >= m) break;
+      const long long o = ((long long)qi * splits + split) * k;
+      extract_sorted(rd + qq * k, ri + qq * k, k, lane, part_d + o, part_i + o, 1.0f, ID_NONE);
+    }
+  }
+};
 
 template <typename T>
 int launch(const void* pts, const float* q, const int* excl, const float* qn, const float* pn,
            int n, int d, int m, int k, int splits, float* part_d, int* part_i,
            float* out_d, int* out_i, float scale2, cudaStream_t stream) {
-  const int n_tiles = (n + TN - 1) / TN;
-  const int tps = (n_tiles + splits - 1) / splits;
-  const size_t smem = rescan_merge_smem<T>(k);
-  cudaError_t err = cudaFuncSetAttribute(rescan_merge_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((m + QB - 1) / QB, splits);
-  rescan_merge_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(pts), q, qn, pn, excl, n, d, m, k, tps, splits, part_d, part_i);
-  err = cudaGetLastError();
+  tile::TiledArgs a{pts, q, qn, pn, excl, n, d, m, k, 0, 0, 0, part_d, part_i};
+  cudaError_t err = tile::launch_tiled<T, RescanSelect<T>>(a, splits, stream);
   if (err != cudaSuccess) return (int)err;
   // the lists hold distances already: no |q|^2 to add
   return (int)launch_split_merge(part_d, part_i, nullptr, n, m, k, splits, scale2, out_d,
@@ -153,15 +148,16 @@ int launch(const void* pts, const float* q, const int* excl, const float* qn, co
 extern "C" {
 
 // device: the CUDA ordinal of every pointer.  dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers;
-// excl may be null.  qn (m,) and pn (n,) are float32; part_d/part_i hold
+// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers,
+// pts and pn 16-byte aligned; excl may be null.  qn (m,) and pn (n,) are float32; part_d/part_i hold
 // m * splits * k entries, out_d/out_i m * k.  Returns the CUDA error code
 // (0 = launched).
 int exact_knn_rescan_launch(int device, const void* pts, int dtype, const float* q,
                             const int* excl, const float* qn, const float* pn, int n, int d,
                             int m, int k, int splits, float* part_d, int* part_i,
                             float* out_d, int* out_i, float scale2, void* stream) {
-  if (k < 1 || k > knn::KMAX || splits < 1 || splits > MAX_SPLITS || n < 1 || d < 1 || m < 1)
+  if (k < 1 || k > knn::KMAX || splits < 1 || splits > MAX_SPLITS || n < 1 || d < 1 || m < 1 ||
+      reinterpret_cast<uintptr_t>(pts) % 16 || reinterpret_cast<uintptr_t>(pn) % 16)
     return (int)cudaErrorInvalidValue;
   // this library carries its own CUDA runtime: select the caller's device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -175,6 +171,10 @@ int exact_knn_rescan_launch(int device, const void* pts, int dtype, const float*
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// queries per block and corpus rows per tile (the rank kernel's)
+int rescan_merge_knn_query_block() { return knn::tile::QB; }
+int rescan_merge_knn_tile_rows() { return knn::TN; }
 
 const char* rescan_merge_knn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

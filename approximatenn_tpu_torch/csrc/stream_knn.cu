@@ -55,12 +55,9 @@
 //   * the ring is as deep as fits beside the fragments and running state
 //     (2 to 8 slots of 128 rows; 64, 32 or 16 rows where d is so large that
 //     two 128-row slots do not fit: fewer warps then have rows to multiply).
-// Rows are copied one by one into the padded layout: in 16-byte units where
-// a row's bytes are a multiple of 16 (d a multiple of 4 floats, 8 halves, 16
-// int8; the caller aligns the corpus base to 16 bytes), else in 4-byte units
-// where they are a multiple of 4 (any other d in float32, even d in halves,
-// d a multiple of 4 in int8), else (odd d in halves, other d in int8) by
-// plain byte loads and stores, which the copying warps wait for.
+// Rows are copied one by one into the padded layout by the copy routine the
+// rank kernel and the rescan merge share (knn_tile.cuh: TileCopy), which
+// also zeroes each row's bytes up to its last whole K step.
 //
 // Precision: float32 dots are 3xTF32 with fp32 accumulation (see
 // knn_mma.cuh), within fp32 summation error of the IEEE dot product; bf16 /
@@ -70,7 +67,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
 
-#include "knn_mma.cuh"
+#include "knn_tile.cuh"
 
 namespace {
 
@@ -82,40 +79,7 @@ constexpr int NP = 8;                     // copying warps, after the NW multipl
 constexpr int NPT = 32 * NP;              // copying threads
 constexpr int NTS = NT + NPT;             // threads per block
 constexpr int MAX_BUF = 8;                // deepest ring
-constexpr int SMEM_MAX = 232448;          // dynamic shared memory a block may use
 static_assert(QBW == NW, "a multiplying warp merges one query");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Wait until at most `pending` of this thread's copy groups are in flight.
-__device__ __forceinline__ void cp_async_wait_pending(int pending) {
-  switch (pending) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    default: cp_async_wait<6>(); break;
-  }
-}
 
 // tr: corpus rows per ring slot (128, 64, 32 or 16).  Warps 0..NW-1 multiply
 // and merge; warps NW..NW+NP-1 copy.
@@ -143,13 +107,8 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   const int n_tiles = (n + tr - 1) / tr;
   const unsigned char* src = reinterpret_cast<const unsigned char*>(pts);
 
-  // A tile is rows x row_bytes contiguous bytes of the corpus; unit e of it
-  // goes to row e / upr, unit e % upr of the slot.  A copier takes units
-  // ctid, ctid + NPT, ...: (row0, u0) is its first, (drow, du) its step.
   const int row_bytes = d * (int)sizeof(T);
-  const int unit = row_bytes % 16 == 0 ? 16 : (row_bytes % 4 == 0 ? 4 : 1);
-  const int upr = row_bytes / unit;
-  const int row0 = ctid / upr, u0 = ctid % upr, drow = NPT / upr, du = NPT % upr;
+  const TileCopy tc(row_bytes, stride, ctid, NPT);
 
   // tile t (rows [t tr, min((t + 1) tr, n))) and its norms into slot
   // t % n_buf, and one commit group, empty past the last tile (wait counts
@@ -159,20 +118,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       const int slot = t % n_buf;
       const long long r0 = (long long)t * tr;
       const int rows = (n - r0) < tr ? (int)(n - r0) : tr;
-      unsigned char* dst = reinterpret_cast<unsigned char*>(ring + slot * slot_words);
-      const unsigned char* s = src + r0 * row_bytes;
-      const int units = rows * upr;
-      int row = row0, u = u0;
-      for (int e = ctid; e < units; e += NPT) {
-        unsigned char* to = dst + (row * stride) * 4 + u * unit;
-        const unsigned char* from = s + (long long)e * unit;
-        if (unit == 16) cp_async16(to, from);
-        else if (unit == 4) cp_async4(to, from);
-        else *to = *from;
-        row += drow;
-        u += du;
-        if (u >= upr) { u -= upr; ++row; }
-      }
+      tc.copy(ring + slot * slot_words, src, r0, rows, 0, row_bytes, 4 * KSTEP_WORDS * ksteps);
       if (ctid < rows) cp_async4(pn_ring + slot * tr + ctid, pn + r0 + ctid);
     }
     cp_async_commit();
@@ -181,15 +127,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   if (copier)
     for (int t = 0; t < n_buf - 1; ++t) copy_tile(t);
 
-  // bytes from a row's end to its last whole K step are zero in every slot;
-  // no copy writes them
-  {
-    const int pad = 4 * KSTEP_WORDS * ksteps - row_bytes;
-    unsigned char* base = reinterpret_cast<unsigned char*>(ring);
-    for (int e = tid; e < n_buf * tr * pad; e += NTS)
-      base[(e / pad) * stride * 4 + row_bytes + e % pad] = 0;
-  }
-  stage_query_fragments<T, 1>(q, q0, m, d, ksteps, qf);
+  stage_query_fragments<T, 1>(q, q0, m, d, 0, ksteps, qf, tid, NTS);
   for (int e = tid; e < QBW * k; e += NTS) { rd[e] = pos_inf(); ri[e] = ID_NONE; }
   // a multiplying warp merges query q0 + warp
   const int qi = q0 + warp;

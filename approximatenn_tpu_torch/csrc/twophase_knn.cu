@@ -23,7 +23,7 @@
 //   * emit does the rank kernel's 2*m*n*d fp32 products (2.6e11 flop at
 //     1M x 128, m = 1000) against one corpus read (512 MB) and an output of
 //     m * n/seg pairs: fp32 FMA throughput sets its time.  It runs the
-//     rank kernel's tiled dot product (knn_common.cuh tile_dots: 32-query x
+//     tiled CUDA-core dot product (knn_common.cuh tile_dots: 32-query x
 //     128-row tiles staged in shared memory, a 4x4 register tile of dot
 //     products per thread) and swaps the
 //     top-k insert for a segment min/argmin taken straight from the

@@ -19,7 +19,8 @@ real candidates; optional per-query ``exclude`` id; f32, bf16, f16 or int8
 2 q.x`` and the streaming kernel ``|q|^2 - (2 q.x - pn)``, both with norms
 ``pn`` precomputed in float32 from the unrounded corpus, as on the TPU.
 The corpus streams at ``compute_dtype`` when one is given (int8 ignores
-it), else at its stored width; a bf16/f16 stream multiplies queries rounded
+it), else at its stored width, and all three kernels multiply on the
+tensor cores at that width; a bf16/f16 stream multiplies queries rounded
 to its dtype; an int8 corpus multiplies queries quantised with its own
 scale (``round(q / scale)`` clipped to [-127, 127]) and distances come back
 times scale^2.  ``|q|^2`` always comes from the unrounded float32 queries.
@@ -44,8 +45,6 @@ from ..config import default_device, itype
 
 KMAX = 128
 _MAX_SPLITS = 32
-_QB = 32  # queries per block in the kernel (csrc/exact_knn.cu: QB)
-_TN = 128  # corpus rows per tile (csrc/exact_knn.cu: TN)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
 _PRECISIONS = ("highest", "split3", "default")
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -69,7 +68,8 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
     "exact_knn": {"exact_knn_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _ci, _ci, _ci,
                                        _ci, _ci, _vp, _vp, _vp, _vp, ctypes.c_float,
-                                       _vp]},
+                                       _vp],
+                  "exact_knn_query_block": [], "exact_knn_tile_rows": []},
     "twophase_knn": {
         "twophase_emit_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                  _ci, _vp, _vp, _vp],
@@ -80,7 +80,8 @@ _ENTRY_POINTS = {
                                         _ci, _ci, _ci, _vp, _vp, _vp]},
     "rescan_merge_knn": {"exact_knn_rescan_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _vp, _ci,
                                                      _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
-                                                     ctypes.c_float, _vp]},
+                                                     ctypes.c_float, _vp],
+                         "rescan_merge_knn_query_block": [], "rescan_merge_knn_tile_rows": []},
     "stream_knn": {"exact_knn_stream_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _vp, _ci, _ci,
                                                _ci, _ci, _vp, _vp, ctypes.c_float, _vp]},
 }
@@ -281,15 +282,30 @@ def _round_queries(pts: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return q.to(pts.dtype).float() if pts.dtype in (torch.bfloat16, torch.float16) else q
 
 
-def splits(m: int, n: int, device, cap: int = _MAX_SPLITS) -> int:
-    """Corpus splits of a 32-query x 128-row tiled kernel: enough blocks to
-    fill the card (about four resident blocks per SM) when there are few
-    query blocks."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_blocks = -(-m // _QB)
-    n_tiles = -(-n // _TN)
-    want = -(-4 * sms // q_blocks)
-    return max(1, min(cap, n_tiles, want))
+def splits(m: int, n: int, sms: int, query_block: int, tile_rows: int,
+           cap: int = _MAX_SPLITS) -> int:
+    """Corpus splits of the rank kernel and the rescan merge on a card of
+    ``sms`` SMs.  A block (``query_block`` queries, the corpus in
+    ``tile_rows``-row tiles) fills an SM's shared memory, so the ceil(m /
+    query_block) x s blocks run in ceil(blocks / sms) waves: the fewest s
+    (at most ``cap`` and the corpus's tiles) whose waves keep at least 7/8
+    of the SMs busy, else the s that keeps the most busy."""
+    q_blocks = -(-m // query_block)
+    n_tiles = -(-n // tile_rows)
+
+    def busy(s):
+        return q_blocks * s / (-(-q_blocks * s // sms) * sms)
+
+    cands = range(1, max(1, min(cap, n_tiles)) + 1)
+    return next((s for s in cands if busy(s) >= 7 / 8), max(cands, key=busy))
+
+
+def tile_geometry(name: str = "exact_knn") -> tuple[int, int]:
+    """(queries per block, corpus rows per tile) of the rank kernel
+    (``name="exact_knn"``) or the rescan merge (``"rescan_merge_knn"``),
+    read from the built library."""
+    lib = _library(name)
+    return getattr(lib, f"{name}_query_block")(), getattr(lib, f"{name}_tile_rows")()
 
 
 def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
@@ -303,10 +319,10 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     (``stream=True``, which takes precedence over ``merge``).  Returns
     (ids (m, k) int32, squared distances (m, k) float32).
     ``matmul_precision`` is validated; every tier computes what "highest"
-    computes: IEEE fp32 on the CUDA cores in the rank and rescan-merge
-    kernels, three TF32 passes with fp32 accumulation on the tensor cores
-    in the streaming kernel (which ranks as IEEE fp32 does; see the kernel
-    sources).  ``compute_dtype`` (torch.float32, bfloat16
+    computes: in all three kernels, on the tensor cores, three TF32 passes
+    with fp32 accumulation for a float32 stream (which ranks as IEEE fp32
+    does), one pass at storage width for bf16 and f16 (queries rounded to
+    it), int8 in int32 (see the kernel sources).  ``compute_dtype`` (torch.float32, bfloat16
     or float16) is the width the corpus streams at; see the module
     docstring for the norms each kernel takes.  The JAX kernels' TPU knobs
     (``tile``, ``query_block``, ``interpret``) raise ``ValueError``.
@@ -342,15 +358,12 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
         return stream_cuda(points, queries, k, exclude=exclude, scale=scale,
                            compute_dtype=compute_dtype)
     if kernel == "rescan":
-        lib = _library("rescan_merge_knn")
         pts, q, qn, pn, scale2 = _replace_worst_inputs(points, queries, scale, compute_dtype)
-        return _split_launch(lib, lib.exact_knn_rescan_launch, "exact_knn_rescan", pts, q, qn,
-                             pn, k, exclude, scale2)
-    lib = _library("exact_knn")
+        return _split_launch("rescan_merge_knn", "exact_knn_rescan", pts, q, qn, pn, k,
+                             exclude, scale2)
     pts = compute_corpus(points, compute_dtype)
     q, qn, scale2 = _prepare(pts, queries, scale)
-    return _split_launch(lib, lib.exact_knn_launch, "exact_knn", pts, q, qn, None, k, exclude,
-                         scale2)
+    return _split_launch("exact_knn", "exact_knn", pts, q, qn, None, k, exclude, scale2)
 
 
 def _empty(k: int, dev):
@@ -358,18 +371,23 @@ def _empty(k: int, dev):
             torch.empty((0, k), dtype=torch.float32, device=dev))
 
 
-def _split_launch(lib, launch, key: str, pts, q, qn, pn, k: int, exclude, scale2):
-    """Launch a corpus-split kernel of ``lib``: the rank kernel
-    (``launch = exact_knn_launch``, ``pn`` None) or the rescan merge
-    (``exact_knn_rescan_launch``, which takes the point norms ``pn`` after
-    ``qn``); per (32-query block, corpus split) a running top-k, then a
-    merge of the splits' ascending lists."""
+def _split_launch(name: str, key: str, pts, q, qn, pn, k: int, exclude, scale2):
+    """Launch the corpus-split kernel of library ``name``: the rank kernel
+    (``"exact_knn"``, ``pn`` None) or the rescan merge
+    (``"rescan_merge_knn"``, which takes the point norms ``pn`` after
+    ``qn``); per (query block, corpus split) a running top-k, then a merge
+    of the splits' ascending lists."""
     n, d = pts.shape
     m = q.shape[0]
     dev = pts.device
     if m == 0:
         return _empty(k, dev)
-    s = splits(m, n, dev)
+    # rows are copied in 16-byte units where their width allows
+    if pts.data_ptr() % 16:
+        pts = pts.clone()
+    lib = _library(name)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s = splits(m, n, sms, *tile_geometry(name))
     part_d = torch.empty((m, s, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((m, s, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
@@ -378,7 +396,10 @@ def _split_launch(lib, launch, key: str, pts, q, qn, pn, k: int, exclude, scale2
             exclude.data_ptr() if exclude is not None else None, qn.data_ptr())
     tail = (n, d, m, k, s, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), scale2, torch.cuda.current_stream(dev).cuda_stream)
-    err = launch(*head, *tail) if pn is None else launch(*head, pn.data_ptr(), *tail)
+    if pn is None:
+        err = lib.exact_knn_launch(*head, *tail)
+    else:
+        err = lib.exact_knn_rescan_launch(*head, pn.data_ptr(), *tail)
     if err != 0:
         raise launch_error(lib, key, err)
     launches[key] += 1

@@ -21,13 +21,16 @@ Phases, one line each, and a non-zero exit on the first failure:
    1, d = 96, bf16, f16, int8 (the main shape is checked in step 4).
    Rescan-merge and streaming kernels: the rank kernel's degenerate set
    plus d = 33 and m = 37, ``compute_dtype=torch.bfloat16`` on an f32
-   corpus (the rank kernel too), and the serving shape.  The streaming
-   kernel (tensor-core dot products) also: one-hot integer rows that show a
-   wrong fragment index (f32 and bf16, ids and distances exact), d = 256 and
-   768 (smaller ring slots), the float64 oracle at the serving shape
-   (recall@10 up to ties 1.0 in f32), its times beside the library call's
-   and the bound, its effective L2 read rate, and the times of builds with
-   16 queries a block, without the MMAs and without the copies;
+   corpus (the rank kernel too), and the serving shape.  Rank and rescan
+   merge also d = 33, 256, 960 and 2,048 (feature chunks past d = 128 in
+   f32) with k = 1 and 128, m = 1 and 37, ``exclude``, bf16, f16 and int8;
+   the stream d = 256 and 768 (smaller ring slots).  All three
+   (tensor-core dot products): one-hot integer rows that show a wrong
+   fragment index (f32 and bf16, ids and distances exact), the float64
+   oracle at the serving shape (recall@10 up to ties 1.0 in f32), their
+   times beside the library call's (f32 and bf16), the bound and their
+   three TF32 passes' tensor-core time, and the stream's effective L2
+   read rate;
 3. the main path at the SIFT-1M shape (n = 1M x d = 128 float32 from
    ``--seed``, 1000 queries, k = 10, tries = 10), each path with the launch
    counts set to 0 just before it and read just after: ``build`` (exact kNN
@@ -184,28 +187,62 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_stream_layout(dev) -> None:
-    """The streaming kernel's fragment layout: one-hot integer rows (row r
-    holds 1 + r // d in feature r % d) against unit-vector queries, so that
-    a wrong row, feature or query index of any element shows, which random
-    data hides.  Every product is exact in every type, so ids and distances
-    must equal the plain version's (on the kernel's 128-row tiles, which
-    decide the ids kept among equal distances) bit for bit."""
+def plain_by_splits(pts, q, k, n_splits, exclude=None):
+    """The rescan merge's plain version as the kernel's grid runs it: the
+    corpus in ``n_splits`` ranges of whole 128-row tiles, each walked on
+    its own at 128-row tiles, then the ranges' lists merged by (distance,
+    id).  Among equal distances the replace-the-worst merge keeps ids by
+    the order it meets them, so this is what the kernel must equal."""
+    n = pts.shape[0]
+    tps = -(-(-(-n // 128)) // n_splits) * 128
+    ids, dists = [], []
+    for lo in range(0, n, tps):
+        e = None if exclude is None else exclude - lo
+        i, dd = ex.exact_knn_rescan_plain(pts[lo: lo + tps], q, k, exclude=e, tile=128)
+        ids.append(torch.where(i < min(tps, n - lo), i + lo, n))
+        dists.append(dd)
+    ids, dists = torch.cat(ids, 1), torch.cat(dists, 1)
+    order = torch.sort(ids, dim=1, stable=True).indices
+    ids, dists = ids.gather(1, order), dists.gather(1, order)
+    order = torch.sort(dists, dim=1, stable=True).indices[:, :k]
+    return ids.gather(1, order).to(torch.int32), dists.gather(1, order)
+
+
+def check_tile_layout(dev) -> None:
+    """The fragment layout of the three tensor-core kernels (rank, rescan
+    merge, stream): one-hot integer rows (row r holds 1 + r // d in feature
+    r % d) against unit-vector queries, so that a wrong row, feature or
+    query index of any element shows, which random data hides.  Every
+    product is exact in every type, so ids and distances must equal the
+    plain version's bit for bit: the rank kernel's (ties by id), the
+    stream's on the kernel's 128-row tiles and the rescan merge's on its
+    tiles and corpus splits (which decide the ids kept among equal
+    distances)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, d in ((1000, 128), (700, 33)):
         r = torch.arange(n, device=dev)
         X = torch.zeros((n, d), device=dev)
         X[r, r % d] = (1 + r // d).float()
         Y = torch.eye(d, device=dev)
-        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            for k in (10, 128):
-                ia, da = ex.exact_knn(X.to(dt), Y, k, stream=True)
-                ib, db = ex.exact_knn_stream_plain(X.to(dt), Y, k, tile=128)
-                fence()
-                if not (torch.equal(ia, ib) and torch.equal(da, db)):
-                    raise AssertionError(f"stream layout {label} n={n} d={d} k={k}: ids or "
-                                         "distances differ from the plain version's")
-        phase("kernel", f"stream fragment layout n={n} d={d} m={d} k=10,128 f32 bf16: ids "
-                        "and distances equal to the plain version's (max_abs_err 0)")
+        excl = torch.arange(d, dtype=torch.int32, device=dev)
+        for kern in ("rank", "rescan", "stream"):
+            for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                for k, e in ((10, None), (10, excl), (128, None)):
+                    ia, da = ex.exact_knn(X.to(dt), Y, k, exclude=e, **VARIANTS[kern][0])
+                    if kern == "rank":
+                        ib, db = ex.exact_knn_plain(X.to(dt), Y, k, exclude=e)
+                    elif kern == "rescan":
+                        s = ex.splits(d, n, sms, *ex.tile_geometry("rescan_merge_knn"))
+                        ib, db = plain_by_splits(X.to(dt), Y, k, s, exclude=e)
+                    else:
+                        ib, db = ex.exact_knn_stream_plain(X.to(dt), Y, k, exclude=e, tile=128)
+                    fence()
+                    if not (torch.equal(ia, ib) and torch.equal(da, db)):
+                        raise AssertionError(f"{kern} layout {label} n={n} d={d} k={k}: ids or "
+                                             "distances differ from the plain version's")
+            phase("kernel", f"{kern} fragment layout n={n} d={d} m={d} k=10,128 exclude f32 "
+                            "bf16: ids and distances equal to the plain version's "
+                            "(max_abs_err 0)")
 
 
 def near_tie_ok(points, q, ids_a, ids_b, rtol=1e-5) -> bool:
@@ -504,8 +541,10 @@ def main() -> None:
                        reps=1, warmup=0)
     chunk_bound, chunk_by = bound(2.0 * GRAPH_CHUNK * N * 128,
                                   4.0 * (N * 128 + GRAPH_CHUNK * 129) + 8.0 * GRAPH_CHUNK * 10)
+    chunk_b3 = 1e3 * 3 * 2.0 * GRAPH_CHUNK * N * 128 / PEAK_TF32
     phase("kernel", f"time graph chunk n={N} m={GRAPH_CHUNK} k=10: kernel {chunk_ms:.3f} ms, "
-                    f"bound {chunk_bound:.3f} ms ({chunk_by})")
+                    f"bound {chunk_bound:.3f} ms ({chunk_by}), 3xTF32 {chunk_b3:.3f} ms (three "
+                    f"TF32 passes at the tensor cores' dense peak)")
     Xb = X.to(torch.bfloat16)
     check_case(f"bf16 main shape n={N} m={M} k=10", Xb, Y, 10, rtol=1e-3)
     kern_ms = cuda_ms(lambda: ex.exact_knn(X, Y, 10), reps=10)
@@ -590,18 +629,35 @@ def main() -> None:
                    rtol=1e-3, kernel=kern)
         errs[VARIANTS[kern][2]] = check_case(f"main shape n={N} m={M} k=10", X, Y, 10,
                                              kernel=kern)
-    check_stream_layout(dev)
-    # the stream's dot products are three TF32 passes, not the plain
-    # version's IEEE fp32: hold it to the float64 oracle directly as well
+    # rank and rescan merge at any d: one feature chunk up to d = 128 in
+    # f32, several past it
+    for dd in (33, 256, 960, 2048):
+        xd, qd = randn(20_011, dd), randn(37, dd)
+        ed = torch.arange(37, dtype=torch.int32, device=dev)
+        xd8, sd8 = ex.quantize_corpus(xd)
+        for kern in ("rank", "rescan"):
+            check_case(f"d={dd} n=20011 m=37 k=128", xd, qd, 128, kernel=kern)
+            check_case(f"d={dd} n=20011 m=37 k=1 exclude", xd, qd, 1, exclude=ed, kernel=kern)
+            check_case(f"d={dd} n=20011 m=1 k=10 exclude", xd, qd[:1].contiguous(), 10,
+                       exclude=ed[:1], kernel=kern)
+            for label, pts, sc, rtol in (("bf16", xd.to(bf16), None, 1e-3),
+                                         ("f16", xd.to(torch.float16), None, 1e-3),
+                                         ("int8", xd8, float(sd8), 1e-5)):
+                check_case(f"{label} d={dd} n=20011 m=37 k=128 exclude", pts, qd, 128,
+                           exclude=ed, scale=sc, rtol=rtol, kernel=kern)
+    check_tile_layout(dev)
+    # the tensor-core kernels' dot products are three TF32 passes, not the
+    # plain versions' IEEE fp32: hold them to the float64 oracle directly
     X64, Y64 = X.double(), Y.double()
     true_s = oracle64(X64, Y64, 10)
-    for label, pts in (("f32", X), ("bf16 stored", Xb)):
-        s_ids, _ = ex.exact_knn(pts, Y, 10, stream=True)
-        rec, tie = recall_up_to_ties(X64, Y64, s_ids, true_s, 10)
-        phase("kernel", f"stream {label} n={N} m={M} k=10 vs f64 oracle: recall@10 {rec:.4f} "
-                        f"(up to ties {tie:.4f})")
-        if label == "f32" and tie != 1.0:
-            raise AssertionError(f"stream f32 recall up to ties {tie}, not 1.0")
+    for kern in VARIANTS:
+        for label, pts in (("f32", X), ("bf16 stored", Xb)):
+            s_ids, _ = ex.exact_knn(pts, Y, 10, **VARIANTS[kern][0])
+            rec, tie = recall_up_to_ties(X64, Y64, s_ids, true_s, 10)
+            phase("kernel", f"{kern} {label} n={N} m={M} k=10 vs f64 oracle: recall@10 "
+                            f"{rec:.4f} (up to ties {tie:.4f})")
+            if label == "f32" and tie != 1.0:
+                raise AssertionError(f"{kern} f32 recall up to ties {tie}, not 1.0")
     rescan_ms = cuda_ms(lambda: ex.exact_knn(X, Y, 10, merge="rescan"), reps=10)
     rescan_plain_ms = cuda_ms(lambda: ex.exact_knn_rescan_plain(X, Y, 10), reps=2)
     stream_ms = cuda_ms(lambda: ex.exact_knn(X, Y, 10, stream=True), reps=10)
@@ -650,26 +706,36 @@ def main() -> None:
     for name in ("exact_knn_rescan", "exact_knn_stream"):
         bounds[name] = bound(2.0 * M * N * 128,
                              4.0 * (N * 129 + M * 129) + 8.0 * M * k)
-    sb_ms = half_ms["stream bf16 stored"]
-    b32 = bounds["exact_knn_stream"][0]
-    b16 = 1e3 * max(2.0 * M * N * 128 / PEAK_BF16,
-                    (2.0 * N * 128 + 4.0 * (N + M * 129) + 8.0 * M * 10) / PEAK_BYTES)
-    # the kernel's own arithmetic: three TF32 passes on the tensor cores
+    # each kernel's f32 time against the library call, the bound and its
+    # own arithmetic (three TF32 passes on the tensor cores); its bf16
+    # stored time against the library call with a bf16 matmul and the bf16
+    # bound; every time includes the call's |q|^2 (and pn but in the rank kernel)
     b3 = 1e3 * 3 * 2.0 * M * N * 128 / PEAK_TF32
-    phase("kernel", f"stream n={N} m={M} k=10: f32 {stream_ms:.3f} ms = "
-                    f"{stream_ms / lib_ms:.3f} x library topk {lib_ms:.3f} ms = "
-                    f"{stream_ms / b32:.2f} x bound {b32:.3f} ms (the function's fp32 "
-                    f"operations at the CUDA cores' peak, where the kernel does not run them) "
-                    f"= {stream_ms / b3:.2f} x {b3:.3f} ms (its three TF32 passes at the tensor "
-                    f"cores' dense TF32 peak); bf16 stored {sb_ms:.3f} ms = "
-                    f"{sb_ms / lib_bf16_ms:.3f} x library topk (bf16 matmul) "
-                    f"{lib_bf16_ms:.3f} ms = {sb_ms / b16:.2f} x bound {b16:.3f} ms (bf16 "
-                    f"tensor-core operations); every time includes the call's point norms, "
-                    f"{norms_ms:.3f} ms alone")
-    blocks = -(-M // ex.stream_query_block())
-    phase("kernel", f"stream effective L2 read rate ({blocks} blocks x corpus bytes / kernel "
-                    f"time): f32 {blocks * 4.0 * N * 128 / stream_ms / 1e9:.3f} TB/s, bf16 "
-                    f"stored {blocks * 2.0 * N * 128 / sb_ms / 1e9:.3f} TB/s")
+    qbs = {"rank": ex.tile_geometry("exact_knn")[0],
+           "rescan": ex.tile_geometry("rescan_merge_knn")[0],
+           "stream": ex.stream_query_block()}
+    for kern, f32_ms, bf_ms in (("rank", kern_ms, kern_bf16_ms),
+                                ("rescan", rescan_ms, half_ms["rescan merge bf16 stored"]),
+                                ("stream", stream_ms, half_ms["stream bf16 stored"])):
+        b32 = bounds[VARIANTS[kern][2]][0]
+        pn_bytes = 0.0 if kern == "rank" else 4.0 * (N + M)
+        b16 = 1e3 * max(2.0 * M * N * 128 / PEAK_BF16,
+                        (2.0 * N * 128 + 4.0 * M * 128 + pn_bytes + 8.0 * M * 10) / PEAK_BYTES)
+        phase("kernel", f"{kern} n={N} m={M} k=10: f32 {f32_ms:.3f} ms = "
+                        f"{f32_ms / lib_ms:.3f} x library topk {lib_ms:.3f} ms = "
+                        f"{f32_ms / b32:.2f} x bound {b32:.3f} ms (the function's fp32 "
+                        f"operations at the CUDA cores' peak, where the kernel does not run "
+                        f"them) = {f32_ms / b3:.2f} x 3xTF32 {b3:.3f} ms (its three TF32 passes "
+                        f"at the tensor cores' dense TF32 peak); bf16 stored {bf_ms:.3f} ms = "
+                        f"{bf_ms / lib_bf16_ms:.3f} x library topk (bf16 matmul) "
+                        f"{lib_bf16_ms:.3f} ms = {bf_ms / b16:.2f} x bound {b16:.3f} ms (bf16 "
+                        f"tensor-core operations)")
+        blocks = -(-M // qbs[kern])
+        phase("kernel", f"{kern} effective L2 read rate ({blocks} query blocks x corpus bytes "
+                        f"/ kernel time): f32 {blocks * 4.0 * N * 128 / f32_ms / 1e9:.3f} TB/s, "
+                        f"bf16 stored {blocks * 2.0 * N * 128 / bf_ms / 1e9:.3f} TB/s")
+    phase("kernel", f"point norms alone (in every rescan-merge and stream time): "
+                    f"{norms_ms:.3f} ms")
     timing = {"exact_knn": (kern_ms, plain_ms, lib_ms),
               "twophase_emit": (emit_ms, emit_plain_ms, None),
               "twophase_rescan": (tp_rescan_ms, tp_rescan_plain_ms, None),

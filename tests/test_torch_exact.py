@@ -218,7 +218,17 @@ def test_kernel_matches_plain_on_card(dt, kernel):
             "rescan_merge": ("exact_knn_rescan", {"merge": "rescan"}, ex.exact_knn_rescan_plain),
             "stream": ("exact_knn_stream", {"stream": True}, ex.exact_knn_stream_plain),
         }[kernel]
-        corpora = [p]
+        runs = [(p, q, cases)]  # (corpus, queries, cases)
+        if kernel in ("rank", "rescan_merge"):
+            # any d (one feature chunk up to d = 128 in f32, several past
+            # it); m = 37 and 1, k = 1 and 128, exclude
+            for dd in (33, 256, 960, 2048):
+                raw = torch.randn(1001, dd, generator=g).to(dev)
+                if dt == "int8":
+                    raw = torch.clamp(torch.round(raw / scale), -127, 127)
+                qd = torch.randn(37, dd, generator=g).to(dev)
+                runs.append((raw.to(p.dtype), qd, [(1, excl[:37], None), (128, None, None)]))
+                runs.append((raw.to(p.dtype), qd[:1].contiguous(), [(10, excl[:1], None)]))
         if kernel == "stream":
             # d = 33 rows from an offset view (not 16-byte aligned: the
             # wrapper re-aligns a copy; rows copied in 4-byte units or byte
@@ -226,14 +236,13 @@ def test_kernel_matches_plain_on_card(dt, kernel):
             raw = torch.randn(5004, 33, generator=g).to(dev)
             if dt == "int8":
                 raw = torch.clamp(torch.round(raw / scale), -127, 127)
-            corpora.append(raw.to(p.dtype)[1:])
+            runs.append((raw.to(p.dtype)[1:], q[:, :33].contiguous(), cases))
             # even two 16-row tiles of d = 2000 f32 values overflow shared memory
             with pytest.raises(ValueError, match="shared memory"):
                 ex.exact_knn(torch.zeros(300, 2000, device=dev), torch.zeros(2, 2000, device=dev),
                              3, stream=True)
-        for pts in corpora:
-            qq = q if pts.shape[1] == 96 else q[:, :33].contiguous()
-            for k, e, cdt in cases:
+        for pts, qq, kcases in runs:
+            for k, e, cdt in kcases:
                 before = dict(ex.launches)
                 ia, da = ex.exact_knn(pts, qq, k, exclude=e, scale=scale, compute_dtype=cdt, **kw)
                 assert {name: c - before[name] for name, c in ex.launches.items() if c != before[name]} == {key: 1}
@@ -301,30 +310,107 @@ def one_hot_rows(n: int, d: int, dev):
     return corpus, torch.eye(d, device=dev)
 
 
+def plain_by_splits(plain, pts, q, k, n_splits, **kw):
+    """The rescan merge's plain version as the kernel's grid runs it: the
+    corpus in ``n_splits`` ranges of whole 128-row tiles, each walked on
+    its own at the kernel's 128-row tiles, then the ranges' ascending lists
+    merged by (distance, id).  Among equal distances the replace-the-worst
+    merge keeps ids by the order it meets them, so this, not one walk over
+    the whole corpus, is what the kernel must equal bit for bit."""
+    n = pts.shape[0]
+    tps = -(-(-(-n // 128)) // n_splits) * 128
+    excl = kw.pop("exclude", None)
+    ids, dists = [], []
+    for lo in range(0, n, tps):
+        e = None if excl is None else excl - lo
+        i, dd = plain(pts[lo: lo + tps], q, k, exclude=e, tile=128, **kw)
+        real = i < min(tps, n - lo)
+        ids.append(torch.where(real, i + lo, n))
+        dists.append(dd)
+    ids, dists = torch.cat(ids, 1), torch.cat(dists, 1)
+    order = torch.sort(ids, dim=1, stable=True).indices
+    ids, dists = ids.gather(1, order), dists.gather(1, order)
+    order = torch.sort(dists, dim=1, stable=True).indices[:, :k]
+    return ids.gather(1, order).to(torch.int32), dists.gather(1, order)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rank", "rescan_merge", "stream"])
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
-def test_stream_fragment_layout_on_card(dt):
+def test_stream_fragment_layout_on_card(dt, kernel):
     """One-hot integer rows against unit-vector queries (``one_hot_rows``):
-    every product is exact in every type, so the tensor-core kernel must
-    equal its plain version bit for bit; a wrong fragment index moves a dot product to
-    another (row, query) and shows.  The plain version walks the kernel's
-    128-row tiles: among the many equal distances here, which ids the
-    replace-the-worst merge keeps depends on the tile."""
+    every product is exact in every type, so each tensor-core kernel (rank,
+    rescan merge, stream) must equal its plain version bit for bit; a wrong
+    fragment index moves a dot product to another (row, query) and shows.
+    Among the many equal distances here, which ids the replace-the-worst
+    merge keeps depends on the tile: the stream's plain version walks the
+    kernel's 128-row tiles, the rescan merge's also its corpus splits
+    (``plain_by_splits``); the rank kernel orders ties by id."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda")
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16,
            "int8": torch.int8}[dt]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, d in ((1000, 128), (333, 40), (700, 33)):
         X, q = one_hot_rows(n, d, dev)
         pts = X.to(tdt)
         scale = 1.0 if dt == "int8" else None
         excl = torch.arange(d, dtype=torch.int32, device=dev)
         for k, e in ((10, None), (10, excl), (128, None)):
-            ia, da = ex.exact_knn(pts, q, k, exclude=e, scale=scale, stream=True)
-            ib, db = ex.exact_knn_stream_plain(pts, q, k, exclude=e, scale=scale, tile=128)
+            if kernel == "rank":
+                ia, da = ex.exact_knn(pts, q, k, exclude=e, scale=scale)
+                ib, db = ex.exact_knn_plain(pts, q, k, exclude=e, scale=scale)
+            elif kernel == "rescan_merge":
+                ia, da = ex.exact_knn(pts, q, k, exclude=e, scale=scale, merge="rescan")
+                s = ex.splits(d, n, sms, *ex.tile_geometry("rescan_merge_knn"))
+                ib, db = plain_by_splits(ex.exact_knn_rescan_plain, pts, q, k, s, exclude=e,
+                                         scale=scale)
+            else:
+                ia, da = ex.exact_knn(pts, q, k, exclude=e, scale=scale, stream=True)
+                ib, db = ex.exact_knn_stream_plain(pts, q, k, exclude=e, scale=scale, tile=128)
             torch.cuda.synchronize()
             assert torch.equal(ia, ib) and torch.equal(da, db), (dt, n, d, k)
+
+
+def test_plain_by_splits_is_the_plain_version_at_one_split(rng):
+    """``plain_by_splits`` with one split is the rescan merge's plain
+    version at 128-row tiles; with several it still gives the exact
+    neighbours (on the CPU, where the card's split count is not needed)."""
+    p = T(rng.standard_normal((700, 12)).astype(np.float32))
+    q = T(rng.standard_normal((9, 12)).astype(np.float32))
+    e = T(np.arange(9, dtype=np.int32))
+    a = plain_by_splits(ex.exact_knn_rescan_plain, p, q, 10, 1, exclude=e)
+    b = ex.exact_knn_rescan_plain(p, q, 10, exclude=e, tile=128)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    c = plain_by_splits(ex.exact_knn_rescan_plain, p, q, 10, 4, exclude=e)
+    assert_match(c[0], c[1], b[0], b[1])
+
+
+@pytest.mark.parametrize("shape", ["serving", "graph_chunk"])
+def test_split_geometry_with_132_sms(shape):
+    """The rank kernel's and the rescan merge's grid at the main path's
+    shapes on a card of 132 SMs (the H100 SXM), one block resident per SM:
+    at the serving shape (1M x 128, m = 1000) 32 query blocks x 4 splits =
+    128 blocks, one wave; at the graph chunk (m = 65,536 queries) 2048 query
+    blocks and no split, 16 waves.  The emit kernel keeps its own geometry
+    (about four resident blocks per SM: 17 splits at serving)."""
+    from approximatenn_tpu_torch.ops import twophase as tp
+
+    m, want = {"serving": (1000, 4), "graph_chunk": (65536, 1)}[shape]
+    n, sms, qb, tn = 1_000_000, 132, 32, 128
+    s = ex.splits(m, n, sms, qb, tn)
+    assert s == want
+    blocks = -(-m // qb) * s
+    waves = -(-blocks // sms)
+    assert blocks / (waves * sms) >= 7 / 8  # at most 1/8 of the SM slots idle
+    assert all(ex.splits(m, n, sms, qb, tn, cap=c) <= c for c in (1, 2, 32))
+    if shape == "serving":
+        assert tp.emit_splits(m, n, sms) == 17
+        # one query: every split it may have, the card still mostly idle
+        assert ex.splits(1, n, sms, qb, tn) == 32
+        # a corpus of one tile cannot be split
+        assert ex.splits(m, 100, sms, qb, tn) == 1
 
 
 @pytest.mark.cuda
