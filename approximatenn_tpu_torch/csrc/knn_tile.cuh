@@ -18,10 +18,10 @@
 //     [QB][TN + 4] (conflict-free stores), where the selection step reads
 //     them: the rank kernel one query's 128 scores per warp and pass, the
 //     rescan merge its four queries' 128 distances;
-//   * one barrier of the whole block a tile says that S is written, that
-//     the next ring item has landed and that this one's slot may be
-//     overwritten; a second, of the multiplying warps alone, that S has
-//     been read.
+//   * there are two S, for even and odd tiles, so that one barrier a ring
+//     item is enough: it says that S is written, that the next item has
+//     landed and that this one's slot may be overwritten, and a warp may
+//     multiply the next tile while another still selects from this one.
 // Where a whole row does not fit (two slots of 128 rows beside the query
 // fragments, S and the top-k lists), tiles go in feature chunks of kc K
 // steps: a ring item is one chunk of one tile, its slot also holds that
@@ -77,46 +77,58 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
 // base to 16 bytes), else in 4-byte units where they are a multiple of 4,
 // else (odd d in halves, other d in int8) by plain byte loads and stores.
 // Thread ctid of the nthreads copying threads takes units ctid, ctid +
-// nthreads, ...
+// nthreads, ...; where they fall in a row and a slot is worked out once
+// here, so that the copy loop only adds.
 struct TileCopy {
-  int row_bytes, unit, stride, ctid, nthreads;
+  int row_bytes, cbytes, pad_to, stride_bytes, unit, upr, ctid, nthreads;
+  int u0, du, dst0, dst_step, dst_wrap;
+  long long src0, src_step, src_wrap;
 
-  __device__ TileCopy(int row_bytes_, int stride_, int ctid_, int nthreads_)
-      : row_bytes(row_bytes_),
-        unit(row_bytes_ % 16 == 0 ? 16 : (row_bytes_ % 4 == 0 ? 4 : 1)),
-        stride(stride_), ctid(ctid_), nthreads(nthreads_) {}
+  // cbytes of each row (from a multiple of 32 bytes into it) go to the
+  // slot row's start; bytes [cbytes, pad_to) of each slot row (up to its
+  // last whole K step) are zeroed, which no copy writes.
+  __device__ TileCopy(int row_bytes_, int cbytes_, int pad_to_, int stride_words, int ctid_,
+                      int nthreads_)
+      : row_bytes(row_bytes_), cbytes(cbytes_), pad_to(pad_to_), stride_bytes(4 * stride_words),
+        unit(row_bytes_ % 16 == 0 ? 16 : (row_bytes_ % 4 == 0 ? 4 : 1)), ctid(ctid_),
+        nthreads(nthreads_) {
+    upr = cbytes / unit;
+    const int row0 = ctid / upr, drow = nthreads / upr;
+    u0 = ctid % upr;
+    du = nthreads % upr;
+    dst0 = row0 * stride_bytes + u0 * unit;
+    dst_step = drow * stride_bytes + du * unit;
+    dst_wrap = stride_bytes - upr * unit;
+    src0 = (long long)row0 * row_bytes + u0 * unit;
+    src_step = (long long)drow * row_bytes + du * unit;
+    src_wrap = row_bytes - upr * unit;
+  }
 
-  // Bytes [cb0, cb0 + cbytes) of corpus rows [r0, r0 + rows) into dst;
-  // bytes [cbytes, pad_to) of each slot row (up to its last whole K step)
-  // are zeroed, which no copy writes.  cb0 is a multiple of 32.  Starts the
-  // copies; the caller commits them.
-  __device__ void copy(uint32_t* dst, const unsigned char* src, long long r0, int rows, int cb0,
-                       int cbytes, int pad_to) const {
+  // Rows [0, rows) from src (the first row's first byte to copy) into dst.
+  // Starts the copies; the caller commits them.
+  __device__ void copy(uint32_t* dst, const unsigned char* src, int rows) const {
     unsigned char* d8 = reinterpret_cast<unsigned char*>(dst);
-    const unsigned char* s = src + r0 * row_bytes + cb0;
-    const int upr = cbytes / unit;
     const int units = rows * upr;
-    const int drow = nthreads / upr, du = nthreads % upr;
-    int row = ctid / upr, u = ctid % upr;
+    int u = u0, dofs = dst0;
+    long long sofs = src0;
     for (int e = ctid; e < units; e += nthreads) {
-      unsigned char* to = d8 + row * stride * 4 + u * unit;
-      const unsigned char* from = s + (long long)row * row_bytes + u * unit;
-      if (unit == 16) cp_async16(to, from);
-      else if (unit == 4) cp_async4(to, from);
-      else *to = *from;
-      row += drow;
+      if (unit == 16) cp_async16(d8 + dofs, src + sofs);
+      else if (unit == 4) cp_async4(d8 + dofs, src + sofs);
+      else d8[dofs] = src[sofs];
       u += du;
-      if (u >= upr) { u -= upr; ++row; }
+      dofs += dst_step;
+      sofs += src_step;
+      if (u >= upr) { u -= upr; dofs += dst_wrap; sofs += src_wrap; }
     }
     const int pad = pad_to - cbytes;
     if (pad == 0) return;
     if (pad % 4 == 0 && cbytes % 4 == 0) {
       const int pw = pad / 4;
       for (int e = ctid; e < rows * pw; e += nthreads)
-        dst[(e / pw) * stride + cbytes / 4 + e % pw] = 0u;
+        dst[(e / pw) * (stride_bytes / 4) + cbytes / 4 + e % pw] = 0u;
     } else {
       for (int e = ctid; e < rows * pad; e += nthreads)
-        d8[(e / pad) * stride * 4 + cbytes + e % pad] = 0;
+        d8[(e / pad) * stride_bytes + cbytes + e % pad] = 0;
     }
   }
 };
@@ -135,11 +147,6 @@ constexpr int NTS = NT + NPT;        // threads per block
 constexpr int MAX_BUF = 8;           // deepest ring
 static_assert(TN == MMA_ROWS * NW, "a multiplying warp takes 16 rows of a tile");
 static_assert(NPT >= TN, "a copying thread copies one norm of a tile");
-
-// The multiplying warps' barrier, which the copying warps do not wait at.
-__device__ __forceinline__ void multipliers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
-}
 
 // Sum of squares of the values packed in one 32-bit word of storage type T.
 template <typename T>
@@ -172,13 +179,13 @@ __host__ __device__ inline int tiled_slot_words(int kc, bool chunked) {
 
 // Bytes of dynamic shared memory of the tile loop: the ring (and a norm
 // slice a slot where the kernel takes its norms in, K::PN), the query
-// fragments held for the whole call (one chunk only), S, and the
+// fragments held for the whole call (one chunk only), the two S, and the
 // selection's own state (K::state_bytes).
 template <typename T, class K>
 size_t tiled_smem(int ksteps, int kc, int n_buf, int k) {
   const bool chunked = kc < ksteps;
   return 4 * ((size_t)n_buf * (tiled_slot_words<T>(kc, chunked) + (K::PN ? TN : 0)) +
-              (chunked ? 0 : fragment_words<T>(NQ, ksteps)) + (size_t)QB * SS) +
+              (chunked ? 0 : fragment_words<T>(NQ, ksteps)) + (size_t)2 * QB * SS) +
          K::state_bytes(k);
 }
 
@@ -219,8 +226,8 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);                            // [n_buf][slot]
   float* pn_ring = reinterpret_cast<float*>(ring + n_buf * slot_words);          // [n_buf][TN]
   uint32_t* qf_all = reinterpret_cast<uint32_t*>(pn_ring + (K::PN ? n_buf * TN : 0));
-  float* S = reinterpret_cast<float*>(qf_all + (chunked ? 0 : fragment_words<T>(NQ, ksteps)));
-  unsigned char* state = reinterpret_cast<unsigned char*>(S + QB * SS);
+  float* Sm = reinterpret_cast<float*>(qf_all + (chunked ? 0 : fragment_words<T>(NQ, ksteps)));
+  unsigned char* state = reinterpret_cast<unsigned char*>(Sm + 2 * QB * SS);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool copier = warp >= NW;
@@ -232,7 +239,13 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
   const int n_items = (hi - lo + TN - 1) / TN * nc;
   const int row_bytes = a.d * (int)sizeof(T);
   const unsigned char* src = static_cast<const unsigned char*>(a.pts);
-  const TileCopy tc(row_bytes, stride, tid - NT, NPT);
+  // a chunk's bytes of each row: all chunks but a row's last take kc K
+  // steps, the last what is left
+  const int kc_last = ksteps - (nc - 1) * kc;
+  const int cb_last = row_bytes - (nc - 1) * 4 * KSTEP_WORDS * kc;
+  const int ctid = tid - NT;  // a copier's index among the NPT copying threads
+  const TileCopy tc_chunk(row_bytes, 4 * KSTEP_WORDS * kc, 4 * KSTEP_WORDS * kc, stride, ctid, NPT);
+  const TileCopy tc_last(row_bytes, cb_last, 4 * KSTEP_WORDS * kc_last, stride, ctid, NPT);
 
   // item i = chunk i % nc of tile i / nc, into slot i % n_buf, and one
   // commit group, empty past the last item.  Copiers only.
@@ -242,17 +255,15 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
       const int c = i % nc;
       const int r0 = lo + (i / nc) * TN;
       const int rows = hi - r0 < TN ? hi - r0 : TN;
-      const int kcs = ksteps - c * kc < kc ? ksteps - c * kc : kc;
-      const int cb0 = 4 * KSTEP_WORDS * kc * c;
-      const int cbytes = row_bytes - cb0 < 4 * KSTEP_WORDS * kc ? row_bytes - cb0
-                                                                : 4 * KSTEP_WORDS * kc;
-      tc.copy(slot, src, r0, rows, cb0, cbytes, 4 * KSTEP_WORDS * kcs);
+      const bool last = c == nc - 1;
+      (last ? tc_last : tc_chunk)
+          .copy(slot, src + (long long)r0 * row_bytes + 4 * KSTEP_WORDS * kc * c, rows);
       // the norms are read with the tile's last chunk
-      if (K::PN && c == nc - 1 && tc.ctid < rows)
-        cp_async4(pn_ring + (i % n_buf) * TN + tc.ctid, a.pn + r0 + tc.ctid);
+      if (K::PN && last && ctid < rows)
+        cp_async4(pn_ring + (i % n_buf) * TN + ctid, a.pn + r0 + ctid);
       if (chunked)
-        stage_query_fragments<T, NQ>(a.q, q0, a.m, a.d, c * kc, kcs, slot + TN * stride,
-                                     tc.ctid, NPT);
+        stage_query_fragments<T, NQ>(a.q, q0, a.m, a.d, c * kc, last ? kc_last : kc,
+                                     slot + TN * stride, ctid, NPT);
     }
     cp_async_commit();
   };
@@ -273,12 +284,13 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
     const int c = i % nc;
     const int t0 = lo + (i / nc) * TN;
     const int rows = hi - t0 < TN ? hi - t0 : TN;
+    float* S = Sm + ((i / nc) & 1) * (QB * SS);  // two S: one written while the other is read
     if (copier) {
       copy_item(i + n_buf - 1);          // into item i - 1's slot
       cp_async_wait_pending(n_buf - 2);  // this thread's copies of item i + 1 landed
     } else if (wrow < rows) {
       const uint32_t* slot = ring + (i % n_buf) * slot_words;
-      const int kcs = ksteps - c * kc < kc ? ksteps - c * kc : kc;
+      const int kcs = c == nc - 1 ? kc_last : kc;
       S_t dot[NQ][4];
       tile_mma<T, NQ>(slot + wrow * stride, stride, kcs, chunked ? slot + TN * stride : qf_all,
                       lane, dot);
@@ -320,9 +332,9 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
       }
     }
     __syncthreads();  // S is written, item i + 1 is in its slot, item i is consumed
-    if (copier || c != nc - 1) continue;
-    sel.select(S, t0, hi);
-    multipliers_sync();  // S has been read
+    // this S is written again two tiles on, after a barrier that every
+    // multiplying warp reaches only when its selection here is done
+    if (!copier && c == nc - 1) sel.select(S, t0, hi);
   }
   cp_async_wait<0>();
   if (!copier) sel.finish(blockIdx.y, gridDim.y);

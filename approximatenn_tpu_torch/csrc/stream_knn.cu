@@ -108,7 +108,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   const unsigned char* src = reinterpret_cast<const unsigned char*>(pts);
 
   const int row_bytes = d * (int)sizeof(T);
-  const TileCopy tc(row_bytes, stride, ctid, NPT);
+  const TileCopy tc(row_bytes, row_bytes, 4 * KSTEP_WORDS * ksteps, stride, ctid, NPT);
 
   // tile t (rows [t tr, min((t + 1) tr, n))) and its norms into slot
   // t % n_buf, and one commit group, empty past the last tile (wait counts
@@ -118,7 +118,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       const int slot = t % n_buf;
       const long long r0 = (long long)t * tr;
       const int rows = (n - r0) < tr ? (int)(n - r0) : tr;
-      tc.copy(ring + slot * slot_words, src, r0, rows, 0, row_bytes, 4 * KSTEP_WORDS * ksteps);
+      tc.copy(ring + slot * slot_words, src + r0 * row_bytes, rows);
       if (ctid < rows) cp_async4(pn_ring + slot * tr + ctid, pn + r0 + ctid);
     }
     cp_async_commit();
