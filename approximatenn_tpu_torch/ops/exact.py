@@ -300,7 +300,7 @@ def splits(m: int, n: int, sms: int, query_block: int, tile_rows: int,
     return next((s for s in cands if busy(s) >= 7 / 8), max(cands, key=busy))
 
 
-def tile_geometry(name: str = "exact_knn") -> tuple[int, int]:
+def tile_geometry(name: str) -> tuple[int, int]:
     """(queries per block, corpus rows per tile) of the rank kernel
     (``name="exact_knn"``) or the rescan merge (``"rescan_merge_knn"``),
     read from the built library."""

@@ -1,16 +1,19 @@
-"""One-off readings of the tile loop's constants (``csrc/knn_tile.cuh``):
-the rank kernel and the rescan merge built as the source has them and with
-one constant changed, at the serving shape (1M x 128, m = 1000, k = 10,
+"""One-off readings of the tile loop (``csrc/knn_tile.cuh``): the rank
+kernel and the rescan merge built as the source has them and with one line
+of the header changed, at the serving shape (1M x 128, m = 1000, k = 10,
 float32 and bf16 stored) and the graph chunk (m = 65,536, exclude = own
-id), on one CUDA card.  Readings: 64 queries a block (``QB``) and 8 copying
-warps (``NP``), each against the source's value.
+id), on one CUDA card.
+
+Readings (``READINGS``): 64 queries a block (``QB``) and 8 copying warps
+(``NP``), which must return the source's ids outside near-ties; and, to see
+where a tile's time goes, the selection step or the MMAs switched off
+(results meaningless, times only).
 
     python3 tile_reading.py
 
 Each variant is a copy of ``csrc`` with the one line replaced, built next
 to the package's own libraries and swapped in for its timing (source,
-variant, variant, source, CUDA events); both builds must return the same
-ids outside near-ties.
+variant, variant, source, CUDA events).
 """
 
 import ctypes
@@ -26,7 +29,15 @@ from approximatenn_tpu_torch.ops import exact as ex
 from approximatenn_tpu_torch.utils.profiling import fence
 
 LIBS = ("exact_knn", "rescan_merge_knn")
-READINGS = {"QB": 64, "NP": 8}  # constant of knn_tile.cuh -> the value read against the source's
+# label -> (pattern in knn_tile.cuh, its replacement, whether the ids must match)
+READINGS = {
+    "QB=64": (r"constexpr int QB = \d+;", "constexpr int QB = 64;", True),
+    "NP=8": (r"constexpr int NP = \d+;", "constexpr int NP = 8;", True),
+    "no selection": (r"if \(!copier && c == nc - 1\) sel\.select\(S, t0, hi\);", ";", False),
+    "no MMAs": (r"tile_mma<T, NQ>\([^;]*\);",
+                "for (int j = 0; j < NQ; ++j) for (int e = 0; e < 4; ++e) dot[j][e] = S_t(0);",
+                False),
+}
 
 
 def cuda_ms(fn, reps):
@@ -41,23 +52,23 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def start_variant(name: str, value: int):
-    """Copy csrc with ``constexpr int <name> = <value>;`` in knn_tile.cuh and
-    start one nvcc per library; returns (the source's value, the builds)."""
-    src = ex.BUILD_DIR / f"{name.lower()}{value}"
+def start_variant(label: str, pattern: str, repl: str):
+    """Copy csrc with the first match of ``pattern`` in knn_tile.cuh replaced
+    and start one nvcc per library; returns (the source's text, the builds)."""
+    src = ex.BUILD_DIR / ("reading_" + re.sub(r"\W", "_", label))
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(ex.CSRC, src)
     tile = (src / "knn_tile.cuh").read_text()
-    pat = re.compile(rf"constexpr int {name} = (\d+);")
-    own = int(pat.search(tile).group(1))
-    (src / "knn_tile.cuh").write_text(pat.sub(f"constexpr int {name} = {value};", tile, count=1))
+    own = re.search(pattern, tile)
+    assert own, label
+    (src / "knn_tile.cuh").write_text(tile[:own.start()] + repl + tile[own.end():])
     procs = []
     for lib in LIBS:
         out = src / f"lib{lib}.so"
         procs.append((lib, out, subprocess.Popen(
             [ex._nvcc(), *ex.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(src / f"{lib}.cu")],
             stderr=subprocess.PIPE, text=True)))
-    return own, procs
+    return own.group(0), procs
 
 
 def load_variant(label: str, procs) -> dict:
@@ -84,7 +95,8 @@ def main():
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    started = {name: start_variant(name, value) for name, value in READINGS.items()}
+    started = {label: start_variant(label, pattern, repl)
+               for label, (pattern, repl, _) in READINGS.items()}
     rng = np.random.default_rng(0)
     X = torch.from_numpy(rng.standard_normal((1_000_000, 128), dtype=np.float32)).to(dev)
     Y = torch.from_numpy(rng.standard_normal((1000, 128), dtype=np.float32)).to(dev)
@@ -97,10 +109,10 @@ def main():
              ("rescan merge f32", lambda: ex.exact_knn(X, Y, 10, merge="rescan"), 10),
              ("rescan merge bf16 stored", lambda: ex.exact_knn(Xb, Y, 10, merge="rescan"), 10),
              ("rank graph chunk", lambda: ex.exact_knn(X, X[:chunk], 10, exclude=excl), 1))
-    for name, (own_value, procs) in started.items():
-        value = READINGS[name]
-        variant = load_variant(f"{name}={value}", procs)
-        for label, fn, reps in cases:
+    for label, (own_line, procs) in started.items():
+        check = READINGS[label][2]
+        variant = load_variant(label, procs)
+        for case, fn, reps in cases:
             times, outs = {"source": [], "variant": []}, {}
             for which, libs in (("source", own), ("variant", variant), ("variant", variant),
                                 ("source", own)):
@@ -108,13 +120,19 @@ def main():
                 outs[which] = fn()
                 times[which].append(cuda_ms(fn, reps))
             ex._libs.update(own)
-            ok, tied = ids_agree(outs["variant"][0].cpu(), outs["source"][0].cpu(),
-                                 outs["source"][1].cpu(), rtol=1e-5)
-            assert ok, (name, label)
-            print(f"[{name}] {label}: {name}={own_value} (source) "
-                  + " / ".join(f"{t:.3f}" for t in times["source"]) + f" ms, {name}={value} "
+            note = "times only"
+            if check:
+                # the first k - 1 positions: a near-tie at position k needs
+                # the (k + 1)-th distance, which the call does not return
+                ok, tied = ids_agree(outs["variant"][0][:, :-1].cpu(),
+                                     outs["source"][0][:, :-1].cpu(), outs["source"][1].cpu(),
+                                     rtol=1e-5)
+                assert ok, (label, case)
+                note = f"ids equal outside near-ties, {tied} near-tie rows"
+            print(f"[{label}] {case}: source ({own_line}) "
+                  + " / ".join(f"{t:.3f}" for t in times["source"]) + f" ms, {label} "
                   + " / ".join(f"{t:.3f}" for t in times["variant"])
-                  + f" ms (ids equal outside near-ties, {tied} near-tie rows) [{smi}]", flush=True)
+                  + f" ms ({note}) [{smi}]", flush=True)
 
 
 if __name__ == "__main__":
