@@ -181,9 +181,15 @@ __device__ __forceinline__ void worst_slot(const float* rd, int k, int lane,
 // while it beats the running worst, it replaces the worst slot; at most k
 // rounds.  Lane l holds the tile's rows l + 32 j as v[j] (+inf where
 // masked), whose ids are id0 + l + 32 j.  (wd, ws) is the running worst,
-// kept up to date.  Whole warp participates.
+// kept up to date.  Whole warp participates.  A NaN distance (a NaN or an
+// infinite coordinate) counts as +inf and never enters: left in, it would
+// order differently in different lanes' reductions, and lanes would leave
+// the loop apart while the others still shuffle with the whole warp.
 __device__ __forceinline__ void replace_worst(float (&v)[4], int id0, float* rd, int* ri,
                                              int k, float& wd, int& ws, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (v[j] != v[j]) v[j] = pos_inf();  // NaN
   for (int round = 0; round < k; ++round) {
     float bd = v[0];
     int bi = id0 + lane;

@@ -373,6 +373,39 @@ def test_stream_fragment_layout_on_card(dt, kernel):
             assert torch.equal(ia, ib) and torch.equal(da, db), (dt, n, d, k)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rank", "rescan_merge", "stream"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_nan_and_inf_rows_never_return_on_card(dt, kernel):
+    """Rows holding a NaN or an infinite coordinate have NaN or +inf
+    distances: they never enter a query's k, and every other row comes back
+    as it does when those rows lie far away instead.  In the
+    replace-the-worst kernels (rescan merge, stream) a NaN left in a tile's
+    lane reduction orders differently in different lanes, so lanes would
+    leave the rounds apart while the rest still shuffle with the whole warp
+    (the card stops with an illegal instruction)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    kw = {"rank": {}, "rescan_merge": {"merge": "rescan"}, "stream": {"stream": True}}[kernel]
+    g = torch.Generator().manual_seed(3)
+    X = torch.randn(1000, 96, generator=g)
+    q = torch.randn(37, 96, generator=g).to(dev)
+    bad = [5, 700, 701]
+    far = X.clone()
+    far[bad] = 1e18
+    X[5, 17] = float("nan")
+    X[700] = float("inf")
+    X[701, 0] = -float("inf")
+    for k in (10, 128):
+        ia, da = ex.exact_knn(X.to(dev, tdt), q, k, **kw)
+        ib, db = ex.exact_knn(far.to(dev, tdt), q, k, **kw)
+        torch.cuda.synchronize()
+        assert not torch.isin(ia, torch.tensor(bad, dtype=ia.dtype, device=dev)).any(), k
+        assert torch.equal(ia, ib) and torch.equal(da, db), k
+
+
 def test_plain_by_splits_is_the_plain_version_at_one_split(rng):
     """``plain_by_splits`` with one split is the rescan merge's plain
     version at 128-row tiles; with several it still gives the exact

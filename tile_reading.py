@@ -6,8 +6,8 @@ id), on one CUDA card.
 
 Readings (``READINGS``): 64 queries a block (``QB``) and 8 copying warps
 (``NP``), which must return the source's ids outside near-ties; and, to see
-where a tile's time goes, the selection step or the MMAs switched off
-(results meaningless, times only).
+where a tile's time goes, the selection step, the MMAs or the copies past
+the ring's warm-up switched off (results meaningless, times only).
 
     python3 tile_reading.py
 
@@ -37,6 +37,9 @@ READINGS = {
     "no MMAs": (r"tile_mma<T, NQ>\([^;]*\);",
                 "for (int j = 0; j < NQ; ++j) for (int e = 0; e < 4; ++e) dot[j][e] = S_t(0);",
                 False),
+    # past the warm-up the ring's slots keep what they hold; the commit keeps
+    # the copiers' wait counts
+    "no copies": (r"copy_item\(i \+ n_buf - 1\);", "cp_async_commit();", False),
 }
 
 
