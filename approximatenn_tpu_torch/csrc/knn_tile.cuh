@@ -71,67 +71,82 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
   }
 }
 
-// Corpus rows into a ring slot, row r of the slot at r * stride words.
-// Copies go in 16-byte units where a row's bytes are a multiple of 16 (d a
-// multiple of 4 floats, 8 halves, 16 int8; the caller aligns the corpus
-// base to 16 bytes), else in 4-byte units where they are a multiple of 4,
-// else (odd d in halves, other d in int8) by plain byte loads and stores.
-// Thread ctid of the nthreads copying threads takes units ctid, ctid +
-// nthreads, ...; where they fall in a row and a slot is worked out once
-// here, so that the copy loop only adds.
+// Corpus rows into a ring slot, row r of the slot at r * stride words: up
+// to span bytes of each row, the rows pitch bytes apart in the source.
+// Copies go in 16-byte units where pitch is a multiple of 16 (d a multiple
+// of 4 floats, 8 halves, 16 int8; the caller aligns the corpus base to 16
+// bytes, and span and a chunk's start are multiples of 32), else in 4-byte
+// units where it is a multiple of 4, else (odd d in halves, other d in
+// int8) by plain byte loads and stores.  Thread ctid of the NTH copying
+// threads takes units ctid, ctid + NTH, ... of span-byte rows: its first
+// unit (row0, u0) and its step (drow, du) are worked out once here; a copy
+// turns them into byte offsets and steps, so that its loop only adds.
+template <int NTH>
 struct TileCopy {
-  int row_bytes, cbytes, pad_to, stride_bytes, unit, upr, ctid, nthreads;
-  int u0, du, dst0, dst_step, dst_wrap;
-  long long src0, src_step, src_wrap;
+  int pitch, stride_bytes, unit, upr, row0, u0, drow, du;
 
-  // cbytes of each row (from a multiple of 32 bytes into it) go to the
-  // slot row's start; bytes [cbytes, pad_to) of each slot row (up to its
-  // last whole K step) are zeroed, which no copy writes.
-  __device__ TileCopy(int row_bytes_, int cbytes_, int pad_to_, int stride_words, int ctid_,
-                      int nthreads_)
-      : row_bytes(row_bytes_), cbytes(cbytes_), pad_to(pad_to_), stride_bytes(4 * stride_words),
-        unit(row_bytes_ % 16 == 0 ? 16 : (row_bytes_ % 4 == 0 ? 4 : 1)), ctid(ctid_),
-        nthreads(nthreads_) {
-    upr = cbytes / unit;
-    const int row0 = ctid / upr, drow = nthreads / upr;
+  __device__ TileCopy(int pitch_, int span, int stride_words, int ctid)
+      : pitch(pitch_), stride_bytes(4 * stride_words),
+        unit(pitch_ % 16 == 0 ? 16 : (pitch_ % 4 == 0 ? 4 : 1)) {
+    upr = span / unit;
+    row0 = ctid / upr;
     u0 = ctid % upr;
-    du = nthreads % upr;
-    dst0 = row0 * stride_bytes + u0 * unit;
-    dst_step = drow * stride_bytes + du * unit;
-    dst_wrap = stride_bytes - upr * unit;
-    src0 = (long long)row0 * row_bytes + u0 * unit;
-    src_step = (long long)drow * row_bytes + du * unit;
-    src_wrap = row_bytes - upr * unit;
+    drow = NTH / upr;
+    du = NTH % upr;
   }
 
-  // Rows [0, rows) from src (the first row's first byte to copy) into dst.
-  // Starts the copies; the caller commits them.
-  __device__ void copy(uint32_t* dst, const unsigned char* src, int rows) const {
-    unsigned char* d8 = reinterpret_cast<unsigned char*>(dst);
-    const int units = rows * upr;
-    int u = u0, dofs = dst0;
-    long long sofs = src0;
-    for (int e = ctid; e < units; e += nthreads) {
-      if (unit == 16) cp_async16(d8 + dofs, src + sofs);
-      else if (unit == 4) cp_async4(d8 + dofs, src + sofs);
-      else d8[dofs] = src[sofs];
+  template <int UNIT>
+  __device__ __forceinline__ void copy_units(unsigned char* dst, const unsigned char* src,
+                                             int rows, int cbytes, int ctid) const {
+    unsigned char* to = dst + row0 * stride_bytes + u0 * UNIT;
+    const unsigned char* from = src + (long long)row0 * pitch + u0 * UNIT;
+    const int to_step = drow * stride_bytes + du * UNIT, to_wrap = stride_bytes - upr * UNIT;
+    const long long from_step = (long long)drow * pitch + du * UNIT;
+    const int from_wrap = pitch - upr * UNIT;
+    const int units = rows * upr, ulim = cbytes / UNIT;
+    int u = u0;
+    for (int e = ctid; e < units; e += NTH) {
+      if (u < ulim) {
+        if constexpr (UNIT == 16) cp_async16(to, from);
+        else if constexpr (UNIT == 4) cp_async4(to, from);
+        else *to = *from;
+      }
       u += du;
-      dofs += dst_step;
-      sofs += src_step;
-      if (u >= upr) { u -= upr; dofs += dst_wrap; sofs += src_wrap; }
+      to += to_step;
+      from += from_step;
+      if (u >= upr) { u -= upr; to += to_wrap; from += from_wrap; }
     }
-    const int pad = pad_to - cbytes;
-    if (pad == 0) return;
-    if (pad % 4 == 0 && cbytes % 4 == 0) {
-      const int pw = pad / 4;
-      for (int e = ctid; e < rows * pw; e += nthreads)
-        dst[(e / pw) * (stride_bytes / 4) + cbytes / 4 + e % pw] = 0u;
-    } else {
-      for (int e = ctid; e < rows * pad; e += nthreads)
-        d8[(e / pad) * stride_bytes + cbytes + e % pad] = 0;
-    }
+  }
+
+  // Bytes [0, cbytes) (cbytes <= span) of rows [0, rows) from src (the
+  // first row's first byte to copy) into dst.  Starts the copies; the
+  // caller commits them.
+  __device__ __forceinline__ void copy(uint32_t* dst, const unsigned char* src, int rows,
+                                       int cbytes, int ctid) const {
+    unsigned char* d8 = reinterpret_cast<unsigned char*>(dst);
+    if (unit == 16) copy_units<16>(d8, src, rows, cbytes, ctid);
+    else if (unit == 4) copy_units<4>(d8, src, rows, cbytes, ctid);
+    else copy_units<1>(d8, src, rows, cbytes, ctid);
   }
 };
+
+// Zero bytes [from, to) of `rows` slot rows stride words apart: a row's
+// bytes past its last value up to its last whole K step, which no copy
+// writes.  Thread tid of nthreads.
+__device__ __forceinline__ void zero_row_ends(uint32_t* base, int rows, int stride, int from,
+                                              int to, int tid, int nthreads) {
+  const int pad = to - from;
+  if (pad == 0) return;
+  if (pad % 4 == 0 && from % 4 == 0) {
+    const int pw = pad / 4;
+    for (int e = tid; e < rows * pw; e += nthreads)
+      base[(e / pw) * stride + from / 4 + e % pw] = 0u;
+  } else {
+    unsigned char* b8 = reinterpret_cast<unsigned char*>(base);
+    for (int e = tid; e < rows * pad; e += nthreads)
+      b8[(e / pad) * stride * 4 + from + e % pad] = 0;
+  }
+}
 
 // -- the tile loop of the rank kernel and the rescan merge -------------------
 
@@ -244,8 +259,9 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
   const int kc_last = ksteps - (nc - 1) * kc;
   const int cb_last = row_bytes - (nc - 1) * 4 * KSTEP_WORDS * kc;
   const int ctid = tid - NT;  // a copier's index among the NPT copying threads
-  const TileCopy tc_chunk(row_bytes, 4 * KSTEP_WORDS * kc, 4 * KSTEP_WORDS * kc, stride, ctid, NPT);
-  const TileCopy tc_last(row_bytes, cb_last, 4 * KSTEP_WORDS * kc_last, stride, ctid, NPT);
+  // one copy geometry for every chunk: a row's last chunk copies fewer of
+  // its units
+  const TileCopy<NPT> tc(row_bytes, 4 * KSTEP_WORDS * kc, stride, ctid);
 
   // item i = chunk i % nc of tile i / nc, into slot i % n_buf, and one
   // commit group, empty past the last item.  Copiers only.
@@ -256,8 +272,11 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
       const int r0 = lo + (i / nc) * TN;
       const int rows = hi - r0 < TN ? hi - r0 : TN;
       const bool last = c == nc - 1;
-      (last ? tc_last : tc_chunk)
-          .copy(slot, src + (long long)r0 * row_bytes + 4 * KSTEP_WORDS * kc * c, rows);
+      tc.copy(slot, src + (long long)r0 * row_bytes + 4 * KSTEP_WORDS * kc * c, rows,
+              last ? cb_last : 4 * KSTEP_WORDS * kc, ctid);
+      // a full chunk wrote this slot's bytes past the last chunk's end
+      if (chunked && last)
+        zero_row_ends(slot, rows, stride, cb_last, 4 * KSTEP_WORDS * kc_last, ctid, NPT);
       // the norms are read with the tile's last chunk
       if (K::PN && last && ctid < rows)
         cp_async4(pn_ring + (i % n_buf) * TN + ctid, a.pn + r0 + ctid);
@@ -269,6 +288,9 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
   };
   if (copier)  // warm-up: n_buf - 1 items in flight
     for (int i = 0; i < n_buf - 1; ++i) copy_item(i);
+  // whole rows: the bytes past a row's end are zeroed once, in every slot
+  if (!chunked)
+    zero_row_ends(ring, n_buf * TN, stride, row_bytes, 4 * KSTEP_WORDS * ksteps, tid, NTS);
   if (!chunked) stage_query_fragments<T, NQ>(a.q, q0, a.m, a.d, 0, ksteps, qf_all, tid, NTS);
   K sel(a, state, q0);
   cp_async_wait_pending(n_buf - 2);  // a copier's copies of item 0 landed

@@ -56,8 +56,8 @@
 //     (2 to 8 slots of 128 rows; 64, 32 or 16 rows where d is so large that
 //     two 128-row slots do not fit: fewer warps then have rows to multiply).
 // Rows are copied one by one into the padded layout by the copy routine the
-// rank kernel and the rescan merge share (knn_tile.cuh: TileCopy), which
-// also zeroes each row's bytes up to its last whole K step.
+// rank kernel and the rescan merge share (knn_tile.cuh: TileCopy); each
+// row's bytes up to its last whole K step are zeroed once, at the start.
 //
 // Precision: float32 dots are 3xTF32 with fp32 accumulation (see
 // knn_mma.cuh), within fp32 summation error of the IEEE dot product; bf16 /
@@ -108,7 +108,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   const unsigned char* src = reinterpret_cast<const unsigned char*>(pts);
 
   const int row_bytes = d * (int)sizeof(T);
-  const TileCopy tc(row_bytes, row_bytes, 4 * KSTEP_WORDS * ksteps, stride, ctid, NPT);
+  const TileCopy<NPT> tc(row_bytes, row_bytes, stride, ctid);
 
   // tile t (rows [t tr, min((t + 1) tr, n))) and its norms into slot
   // t % n_buf, and one commit group, empty past the last tile (wait counts
@@ -118,7 +118,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       const int slot = t % n_buf;
       const long long r0 = (long long)t * tr;
       const int rows = (n - r0) < tr ? (int)(n - r0) : tr;
-      tc.copy(ring + slot * slot_words, src + r0 * row_bytes, rows);
+      tc.copy(ring + slot * slot_words, src + r0 * row_bytes, rows, row_bytes, ctid);
       if (ctid < rows) cp_async4(pn_ring + slot * tr + ctid, pn + r0 + ctid);
     }
     cp_async_commit();
@@ -126,7 +126,9 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   // warm-up: n_buf - 1 tiles in flight
   if (copier)
     for (int t = 0; t < n_buf - 1; ++t) copy_tile(t);
-
+  // bytes from a row's end to its last whole K step are zero in every slot;
+  // no copy writes them
+  zero_row_ends(ring, n_buf * tr, stride, row_bytes, 4 * KSTEP_WORDS * ksteps, tid, NTS);
   stage_query_fragments<T, 1>(q, q0, m, d, 0, ksteps, qf, tid, NTS);
   for (int e = tid; e < QBW * k; e += NTS) { rd[e] = pos_inf(); ri[e] = ID_NONE; }
   // a multiplying warp merges query q0 + warp

@@ -363,6 +363,10 @@ int twophase_rescan_launch(int device, const void* pts, int dtype, const float* 
   }
 }
 
+// emit's geometry: queries per block and corpus rows per tile
+int twophase_knn_query_block() { return knn::QB; }
+int twophase_knn_tile_rows() { return knn::TN; }
+
 const char* twophase_knn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

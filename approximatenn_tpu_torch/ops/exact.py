@@ -75,6 +75,7 @@ _ENTRY_POINTS = {
                                  _ci, _vp, _vp, _vp],
         "twophase_rescan_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                    _ci, _vp, _vp, _vp],
+        "twophase_knn_query_block": [], "twophase_knn_tile_rows": [],
     },
     "probe_knn": {"probe_topk_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                         _ci, _ci, _ci, _vp, _vp, _vp]},
@@ -282,28 +283,28 @@ def _round_queries(pts: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return q.to(pts.dtype).float() if pts.dtype in (torch.bfloat16, torch.float16) else q
 
 
-def splits(m: int, n: int, sms: int, query_block: int, tile_rows: int,
-           cap: int = _MAX_SPLITS) -> int:
+def splits(m: int, n: int, sms: int, query_block: int, tile_rows: int) -> int:
     """Corpus splits of the rank kernel and the rescan merge on a card of
     ``sms`` SMs.  A block (``query_block`` queries, the corpus in
     ``tile_rows``-row tiles) fills an SM's shared memory, so the ceil(m /
     query_block) x s blocks run in ceil(blocks / sms) waves: the fewest s
-    (at most ``cap`` and the corpus's tiles) whose waves keep at least 7/8
-    of the SMs busy, else the s that keeps the most busy."""
+    (at most the kernels' 32 and the corpus's tiles) whose waves keep at
+    least 7/8 of the SMs busy, else the s that keeps the most busy."""
     q_blocks = -(-m // query_block)
     n_tiles = -(-n // tile_rows)
 
     def busy(s):
         return q_blocks * s / (-(-q_blocks * s // sms) * sms)
 
-    cands = range(1, max(1, min(cap, n_tiles)) + 1)
+    cands = range(1, max(1, min(_MAX_SPLITS, n_tiles)) + 1)
     return next((s for s in cands if busy(s) >= 7 / 8), max(cands, key=busy))
 
 
 def tile_geometry(name: str) -> tuple[int, int]:
     """(queries per block, corpus rows per tile) of the rank kernel
-    (``name="exact_knn"``) or the rescan merge (``"rescan_merge_knn"``),
-    read from the built library."""
+    (``name="exact_knn"``), the rescan merge (``"rescan_merge_knn"``) or the
+    two-phase emit kernel (``"twophase_knn"``), read from the built
+    library."""
     lib = _library(name)
     return getattr(lib, f"{name}_query_block")(), getattr(lib, f"{name}_tile_rows")()
 
@@ -571,6 +572,32 @@ def exact_knn_rescan_plain(points: torch.Tensor, queries: torch.Tensor, k: int, 
     return _replace_worst_plain(points, queries, k, exclude=exclude, scale=scale,
                                 matmul_precision=matmul_precision,
                                 compute_dtype=compute_dtype, tile=tile, stream=False)
+
+
+def exact_knn_rescan_plain_by_splits(points: torch.Tensor, queries: torch.Tensor, k: int,
+                                     n_splits: int, tile_rows: int, *,
+                                     exclude: torch.Tensor | None = None, **kw):
+    """The rescan merge's plain version as the kernel's grid runs it: the
+    corpus in ``n_splits`` ranges of whole ``tile_rows``-row tiles, each
+    walked on its own at the kernel's tiles, then the ranges' ascending
+    lists merged by (distance, id).  Among equal distances the
+    replace-the-worst merge keeps ids by the order it meets them, so this,
+    not one walk over the whole corpus, is what the kernel equals bit for
+    bit.  ``kw`` goes to :func:`exact_knn_rescan_plain`."""
+    n = points.shape[0]
+    per = -(-(-(-n // tile_rows)) // n_splits) * tile_rows  # rows per split
+    ids, dists = [], []
+    for lo in range(0, n, per):
+        e = None if exclude is None else exclude - lo
+        i, dd = exact_knn_rescan_plain(points[lo: lo + per], queries, k, exclude=e,
+                                       tile=tile_rows, **kw)
+        ids.append(torch.where(i < min(per, n - lo), i + lo, n))
+        dists.append(dd)
+    ids, dists = torch.cat(ids, 1), torch.cat(dists, 1)
+    order = torch.sort(ids, dim=1, stable=True).indices
+    ids, dists = ids.gather(1, order), dists.gather(1, order)
+    order = torch.sort(dists, dim=1, stable=True).indices[:, :k]
+    return ids.gather(1, order).to(itype), dists.gather(1, order)
 
 
 def exact_knn_stream_plain(points: torch.Tensor, queries: torch.Tensor, k: int, *,

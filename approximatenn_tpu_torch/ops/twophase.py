@@ -32,7 +32,7 @@ import torch
 
 from ..config import itype
 from .exact import (_DTYPE_CODE, KMAX, _check, _prepare, device_index, launch_error,
-                    launches, place, _library)
+                    launches, place, tile_geometry, _library)
 
 # At and above this corpus size exact serving takes the two-phase engine.
 # The JAX package's value, measured on a TPU v5e; the H100 crossover is
@@ -48,14 +48,14 @@ TWOPHASE_ONLY_KW = ("seg", "pad_segments", "rescan")
 
 _INT32_MAX = 2**31 - 1
 _BLOCK_ELEMS = 64 << 20  # plain versions: ~256 MB float32 per query block
-_EMIT_QB = 32  # queries per block of the emit kernel (csrc/knn_common.cuh: QB)
 
 
-def emit_splits(m: int, n: int, sms: int) -> int:
-    """Corpus splits of the emit kernel: enough blocks to fill a card of
+def emit_splits(m: int, n: int, sms: int, query_block: int, tile_rows: int) -> int:
+    """Corpus splits of the emit kernel (``query_block`` queries a block,
+    the corpus in ``tile_rows``-row tiles): enough blocks to fill a card of
     ``sms`` SMs (about four resident blocks per SM) when there are few
-    query blocks; at most one per 128-row corpus tile."""
-    return max(1, min(-(-n // 128), -(-4 * sms // -(-m // _EMIT_QB))))
+    query blocks; at most one per corpus tile."""
+    return max(1, min(-(-n // tile_rows), -(-4 * sms // -(-m // query_block))))
 
 
 def auto_seg(n: int) -> int:
@@ -144,7 +144,8 @@ def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
     err = lib.twophase_emit_launch(
         device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
         exclude.data_ptr() if exclude is not None else None, n, d, m, seg, n_seg,
-        emit_splits(m, n, torch.cuda.get_device_properties(dev).multi_processor_count),
+        emit_splits(m, n, torch.cuda.get_device_properties(dev).multi_processor_count,
+                    *tile_geometry("twophase_knn")),
         seg_d.data_ptr(), seg_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -187,27 +187,6 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def plain_by_splits(pts, q, k, n_splits, exclude=None):
-    """The rescan merge's plain version as the kernel's grid runs it: the
-    corpus in ``n_splits`` ranges of whole 128-row tiles, each walked on
-    its own at 128-row tiles, then the ranges' lists merged by (distance,
-    id).  Among equal distances the replace-the-worst merge keeps ids by
-    the order it meets them, so this is what the kernel must equal."""
-    n = pts.shape[0]
-    tps = -(-(-(-n // 128)) // n_splits) * 128
-    ids, dists = [], []
-    for lo in range(0, n, tps):
-        e = None if exclude is None else exclude - lo
-        i, dd = ex.exact_knn_rescan_plain(pts[lo: lo + tps], q, k, exclude=e, tile=128)
-        ids.append(torch.where(i < min(tps, n - lo), i + lo, n))
-        dists.append(dd)
-    ids, dists = torch.cat(ids, 1), torch.cat(dists, 1)
-    order = torch.sort(ids, dim=1, stable=True).indices
-    ids, dists = ids.gather(1, order), dists.gather(1, order)
-    order = torch.sort(dists, dim=1, stable=True).indices[:, :k]
-    return ids.gather(1, order).to(torch.int32), dists.gather(1, order)
-
-
 def check_tile_layout(dev) -> None:
     """The fragment layout of the three tensor-core kernels (rank, rescan
     merge, stream): one-hot integer rows (row r holds 1 + r // d in feature
@@ -232,8 +211,9 @@ def check_tile_layout(dev) -> None:
                     if kern == "rank":
                         ib, db = ex.exact_knn_plain(X.to(dt), Y, k, exclude=e)
                     elif kern == "rescan":
-                        s = ex.splits(d, n, sms, *ex.tile_geometry("rescan_merge_knn"))
-                        ib, db = plain_by_splits(X.to(dt), Y, k, s, exclude=e)
+                        qb, tn = ex.tile_geometry("rescan_merge_knn")
+                        ib, db = ex.exact_knn_rescan_plain_by_splits(
+                            X.to(dt), Y, k, ex.splits(d, n, sms, qb, tn), tn, exclude=e)
                     else:
                         ib, db = ex.exact_knn_stream_plain(X.to(dt), Y, k, exclude=e, tile=128)
                     fence()

@@ -310,30 +310,6 @@ def one_hot_rows(n: int, d: int, dev):
     return corpus, torch.eye(d, device=dev)
 
 
-def plain_by_splits(plain, pts, q, k, n_splits, **kw):
-    """The rescan merge's plain version as the kernel's grid runs it: the
-    corpus in ``n_splits`` ranges of whole 128-row tiles, each walked on
-    its own at the kernel's 128-row tiles, then the ranges' ascending lists
-    merged by (distance, id).  Among equal distances the replace-the-worst
-    merge keeps ids by the order it meets them, so this, not one walk over
-    the whole corpus, is what the kernel must equal bit for bit."""
-    n = pts.shape[0]
-    tps = -(-(-(-n // 128)) // n_splits) * 128
-    excl = kw.pop("exclude", None)
-    ids, dists = [], []
-    for lo in range(0, n, tps):
-        e = None if excl is None else excl - lo
-        i, dd = plain(pts[lo: lo + tps], q, k, exclude=e, tile=128, **kw)
-        real = i < min(tps, n - lo)
-        ids.append(torch.where(real, i + lo, n))
-        dists.append(dd)
-    ids, dists = torch.cat(ids, 1), torch.cat(dists, 1)
-    order = torch.sort(ids, dim=1, stable=True).indices
-    ids, dists = ids.gather(1, order), dists.gather(1, order)
-    order = torch.sort(dists, dim=1, stable=True).indices[:, :k]
-    return ids.gather(1, order).to(torch.int32), dists.gather(1, order)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["rank", "rescan_merge", "stream"])
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
@@ -345,7 +321,7 @@ def test_stream_fragment_layout_on_card(dt, kernel):
     Among the many equal distances here, which ids the replace-the-worst
     merge keeps depends on the tile: the stream's plain version walks the
     kernel's 128-row tiles, the rescan merge's also its corpus splits
-    (``plain_by_splits``); the rank kernel orders ties by id."""
+    (``exact_knn_rescan_plain_by_splits``); the rank kernel orders ties by id."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -363,9 +339,10 @@ def test_stream_fragment_layout_on_card(dt, kernel):
                 ib, db = ex.exact_knn_plain(pts, q, k, exclude=e, scale=scale)
             elif kernel == "rescan_merge":
                 ia, da = ex.exact_knn(pts, q, k, exclude=e, scale=scale, merge="rescan")
-                s = ex.splits(d, n, sms, *ex.tile_geometry("rescan_merge_knn"))
-                ib, db = plain_by_splits(ex.exact_knn_rescan_plain, pts, q, k, s, exclude=e,
-                                         scale=scale)
+                qb, tn = ex.tile_geometry("rescan_merge_knn")
+                s = ex.splits(d, n, sms, qb, tn)
+                ib, db = ex.exact_knn_rescan_plain_by_splits(pts, q, k, s, tn, exclude=e,
+                                                             scale=scale)
             else:
                 ia, da = ex.exact_knn(pts, q, k, exclude=e, scale=scale, stream=True)
                 ib, db = ex.exact_knn_stream_plain(pts, q, k, exclude=e, scale=scale, tile=128)
@@ -407,16 +384,17 @@ def test_nan_and_inf_rows_never_return_on_card(dt, kernel):
 
 
 def test_plain_by_splits_is_the_plain_version_at_one_split(rng):
-    """``plain_by_splits`` with one split is the rescan merge's plain
-    version at 128-row tiles; with several it still gives the exact
-    neighbours (on the CPU, where the card's split count is not needed)."""
+    """``exact_knn_rescan_plain_by_splits`` with one split is the rescan
+    merge's plain version at 128-row tiles; with several it still gives the
+    exact neighbours (on the CPU, where the card's split count is not
+    needed)."""
     p = T(rng.standard_normal((700, 12)).astype(np.float32))
     q = T(rng.standard_normal((9, 12)).astype(np.float32))
     e = T(np.arange(9, dtype=np.int32))
-    a = plain_by_splits(ex.exact_knn_rescan_plain, p, q, 10, 1, exclude=e)
+    a = ex.exact_knn_rescan_plain_by_splits(p, q, 10, 1, 128, exclude=e)
     b = ex.exact_knn_rescan_plain(p, q, 10, exclude=e, tile=128)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    c = plain_by_splits(ex.exact_knn_rescan_plain, p, q, 10, 4, exclude=e)
+    c = ex.exact_knn_rescan_plain_by_splits(p, q, 10, 4, 128, exclude=e)
     assert_match(c[0], c[1], b[0], b[1])
 
 
@@ -437,9 +415,9 @@ def test_split_geometry_with_132_sms(shape):
     blocks = -(-m // qb) * s
     waves = -(-blocks // sms)
     assert blocks / (waves * sms) >= 7 / 8  # at most 1/8 of the SM slots idle
-    assert all(ex.splits(m, n, sms, qb, tn, cap=c) <= c for c in (1, 2, 32))
+    assert all(ex.splits(m, nn, sms, qb, tn) <= 32 for nn in (n, 10**8))  # the kernels' cap
     if shape == "serving":
-        assert tp.emit_splits(m, n, sms) == 17
+        assert tp.emit_splits(m, n, sms, qb, tn) == 17
         # one query: every split it may have, the card still mostly idle
         assert ex.splits(1, n, sms, qb, tn) == 32
         # a corpus of one tile cannot be split
