@@ -138,7 +138,7 @@ int launch(const void* pts, const float* q, const int* excl, const float* qn, in
            int m, int k, int splits, float* part_d, int* part_i, float* out_d, int* out_i,
            float scale2, cudaStream_t stream) {
   tile::TiledArgs a{pts, q, nullptr, nullptr, excl, n, d, m, k, 0, 0, 0, part_d, part_i};
-  cudaError_t err = tile::launch_tiled<T, RankSelect<T>>(a, splits, stream);
+  cudaError_t err = tile::launch_tiled<T, RankSelect<T>>(a, splits, 1, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_split_merge(part_d, part_i, qn, n, m, k, splits, scale2, out_d, out_i,
                                  stream);

@@ -1,10 +1,10 @@
-// Pieces shared by the exact-kNN kernels (exact_knn.cu, twophase_knn.cu,
-// rescan_merge_knn.cu, stream_knn.cu): the storage-type traits, the
-// (distance, id) order, the warp-cooperative insert into a sorted top-k list
-// in shared memory, the unsorted replace-the-worst top-k of the rescan-merge
-// and streaming kernels, the merge of per-split sorted lists, and the tiled
-// CUDA-core dot product of the two-phase emit kernel alone (the other exact
-// kernels multiply on the tensor cores: knn_mma.cuh, knn_tile.cuh).
+// Pieces shared by the kNN kernels (exact_knn.cu, twophase_knn.cu,
+// rescan_merge_knn.cu, stream_knn.cu, probe_knn.cu): the storage-type
+// traits, the (distance, id) order, the warp-cooperative insert into a
+// sorted top-k list in shared memory, the unsorted replace-the-worst top-k
+// of the rescan-merge and streaming kernels, and the merge of per-split
+// sorted lists.  The exact kernels' dot products are on the tensor cores
+// (knn_mma.cuh, knn_tile.cuh).
 
 #pragma once
 
@@ -18,12 +18,9 @@ namespace knn {
 constexpr int KMAX = 128;
 constexpr int ID_NONE = 0x7fffffff;
 
-constexpr int QB = 32;        // queries per block of tile_dots
 constexpr int TN = 128;       // corpus rows per tile
-constexpr int DC = 32;        // features per staged chunk
 constexpr int NT = 256;       // threads per block (8 warps)
 constexpr int NW = NT / 32;
-constexpr int PS = TN + 1;    // padded row stride of the staged tile
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
@@ -94,64 +91,6 @@ __device__ __forceinline__ void warp_lex_min(float& d, int& i, int width) {
     const int oi = __shfl_xor_sync(0xffffffffu, i, off);
     if (lex_less(od, oi, d, i)) { d = od; i = oi; }
   }
-}
-
-// The emit kernel's dot products (twophase_knn.cu; its move to the tensor
-// cores is still to come): the block's NW * QW queries (from q0) with the corpus
-// tile [t0, t0 + TN), staged in shared memory in DC-feature chunks (Qs
-// [DC][NW * QW], Ps [DC][PS]; queries >= m and rows >= hi stage as zeros).
-// Thread (warp tq, lane tp) ends with acc[i][j] = q[q0 + QW tq + i] .
-// x[t0 + tp + 32 j], and Pn [TN] holds the tile's |x|^2, visible to the
-// whole block.  ``pts`` may point to global or to shared memory.  A block of
-// NT threads participates.
-template <typename T, int QW = 4>
-__device__ __forceinline__ void tile_dots(const T* __restrict__ pts, const float* __restrict__ q,
-                                          int q0, int m, int d, int t0, int hi,
-                                          typename Tr<T>::S* Qs, typename Tr<T>::S* Ps,
-                                          typename Tr<T>::S* Pn,
-                                          typename Tr<T>::S (&acc)[QW][4]) {
-  using S = typename Tr<T>::S;
-  constexpr int QBW = NW * QW;
-  const int tid = threadIdx.x;
-  const int tq = tid >> 5;
-  const int tp = tid & 31;
-#pragma unroll
-  for (int i = 0; i < QW; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = S(0);
-  S pacc = S(0);
-  for (int c0 = 0; c0 < d; c0 += DC) {
-    __syncthreads();  // the previous chunk (and tile) is consumed
-    for (int e = tid; e < QBW * DC; e += NT) {
-      const int c = e / QBW, qq = e % QBW;
-      const int qr = q0 + qq, col = c0 + c;
-      Qs[c * QBW + qq] = (qr < m && col < d) ? Tr<T>::qv(q[(long long)qr * d + col]) : S(0);
-    }
-    for (int e = tid; e < TN * DC; e += NT) {
-      const int r = e / DC, c = e % DC;
-      const int row = t0 + r, col = c0 + c;
-      Ps[c * PS + r] = (row < hi && col < d) ? Tr<T>::pt(pts, (long long)row * d + col) : S(0);
-    }
-    __syncthreads();
-    if (tid < TN) {
-#pragma unroll 8
-      for (int c = 0; c < DC; ++c) { const S v = Ps[c * PS + tid]; pacc += v * v; }
-    }
-#pragma unroll 4
-    for (int c = 0; c < DC; ++c) {
-      S qv[QW], pv[4];
-#pragma unroll
-      for (int i = 0; i < QW; ++i) qv[i] = Qs[c * QBW + tq * QW + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) pv[j] = Ps[c * PS + tp + 32 * j];
-#pragma unroll
-      for (int i = 0; i < QW; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += qv[i] * pv[j];
-    }
-  }
-  if (tid < TN) Pn[tid] = pacc;
-  __syncthreads();
 }
 
 // The unsorted running top-k of the rescan-merge and streaming kernels (the

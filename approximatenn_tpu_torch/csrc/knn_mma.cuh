@@ -55,8 +55,8 @@
 // b1 lo) or 8-byte (b0, b1) load per lane and K step, conflict-free.
 //
 // Nothing here knows where the tile came from: the streaming kernel and the
-// tile loop of the rank kernel and the rescan merge (knn_tile.cuh) hand it
-// a ring slot, or one feature chunk of it.
+// tile loop of the rank kernel, the rescan merge and the two-phase emit
+// (knn_tile.cuh) hand it a ring slot, or one feature chunk of it.
 
 #pragma once
 

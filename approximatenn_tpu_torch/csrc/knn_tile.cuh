@@ -1,9 +1,10 @@
 // The corpus tile ring of the tensor-core exact-kNN kernels: the one copy
 // routine that fills a shared-memory slot with corpus rows by asynchronous
 // copies (cp.async) at knn_mma.cuh's padded row stride (streaming kernel,
-// rank kernel, rescan merge), and the tile loop that the rank kernel
-// (exact_knn.cu) and the rescan merge (rescan_merge_knn.cu) share; they
-// differ only in the selection step they hand it.
+// rank kernel, rescan merge, two-phase emit), and the tile loop that the
+// rank kernel (exact_knn.cu), the rescan merge (rescan_merge_knn.cu) and the
+// two-phase emit (twophase_knn.cu) share; they differ only in the selection
+// step they hand it.
 //
 // The tile loop.  Grid (query blocks of QB queries) x (corpus splits).  A
 // block of NW multiplying warps and NP copying warps walks its split's
@@ -17,7 +18,8 @@
 //   * the C fragments go, turned into scores, to a padded array S
 //     [QB][TN + 4] (conflict-free stores), where the selection step reads
 //     them: the rank kernel one query's 128 scores per warp and pass, the
-//     rescan merge its four queries' 128 distances;
+//     rescan merge its four queries' 128 distances, emit its four queries'
+//     128 scores for their segment minima;
 //   * there are two S, for even and odd tiles, so that one barrier a ring
 //     item is enough: it says that S is written, that the next item has
 //     landed and that this one's slot may be overwritten, and a warp may
@@ -148,7 +150,7 @@ __device__ __forceinline__ void zero_row_ends(uint32_t* base, int rows, int stri
   }
 }
 
-// -- the tile loop of the rank kernel and the rescan merge -------------------
+// -- the tile loop of the rank kernel, the rescan merge and emit -------------
 
 namespace tile {
 
@@ -215,8 +217,9 @@ struct TiledArgs {
   int tiles_per_split;
   int kc;            // K steps per feature chunk (all of a row's: one chunk)
   int n_buf;         // ring slots
-  float* part_d;     // (m, splits, k)
+  float* part_d;     // (m, splits, k) partial lists, or emit's (m, n_seg) minima
   int* part_i;
+  int seg;           // emit: rows per segment
 };
 
 // The tile loop (see the top of this file).  K is the selection step:
@@ -384,11 +387,15 @@ bool tiled_plan(int d, int k, int tiles_per_split, int& kc, int& n_buf) {
   return true;
 }
 
-// Launch tiled_kernel<T, K> over (ceil(m / QB), splits) blocks.
+// Launch tiled_kernel<T, K> over (ceil(m / QB), splits) blocks.  A split
+// covers a multiple of split_tiles tiles (emit: a segment's, so that no
+// segment is cut between two blocks); a split past the corpus's end has no
+// tiles.
 template <typename T, class K>
-cudaError_t launch_tiled(TiledArgs a, int splits, cudaStream_t stream) {
+cudaError_t launch_tiled(TiledArgs a, int splits, int split_tiles, cudaStream_t stream) {
   const int n_tiles = (a.n + TN - 1) / TN;
-  a.tiles_per_split = (n_tiles + splits - 1) / splits;
+  a.tiles_per_split =
+      ((n_tiles + splits - 1) / splits + split_tiles - 1) / split_tiles * split_tiles;
   const int ksteps = row_words(a.d, sizeof(T)) / KSTEP_WORDS;
   if (!tiled_plan<T, K>(a.d, a.k, a.tiles_per_split, a.kc, a.n_buf))
     return cudaErrorInvalidValue;

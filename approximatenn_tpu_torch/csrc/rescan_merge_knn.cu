@@ -136,7 +136,7 @@ int launch(const void* pts, const float* q, const int* excl, const float* qn, co
            int n, int d, int m, int k, int splits, float* part_d, int* part_i,
            float* out_d, int* out_i, float scale2, cudaStream_t stream) {
   tile::TiledArgs a{pts, q, qn, pn, excl, n, d, m, k, 0, 0, 0, part_d, part_i};
-  cudaError_t err = tile::launch_tiled<T, RescanSelect<T>>(a, splits, stream);
+  cudaError_t err = tile::launch_tiled<T, RescanSelect<T>>(a, splits, 1, stream);
   if (err != cudaSuccess) return (int)err;
   // the lists hold distances already: no |q|^2 to add
   return (int)launch_split_merge(part_d, part_i, nullptr, n, m, k, splits, scale2, out_d,

@@ -20,18 +20,24 @@
 // so the windows are disjoint and no row is seen twice.
 //
 // What bounds them on this card:
-//   * emit does the rank kernel's 2*m*n*d fp32 products (2.6e11 flop at
-//     1M x 128, m = 1000) against one corpus read (512 MB) and an output of
-//     m * n/seg pairs: fp32 FMA throughput sets its time.  It runs the
-//     tiled CUDA-core dot product (knn_common.cuh tile_dots: 32-query x
-//     128-row tiles staged in shared memory, a 4x4 register tile of dot
-//     products per thread) and swaps the
-//     top-k insert for a segment min/argmin taken straight from the
-//     registers: a warp holds 4 queries x 128 rows, so a segment of up to
-//     128 rows reduces inside the warp with shuffles, and a longer one
-//     carries a running (min, id) per query across the tiles of a split.
-//     Splits are cut on segment boundaries, so every segment is reduced by
-//     one block and nothing is merged afterwards.
+//   * emit does the rank kernel's 2*m*n*d products (2.6e11 flop at 1M x
+//     128, m = 1000) against one corpus read (512 MB) and an output of
+//     m * n/seg pairs (62.5 MB at seg = 128): the arithmetic sets its least
+//     time, and on the tensor cores what bounds the rank kernel bounds it
+//     (the L2 reads of the corpus once per 32-query block, the loads that
+//     feed the MMAs their operands).  It runs the rank kernel's tile loop (knn_tile.cuh: a
+//     cp.async ring of 128-row tiles, eight multiplying warps on
+//     knn_mma.cuh:tile_mma, the scores |x|^2 - 2 q.x in a padded array S
+//     with the norms of the values as streamed, as the TPU kernel takes
+//     them from its tile) and swaps the top-k for a segment min/argmin:
+//     warp w reads its four queries' 128 scores of a tile from S (4 a lane)
+//     and reduces them with shuffles.  A segment of 128 rows or more folds
+//     each tile into a running (min, id) a query, kept in registers, and
+//     writes it where the segment (or the split) ends; one of 32 or 64 rows
+//     reduces per 32-row chunk, a shorter one in lane groups.  Splits are
+//     cut on segment boundaries (knn_tile.cuh:launch_tiled's split_tiles),
+//     so every segment is reduced by one block and its pair goes straight
+//     to the output: no second pass.
 //   * rescan scores m * P * seg (query, row) pairs (786 MB of row loads at
 //     1M, m = 1000, k = 10) at 3 flop per element; queries that pick the
 //     same segment share its rows, so the least it must read from memory
@@ -44,135 +50,123 @@
 //     lists are merged at the end.  No array of all P * seg distances is
 //     kept: at seg = 512, k = 126 that would be 65,536 candidates a query.
 //
-// Precision: emit computes the dot products in IEEE fp32 on the CUDA cores
-// for every tier (bf16/f16 corpora widened as staged, queries rounded to
-// the storage type first; int8 in int32, exact), as exact_knn.cu does.
-// Rescan widens every element to fp32; int8 queries arrive quantised.
+// Precision: emit computes what the rank kernel computes for every tier
+// ("highest", "split3", "default"): float32 dots in three TF32 passes with
+// fp32 accumulation (ranks as IEEE fp32 does), bf16 / f16 at storage width
+// with queries rounded to the corpus's type, int8 in int32 with quantised
+// queries (exact); norms are the streamed values' squares summed in fp32
+// (int32 for int8); see exact_knn.cu.  Rescan widens every element to fp32;
+// int8 queries arrive quantised.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
 
-#include "knn_common.cuh"
+#include "knn_tile.cuh"
 
 namespace {
 
 using namespace knn;
 
-// Emit: grid (query blocks, corpus splits).  seg is a power of two; a
-// split covers tiles_per_split tiles, a multiple of seg / TN when seg > TN.
+constexpr int MAX_SPLITS = 32;
+
+// Emit's selection step for the tile loop: warp w takes queries QPW w ..
+// QPW w + QPW - 1 and keeps their excluded ids and (seg >= TN) running
+// segment minima in registers; the pairs go to seg_d/seg_i (m, n_seg), so
+// there is no state in shared memory and nothing to finish.
 template <typename T>
-__global__ void __launch_bounds__(NT)
-emit_kernel(const T* __restrict__ pts, const float* __restrict__ q,
-            const int* __restrict__ excl, int n, int d, int m, int seg,
-            int n_seg, int tiles_per_split, float* __restrict__ seg_d,
-            int* __restrict__ seg_i) {
-  using S = typename Tr<T>::S;
-  extern __shared__ __align__(16) unsigned char smem[];
-  S* Qs = reinterpret_cast<S*>(smem);    // [DC][QB]
-  S* Ps = Qs + DC * QB;                  // [DC][PS]
-  S* Pn = Ps + DC * PS;                  // [TN]
+struct EmitSelect {
+  using S_t = typename Tr<T>::S;
+  static constexpr bool PN = false;     // no precomputed norms
+  static constexpr bool NORMS = true;   // norms of the values in the slot
+  static size_t state_bytes(int) { return 0; }
 
-  const int tid = threadIdx.x;
-  const int tq = tid >> 5;   // warp: queries tq*4 .. tq*4+3
-  const int tp = tid & 31;   // lane: rows tp + 32 j of the tile
-  const int q0 = blockIdx.x * QB;
-  const long long lo = (long long)blockIdx.y * tiles_per_split * TN;
-  if (lo >= n) return;  // uniform over the block
-  const long long hi_ll = lo + (long long)tiles_per_split * TN;
-  const int hi = (int)(hi_ll < n ? hi_ll : n);
+  int q0, m, seg, n_seg, warp, lane;
+  float* seg_d;
+  int* seg_i;
+  int ex[tile::QPW], ri[tile::QPW];
+  float rd[tile::QPW];  // seg >= TN: the running minimum of the segment
 
-  int qi[4], ex[4];
-  float rd[4];  // running segment minimum (seg > TN)
-  int ri[4];
+  __device__ EmitSelect(const tile::TiledArgs& a, unsigned char*, int q0_)
+      : q0(q0_), m(a.m), seg(a.seg), n_seg((a.n + a.seg - 1) / a.seg),
+        warp(threadIdx.x >> 5), lane(threadIdx.x & 31), seg_d(a.part_d), seg_i(a.part_i) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qi[i] = q0 + tq * 4 + i;
-    ex[i] = (excl != nullptr && qi[i] < m) ? excl[qi[i]] : -1;
-    rd[i] = pos_inf();
-    ri[i] = ID_NONE;
+    for (int i = 0; i < tile::QPW; ++i) {
+      const int qi = q0 + tile::QPW * warp + i;
+      ex[i] = (a.excl && qi < m) ? a.excl[qi] : -1;
+      rd[i] = pos_inf();
+      ri[i] = ID_NONE;
+    }
   }
 
-  for (int t0 = (int)lo; t0 < hi; t0 += TN) {
-    S acc[4][4];
-    tile_dots<T>(pts, q, q0, m, d, t0, hi, Qs, Ps, Pn, acc);
+  __device__ float score(S_t dot, S_t norm, float, int, int) const {
+    return Tr<T>::score(norm, dot);
+  }
 
-    float sc[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = t0 + tp + 32 * j;
-      const S pn = Pn[tp + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sc[i][j] = (row < hi && row != ex[i]) ? Tr<T>::score(pn, acc[i][j]) : pos_inf();
-    }
+  // segment s's pair of query qi, from the lanes that hold it
+  __device__ void put(int qi, int s, float v, int id) const {
+    seg_d[(long long)qi * n_seg + s] = v;
+    seg_i[(long long)qi * n_seg + s] = id;
+  }
 
-    if (seg >= TN) {
-      // the tile lies inside one segment: reduce it, fold it into the
-      // running pair, and write the pair where the segment (or split) ends
+  __device__ void select(const float* S, int t0, int hi) {
+    const int id0 = t0 + lane;  // lane's row of the tile's first 32-row chunk
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float bd = sc[i][0];
-        int bi = t0 + tp;
+    for (int i = 0; i < tile::QPW; ++i) {
+      const int qq = tile::QPW * warp + i;
+      const int qi = q0 + qq;
+      if (qi >= m) break;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // rows past the tile's end hold what an earlier tile left; a NaN
+        // score (a NaN or an infinite coordinate) counts as +inf
+        const float s = S[qq * tile::SS + lane + 32 * j];
+        v[j] = (id0 + 32 * j < hi && id0 + 32 * j != ex[i] && s == s) ? s : pos_inf();
+      }
+      if (seg >= TN) {
+        // the tile lies inside one segment: fold its minimum into the
+        // running pair, and write the pair where the segment or split ends
+        float bd = v[0];
+        int bi = id0;
 #pragma unroll
         for (int j = 1; j < 4; ++j)
-          if (lex_less(sc[i][j], t0 + tp + 32 * j, bd, bi)) { bd = sc[i][j]; bi = t0 + tp + 32 * j; }
+          if (lex_less(v[j], id0 + 32 * j, bd, bi)) { bd = v[j]; bi = id0 + 32 * j; }
         warp_lex_min(bd, bi, 32);
         if (lex_less(bd, bi, rd[i], ri[i])) { rd[i] = bd; ri[i] = bi; }
-      }
-      const int t_end = t0 + TN;
-      if (t_end % seg == 0 || t_end >= hi) {
-        const int s = t0 / seg;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (tp == 0 && qi[i] < m) {
-            seg_d[(long long)qi[i] * n_seg + s] = rd[i];
-            seg_i[(long long)qi[i] * n_seg + s] = ri[i];
-          }
+        if ((t0 + TN) % seg == 0 || t0 + TN >= hi) {
+          if (lane == 0) put(qi, t0 / seg, rd[i], ri[i]);
           rd[i] = pos_inf();
           ri[i] = ID_NONE;
         }
-      }
-    } else if (seg >= 32) {
-      // a segment is seg / 32 of the thread's rows, one per 32-row chunk
-      // (constant register indices: seg is 32 or 64 here)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      } else if (seg >= 32) {
+        // a segment is seg / 32 (1 or 2) of the lane's rows, one a chunk
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           if (seg == 64 && (j & 1)) continue;
-          float bd = sc[i][j];
-          int bi = t0 + tp + 32 * j;
+          float bd = v[j];
+          int bi = id0 + 32 * j;
           if (seg == 64) {
-            const int j2 = (j + 1) & 3;
-            if (lex_less(sc[i][j2], t0 + tp + 32 * j2, bd, bi)) { bd = sc[i][j2]; bi = t0 + tp + 32 * j2; }
+            const int j2 = (j + 1) & 3;  // j + 1: j is even here
+            if (lex_less(v[j2], id0 + 32 * j2, bd, bi)) { bd = v[j2]; bi = id0 + 32 * j2; }
           }
           warp_lex_min(bd, bi, 32);
-          const int s = (t0 + 32 * j) / seg;
-          if (tp == 0 && qi[i] < m && s < n_seg) {
-            seg_d[(long long)qi[i] * n_seg + s] = bd;
-            seg_i[(long long)qi[i] * n_seg + s] = bi;
-          }
+          if (lane == 0 && t0 + 32 * j < hi) put(qi, (t0 + 32 * j) / seg, bd, bi);
         }
-      }
-    } else {
-      // a segment is `seg` neighbouring lanes of one 32-row chunk
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      } else {
+        // a segment is `seg` neighbouring lanes of one 32-row chunk
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          float bd = sc[i][j];
-          int bi = t0 + tp + 32 * j;
+          float bd = v[j];
+          int bi = id0 + 32 * j;
           warp_lex_min(bd, bi, seg);
-          const int s = (t0 + 32 * j + tp) / seg;
-          if ((tp & (seg - 1)) == 0 && qi[i] < m && s < n_seg) {
-            seg_d[(long long)qi[i] * n_seg + s] = bd;
-            seg_i[(long long)qi[i] * n_seg + s] = bi;
-          }
+          if ((lane & (seg - 1)) == 0 && id0 + 32 * j < hi) put(qi, (id0 + 32 * j) / seg, bd, bi);
         }
       }
     }
   }
-}
+
+  __device__ void finish(int, int) const {}
+};
 
 // Rescan: one block per query.  starts (m, P): the first row of each
 // window, n for an exhausted pick; window p covers local rows
@@ -286,19 +280,11 @@ rescan_kernel(const T* __restrict__ pts, const float* __restrict__ q,
 }
 
 template <typename T>
-int emit(const void* pts, const float* q, const int* excl, int n, int d, int m,
-         int seg, int n_seg, int splits, float* seg_d, int* seg_i, cudaStream_t stream) {
-  using S = typename Tr<T>::S;
-  const int n_tiles = (n + TN - 1) / TN;
-  const int tiles_per_seg = seg > TN ? seg / TN : 1;
-  int tps = (n_tiles + splits - 1) / splits;
-  tps = (tps + tiles_per_seg - 1) / tiles_per_seg * tiles_per_seg;
-  const int used = (n_tiles + tps - 1) / tps;
-  const size_t smem = sizeof(S) * (DC * QB + DC * PS + TN);
-  dim3 grid((m + QB - 1) / QB, used);
-  emit_kernel<T><<<grid, NT, smem, stream>>>(static_cast<const T*>(pts), q, excl, n, d, m,
-                                             seg, n_seg, tps, seg_d, seg_i);
-  return (int)cudaGetLastError();
+int emit(const void* pts, const float* q, const int* excl, int n, int d, int m, int seg,
+         int splits, float* seg_d, int* seg_i, cudaStream_t stream) {
+  tile::TiledArgs a{pts, q, nullptr, nullptr, excl, n, d, m, 0, 0, 0, 0, seg_d, seg_i, seg};
+  // a split takes whole segments
+  return (int)tile::launch_tiled<T, EmitSelect<T>>(a, splits, seg > TN ? seg / TN : 1, stream);
 }
 
 template <typename T>
@@ -322,23 +308,24 @@ bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 extern "C" {
 
 // device: the CUDA ordinal of every pointer.  dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers;
-// excl may be null.  seg_d/seg_i hold m * n_seg entries, n_seg =
-// ceil(n / seg).  Returns the CUDA error code (0 = launched).
+// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers,
+// pts 16-byte aligned; excl may be null.  seg (a power of two) rows a
+// segment; seg_d/seg_i hold m * n_seg entries, n_seg = ceil(n / seg);
+// splits (<= 32) corpus ranges.  Returns the CUDA error code (0 = launched).
 int twophase_emit_launch(int device, const void* pts, int dtype, const float* q,
                          const int* excl, int n, int d, int m, int seg, int n_seg,
                          int splits, float* seg_d, int* seg_i, void* stream) {
-  if (!pow2(seg) || n < 1 || d < 1 || m < 1 || splits < 1 ||
-      n_seg != (int)(((long long)n + seg - 1) / seg))
+  if (!pow2(seg) || n < 1 || d < 1 || m < 1 || splits < 1 || splits > MAX_SPLITS ||
+      n_seg != (int)(((long long)n + seg - 1) / seg) || reinterpret_cast<uintptr_t>(pts) % 16)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return emit<float>(pts, q, excl, n, d, m, seg, n_seg, splits, seg_d, seg_i, s);
-    case 1: return emit<__nv_bfloat16>(pts, q, excl, n, d, m, seg, n_seg, splits, seg_d, seg_i, s);
-    case 2: return emit<__half>(pts, q, excl, n, d, m, seg, n_seg, splits, seg_d, seg_i, s);
-    case 3: return emit<int8_t>(pts, q, excl, n, d, m, seg, n_seg, splits, seg_d, seg_i, s);
+    case 0: return emit<float>(pts, q, excl, n, d, m, seg, splits, seg_d, seg_i, s);
+    case 1: return emit<__nv_bfloat16>(pts, q, excl, n, d, m, seg, splits, seg_d, seg_i, s);
+    case 2: return emit<__half>(pts, q, excl, n, d, m, seg, splits, seg_d, seg_i, s);
+    case 3: return emit<int8_t>(pts, q, excl, n, d, m, seg, splits, seg_d, seg_i, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -363,8 +350,8 @@ int twophase_rescan_launch(int device, const void* pts, int dtype, const float* 
   }
 }
 
-// emit's geometry: queries per block and corpus rows per tile
-int twophase_knn_query_block() { return knn::QB; }
+// emit's geometry (the tile loop's): queries per block and corpus rows per tile
+int twophase_knn_query_block() { return knn::tile::QB; }
 int twophase_knn_tile_rows() { return knn::TN; }
 
 const char* twophase_knn_error_string(int code) {

@@ -4,19 +4,20 @@
 reference algorithm, over the padded tables with ``layout="table"`` or
 over the packed bucket-CSR view with ``layout="packed"``).
 ``mode="auto"`` picks exact up to ``exact_max_n`` points and hash beyond.
-Exact mode on a CUDA corpus runs the JAX package's routing: the two-phase
-engine (emit + rescan kernels, ``ops/twophase.py``) from
-``twophase_min_n`` points when k + 2 <= 128, and for every k > 128 unless
-k is close to n; the rank kernel otherwise, or the rescan-merge or
-streaming kernel when a search pins ``merge``/``stream``.  On the CPU it
+Exact mode on a CUDA corpus runs the JAX package's routing rule: the
+two-phase engine (emit + rescan kernels, ``ops/twophase.py``) from
+``twophase_min_n`` points (default ``TWOPHASE_MIN_N``, where this card's
+crossover puts it) when k + 2 <= 128, and for every k > 128 unless k is
+close to n; the rank kernel otherwise, or the rescan-merge or streaming
+kernel when a search pins ``merge``/``stream``.  On the CPU it
 runs the float oracle.  Packed hash serving on a CUDA view runs
 ``search_packed_fused`` (the probe-window kernel) from ``fused_min_batch``
 queries (0: always, the JAX default on an accelerator), the plain
 ``search_packed`` otherwise and on the CPU.
 
-The routing thresholds are injectable.  Their defaults are the JAX
-package's, which were measured on a TPU v5e and are not evidence for this
-card; PERF.md records the H100 measurements to retune them from.
+The routing thresholds are injectable.  ``twophase_min_n``'s default is
+measured on this card (``ops/twophase.py:TWOPHASE_MIN_N``); the others are
+the JAX package's values, not yet measured here (PERF.md).
 The JAX package's lane-padded corpus is TPU layout and is not ported.
 """
 
@@ -33,7 +34,7 @@ from ..ops.twophase import TWOPHASE_MIN_N
 from ..ops.twophase import TWOPHASE_ONLY_KW as _TWOPHASE_ONLY_KW
 from ..ops.twophase import exact_knn_twophase, route
 
-# the JAX package's v5e-measured defaults (see the module docstring)
+# the JAX package's defaults (see the module docstring)
 EXACT_MAX_N_DEFAULT = 8_000_000
 # packed serving takes the probe kernel from this batch size on a CUDA view
 FUSED_MIN_BATCH = 0

@@ -300,6 +300,16 @@ def splits(m: int, n: int, sms: int, query_block: int, tile_rows: int) -> int:
     return next((s for s in cands if busy(s) >= 7 / 8), max(cands, key=busy))
 
 
+def split_rows(n: int, n_splits: int, tile_rows: int, split_tiles: int = 1) -> int:
+    """Corpus rows a split of the tile loop covers (``csrc/knn_tile.cuh:
+    launch_tiled``): ceil(tiles / ``n_splits``) ``tile_rows``-row tiles,
+    rounded up to a multiple of ``split_tiles`` (1 for the rank kernel and
+    the rescan merge, a segment's tiles for emit); split s starts at s
+    times this, and one past the corpus's end has no rows."""
+    tiles = -(-(-(-n // tile_rows)) // n_splits)
+    return -(-tiles // split_tiles) * split_tiles * tile_rows
+
+
 def tile_geometry(name: str) -> tuple[int, int]:
     """(queries per block, corpus rows per tile) of the rank kernel
     (``name="exact_knn"``), the rescan merge (``"rescan_merge_knn"``) or the
@@ -320,10 +330,11 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     (``stream=True``, which takes precedence over ``merge``).  Returns
     (ids (m, k) int32, squared distances (m, k) float32).
     ``matmul_precision`` is validated; every tier computes what "highest"
-    computes: in all three kernels, on the tensor cores, three TF32 passes
-    with fp32 accumulation for a float32 stream (which ranks as IEEE fp32
-    does), one pass at storage width for bf16 and f16 (queries rounded to
-    it), int8 in int32 (see the kernel sources).  ``compute_dtype`` (torch.float32, bfloat16
+    computes: in all three kernels and the two-phase emit, on the tensor
+    cores, three TF32 passes with fp32 accumulation for a float32 stream
+    (which ranks as IEEE fp32 does), one pass at storage width for bf16
+    and f16 (queries rounded to it), int8 in int32 (see the kernel
+    sources).  ``compute_dtype`` (torch.float32, bfloat16
     or float16) is the width the corpus streams at; see the module
     docstring for the norms each kernel takes.  The JAX kernels' TPU knobs
     (``tile``, ``query_block``, ``interpret``) raise ``ValueError``.
@@ -585,7 +596,7 @@ def exact_knn_rescan_plain_by_splits(points: torch.Tensor, queries: torch.Tensor
     not one walk over the whole corpus, is what the kernel equals bit for
     bit.  ``kw`` goes to :func:`exact_knn_rescan_plain`."""
     n = points.shape[0]
-    per = -(-(-(-n // tile_rows)) // n_splits) * tile_rows  # rows per split
+    per = split_rows(n, n_splits, tile_rows)
     ids, dists = [], []
     for lo in range(0, n, per):
         e = None if exclude is None else exclude - lo
@@ -683,9 +694,10 @@ def exact_search(points, queries, k: int, *, scale=None,
                  device=None, **kw):
     """Exact k-NN with the engine the tensors' device has, routed as the
     JAX package routes it on its accelerator (:func:`~.twophase.route`):
-    on a CUDA corpus the two-phase engine at n >= ``TWOPHASE_MIN_N`` and
-    for k > 128, the rank kernel below that, brute force on the card for
-    k > 128 close to n; on the CPU the float oracle
+    on a CUDA corpus the two-phase engine at n >= ``TWOPHASE_MIN_N`` (where
+    this card's crossover puts it) and for k > 128, the rank kernel below
+    that, brute force on the card for k > 128 close to n; on the CPU the
+    float oracle
     (:func:`brute_force_knn`), as the JAX package does off the TPU.
     ``kw`` takes the two-phase knobs (``seg``, ``pad_segments``,
     ``rescan``) and :func:`exact_knn`'s (``merge``, ``twophase_seg``,

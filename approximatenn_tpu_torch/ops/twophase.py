@@ -32,13 +32,16 @@ import torch
 
 from ..config import itype
 from .exact import (_DTYPE_CODE, KMAX, _check, _prepare, device_index, launch_error,
-                    launches, place, tile_geometry, _library)
+                    launches, place, splits, tile_geometry, _library)
 
-# At and above this corpus size exact serving takes the two-phase engine.
-# The JAX package's value, measured on a TPU v5e; the H100 crossover is
-# measured by chip_smoke.py and recorded in PERF.md, and this default
-# stands until it is retuned from those numbers.
-TWOPHASE_MIN_N = 500_000
+# At and above this corpus size exact serving takes the two-phase engine:
+# the smallest n from which two-phase / rank <= 1 in float32 there and at
+# every larger n measured by chip_smoke.py's crossover phase (m = 1000,
+# k = 10).  On an NVIDIA H100 80GB HBM3 at 700 W the ratio was 1.14-1.54
+# from 250k to 4M rows (PERF.md), so no measured size qualifies and the
+# default is the exact engine's own limit, engine/serving.py's
+# EXACT_MAX_N_DEFAULT; nothing above 4M rows was measured.
+TWOPHASE_MIN_N = 8_000_000
 # keywords exact_knn_twophase takes; any other (merge, stream, compute_dtype)
 # pins exact_knn's kernel family: rank, rescan merge or stream
 TWOPHASE_KW = frozenset({"seg", "pad_segments", "scale", "rescan",
@@ -48,14 +51,6 @@ TWOPHASE_ONLY_KW = ("seg", "pad_segments", "rescan")
 
 _INT32_MAX = 2**31 - 1
 _BLOCK_ELEMS = 64 << 20  # plain versions: ~256 MB float32 per query block
-
-
-def emit_splits(m: int, n: int, sms: int, query_block: int, tile_rows: int) -> int:
-    """Corpus splits of the emit kernel (``query_block`` queries a block,
-    the corpus in ``tile_rows``-row tiles): enough blocks to fill a card of
-    ``sms`` SMs (about four resident blocks per SM) when there are few
-    query blocks; at most one per corpus tile."""
-    return max(1, min(-(-n // tile_rows), -(-4 * sms // -(-m // query_block))))
 
 
 def auto_seg(n: int) -> int:
@@ -140,12 +135,16 @@ def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
     q, _, _ = _prepare(points, queries, scale)
     if exclude is not None:
         exclude = exclude.contiguous()
+    # rows are copied in 16-byte units where their width allows
+    if points.data_ptr() % 16:
+        points = points.clone()
     lib = _library("twophase_knn")
+    # the rank kernel's grid; the kernel rounds a split up to whole segments
+    s = splits(m, n, torch.cuda.get_device_properties(dev).multi_processor_count,
+               *tile_geometry("twophase_knn"))
     err = lib.twophase_emit_launch(
         device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
-        exclude.data_ptr() if exclude is not None else None, n, d, m, seg, n_seg,
-        emit_splits(m, n, torch.cuda.get_device_properties(dev).multi_processor_count,
-                    *tile_geometry("twophase_knn")),
+        exclude.data_ptr() if exclude is not None else None, n, d, m, seg, n_seg, s,
         seg_d.data_ptr(), seg_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -15,7 +15,11 @@ Phases, one line each, and a non-zero exit on the first failure:
    the serving shape (1M x 128 f32, m = 1000, k = 10: seg = 128, P = 12),
    k = 64 and k = 126, emit-all at k = 256 and k = 1000, n = 20,011 x 96
    (partial last segment), segments of 32 and 512 rows, bf16, f16, int8,
-   m = 1, exhausted windows, emit with ``exclude``.  Probe kernel:
+   m = 1, exhausted windows, emit with ``exclude``; emit also at d = 33,
+   256, 960 and 2,048 with segments of 8, 256 and 1,024 rows over n =
+   20,011 (splits take whole segments), m = 1 and 37, bf16, f16, int8, its
+   time at the serving shape in f32 and bf16 stored beside the library's
+   segment minimum.  Probe kernel:
    overlapping windows, clipped starts, a live bound below n, every window
    past the live bound, k = 128 over fewer distinct slots, P = m = tries =
    1, d = 96, bf16, f16, int8 (the main shape is checked in step 4).
@@ -24,19 +28,21 @@ Phases, one line each, and a non-zero exit on the first failure:
    corpus (the rank kernel too), and the serving shape.  Rank and rescan
    merge also d = 33, 256, 960 and 2,048 (feature chunks past d = 128 in
    f32) with k = 1 and 128, m = 1 and 37, ``exclude``, bf16, f16 and int8;
-   the stream d = 256 and 768 (smaller ring slots).  All three
-   (tensor-core dot products): one-hot integer rows that show a wrong
-   fragment index (f32 and bf16, ids and distances exact), the float64
-   oracle at the serving shape (recall@10 up to ties 1.0 in f32), their
-   times beside the library call's (f32 and bf16), the bound and their
-   three TF32 passes' tensor-core time, and the stream's effective L2
-   read rate;
+   the stream d = 256 and 768 (smaller ring slots).  All four
+   tensor-core kernels (rank, rescan merge, stream, emit): one-hot integer
+   rows that show a wrong fragment index (f32 and bf16, ids and distances
+   or minima exact); the rank family: the float64
+   oracle at the serving shape (recall@10 up to ties 1.0 in f32); all
+   four: their times beside the library call's (f32 and bf16), the bound
+   and their three TF32 passes' tensor-core time, and their effective L2
+   read rates;
 3. the main path at the SIFT-1M shape (n = 1M x d = 128 float32 from
    ``--seed``, 1000 queries, k = 10, tries = 10), each path with the launch
    counts set to 0 just before it and read just after: ``build`` (exact kNN
    graph through the rank kernel) -> ``search``; the two-phase engine
    (``exact_knn_twophase`` at k = 10 and 64, ``exact_search`` at k = 256,
-   ``Server`` auto in f32 and bf16); the same servers with
+   ``Server`` with ``twophase_min_n`` = n in f32 and bf16); ``Server``
+   auto (the engine ``TWOPHASE_MIN_N`` picks at n); the two-phase servers with
    ``no_twophase=True`` (the rank kernel); ``merge``: the f32 server with
    ``no_twophase=True``, ``merge="rescan"`` and ``stream=True`` pinned, each
    in f32 and with ``compute_dtype=torch.bfloat16`` (recall gated at 1.0 up
@@ -54,9 +60,10 @@ Phases, one line each, and a non-zero exit on the first failure:
    window 96, a gross-error guard), the card against the same search on
    the CPU on 50 queries;
    then updates on that server (remove 1% of ids, add 10,000 points);
-5. the rank/two-phase crossover on prefixes of the corpus (250k, 500k, 1M;
-   f32 and bf16) and ``torch.profiler`` breakdowns of two-phase and packed
-   serving.
+5. the rank/two-phase crossover on prefixes of the corpus (250k, 500k,
+   1M) and on 2M and 4M corpora drawn on the card (f32 and bf16), with the
+   threshold the ``TWOPHASE_MIN_N`` rule takes from it, and
+   ``torch.profiler`` breakdowns of two-phase and packed serving.
 
 Before the last line it prints one JSON object with each kernel's launch
 count on the main path, its error against the plain version, its time, the
@@ -188,15 +195,15 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
 
 
 def check_tile_layout(dev) -> None:
-    """The fragment layout of the three tensor-core kernels (rank, rescan
-    merge, stream): one-hot integer rows (row r holds 1 + r // d in feature
-    r % d) against unit-vector queries, so that a wrong row, feature or
-    query index of any element shows, which random data hides.  Every
-    product is exact in every type, so ids and distances must equal the
-    plain version's bit for bit: the rank kernel's (ties by id), the
-    stream's on the kernel's 128-row tiles and the rescan merge's on its
-    tiles and corpus splits (which decide the ids kept among equal
-    distances)."""
+    """The fragment layout of the four tensor-core kernels (rank, rescan
+    merge, stream, two-phase emit): one-hot integer rows (row r holds 1 +
+    r // d in feature r % d) against unit-vector queries, so that a wrong
+    row, feature or query index of any element shows, which random data
+    hides.  Every product is exact in every type, so ids and distances (emit:
+    segment minima and their ids) must equal the plain version's bit for
+    bit: the rank kernel's and emit's (ties by id), the stream's on the
+    kernel's 128-row tiles and the rescan merge's on its tiles and corpus
+    splits (which decide the ids kept among equal distances)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, d in ((1000, 128), (700, 33)):
         r = torch.arange(n, device=dev)
@@ -223,6 +230,16 @@ def check_tile_layout(dev) -> None:
             phase("kernel", f"{kern} fragment layout n={n} d={d} m={d} k=10,128 exclude f32 "
                             "bf16: ids and distances equal to the plain version's "
                             "(max_abs_err 0)")
+        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for seg, e in ((8, None), (128, excl), (256, None), (256, excl)):
+                va, ia = tp.segment_minima(X.to(dt), Y, seg, exclude=e)
+                vb, ib = tp.segment_minima_plain(X.to(dt), Y, seg, exclude=e)
+                fence()
+                if not (torch.equal(va, vb) and torch.equal(ia, ib)):
+                    raise AssertionError(f"emit layout {label} n={n} d={d} seg={seg}: minima or "
+                                         "ids differ from the plain version's")
+        phase("kernel", f"emit fragment layout n={n} d={d} m={d} seg=8,128,256 exclude f32 "
+                        "bf16: minima and ids equal to the plain version's (max_abs_err 0)")
 
 
 def near_tie_ok(points, q, ids_a, ids_b, rtol=1e-5) -> bool:
@@ -625,6 +642,16 @@ def main() -> None:
                                          ("int8", xd8, float(sd8), 1e-5)):
                 check_case(f"{label} d={dd} n=20011 m=37 k=128 exclude", pts, qd, 128,
                            exclude=ed, scale=sc, rtol=rtol, kernel=kern)
+        # emit at any d; segments of 8 (lane groups), 256 and 1,024 rows
+        # (several tiles; n = 20,011 is a multiple of none, so splits must
+        # take whole segments)
+        for sg in (8, 256, 1024):
+            check_emit(f"d={dd} n=20011 m=37 seg={sg} exclude", xd, qd, sg, exclude=ed)
+            check_emit(f"d={dd} n=20011 m=1 seg={sg}", xd, qd[:1].contiguous(), sg)
+        for label, pts, sc in (("bf16", xd.to(bf16), None), ("f16", xd.to(torch.float16), None),
+                               ("int8", xd8, float(sd8))):
+            check_emit(f"{label} d={dd} n=20011 m=37 seg=256 exclude", pts, qd, 256,
+                       exclude=ed, scale=sc)
     check_tile_layout(dev)
     # the tensor-core kernels' dot products are three TF32 passes, not the
     # plain versions' IEEE fp32: hold them to the float64 oracle directly
@@ -666,12 +693,22 @@ def main() -> None:
 
     emit_ms = cuda_ms(lambda: tp.segment_minima(X, Y, seg), reps=10)
     emit_plain_ms = cuda_ms(lambda: tp.segment_minima_plain(X, Y, seg), reps=2)
+    emit_bf16_ms = cuda_ms(lambda: tp.segment_minima(Xb, Y, seg), reps=10)
+    n_seg = -(-N // seg)
+
+    def seg_min(scores):
+        """Emit's function on the score matrix: the last segment padded."""
+        pad = torch.nn.functional.pad(scores, (0, n_seg * seg - N), value=float("inf"))
+        return pad.view(M, n_seg, seg).min(-1)
+
+    lib_emit_ms = cuda_ms(lambda: seg_min((X * X).sum(-1) - 2.0 * (Y @ X.T)), reps=5)
+    lib_emit_bf16_ms = cuda_ms(lambda: seg_min((Xb.float() ** 2).sum(-1)
+                                               - 2.0 * (Y.to(bf16) @ Xb.T).float()), reps=5)
     tp_rescan_ms = cuda_ms(lambda: tp.rescan_windows(X, Y, starts, seg, k), reps=20)
     tp_rescan_plain_ms = cuda_ms(lambda: tp.rescan_windows_plain(X, Y, starts, seg, k), reps=3)
     phase("kernel", f"time n={N} m={M} k={k} seg={seg}: emit {emit_ms:.3f} ms plain "
                     f"{emit_plain_ms:.3f} ms; rescan {tp_rescan_ms:.3f} ms plain "
                     f"{tp_rescan_plain_ms:.3f} ms")
-    n_seg = -(-N // seg)
     pairs, distinct = rescan_rows(starts, N, seg)
     phase("kernel", f"rescan windows n={N} m={M} P={P} seg={seg}: {pairs} (query, row) "
                     f"pairs over {distinct} distinct rows")
@@ -693,22 +730,30 @@ def main() -> None:
     b3 = 1e3 * 3 * 2.0 * M * N * 128 / PEAK_TF32
     qbs = {"rank": ex.tile_geometry("exact_knn")[0],
            "rescan": ex.tile_geometry("rescan_merge_knn")[0],
-           "stream": ex.stream_query_block()}
-    for kern, f32_ms, bf_ms in (("rank", kern_ms, kern_bf16_ms),
-                                ("rescan", rescan_ms, half_ms["rescan merge bf16 stored"]),
-                                ("stream", stream_ms, half_ms["stream bf16 stored"])):
-        b32 = bounds[VARIANTS[kern][2]][0]
-        pn_bytes = 0.0 if kern == "rank" else 4.0 * (N + M)
+           "stream": ex.stream_query_block(),
+           "emit": ex.tile_geometry("twophase_knn")[0]}
+    keys = {kern: VARIANTS[kern][2] for kern in VARIANTS}
+    keys["emit"] = "twophase_emit"
+    for kern, f32_ms, bf_ms, lib32, lib16 in (
+            ("rank", kern_ms, kern_bf16_ms, lib_ms, lib_bf16_ms),
+            ("rescan", rescan_ms, half_ms["rescan merge bf16 stored"], lib_ms, lib_bf16_ms),
+            ("stream", stream_ms, half_ms["stream bf16 stored"], lib_ms, lib_bf16_ms),
+            ("emit", emit_ms, emit_bf16_ms, lib_emit_ms, lib_emit_bf16_ms)):
+        b32 = bounds[keys[kern]][0]
+        pn_bytes = 4.0 * (N + M) if kern in ("rescan", "stream") else 0.0
+        out_bytes = 8.0 * M * n_seg if kern == "emit" else 8.0 * M * 10
         b16 = 1e3 * max(2.0 * M * N * 128 / PEAK_BF16,
-                        (2.0 * N * 128 + 4.0 * M * 128 + pn_bytes + 8.0 * M * 10) / PEAK_BYTES)
-        phase("kernel", f"{kern} n={N} m={M} k=10: f32 {f32_ms:.3f} ms = "
-                        f"{f32_ms / lib_ms:.3f} x library topk {lib_ms:.3f} ms = "
+                        (2.0 * N * 128 + 4.0 * M * 128 + pn_bytes + out_bytes) / PEAK_BYTES)
+        what = f"seg={seg}" if kern == "emit" else "k=10"
+        lib_name = "library segment min" if kern == "emit" else "library topk"
+        phase("kernel", f"{kern} n={N} m={M} {what}: f32 {f32_ms:.3f} ms = "
+                        f"{f32_ms / lib32:.3f} x {lib_name} {lib32:.3f} ms = "
                         f"{f32_ms / b32:.2f} x bound {b32:.3f} ms (the function's fp32 "
                         f"operations at the CUDA cores' peak, where the kernel does not run "
                         f"them) = {f32_ms / b3:.2f} x 3xTF32 {b3:.3f} ms (its three TF32 passes "
                         f"at the tensor cores' dense TF32 peak); bf16 stored {bf_ms:.3f} ms = "
-                        f"{bf_ms / lib_bf16_ms:.3f} x library topk (bf16 matmul) "
-                        f"{lib_bf16_ms:.3f} ms = {bf_ms / b16:.2f} x bound {b16:.3f} ms (bf16 "
+                        f"{bf_ms / lib16:.3f} x {lib_name} (bf16 matmul) "
+                        f"{lib16:.3f} ms = {bf_ms / b16:.2f} x bound {b16:.3f} ms (bf16 "
                         f"tensor-core operations)")
         blocks = -(-M // qbs[kern])
         phase("kernel", f"{kern} effective L2 read rate ({blocks} query blocks x corpus bytes "
@@ -717,7 +762,7 @@ def main() -> None:
     phase("kernel", f"point norms alone (in every rescan-merge and stream time): "
                     f"{norms_ms:.3f} ms")
     timing = {"exact_knn": (kern_ms, plain_ms, lib_ms),
-              "twophase_emit": (emit_ms, emit_plain_ms, None),
+              "twophase_emit": (emit_ms, emit_plain_ms, lib_emit_ms),
               "twophase_rescan": (tp_rescan_ms, tp_rescan_plain_ms, None),
               "exact_knn_rescan": (rescan_ms, rescan_plain_ms, lib_ms),
               "exact_knn_stream": (stream_ms, stream_plain_ms, lib_ms)}
@@ -818,17 +863,30 @@ def main() -> None:
                     f"{qps:.1f} QPS, recall@10 {rec:.4f} (up to ties {tie_rec:.4f})")
         return sids
 
+    # servers whose threshold puts this corpus on the two-phase engine
     servers = {}
     for label, sdt in (("f32", None), ("bf16", torch.bfloat16)):
-        srv = ann.Server.build(X, k, storage_dtype=sdt)
+        srv = ann.Server.build(X, k, storage_dtype=sdt, twophase_min_n=N)
         desc = srv.describe()
         if desc["mode"] != "exact" or desc["exact_engine"] != "cuda-twophase":
-            raise AssertionError(f"Server auto did not resolve to the two-phase engine: {desc}")
-        serve(f"exact {label} (cuda-twophase)", srv)
+            raise AssertionError(f"Server did not resolve to the two-phase engine: {desc}")
+        serve(f"exact {label} twophase_min_n={N} (cuda-twophase)", srv)
         servers[label] = srv
-    if results["exact f32 (cuda-twophase)"][2] != 1.0:
+    if results[f"exact f32 twophase_min_n={N} (cuda-twophase)"][2] != 1.0:
         raise AssertionError("f32 two-phase recall up to ties is not 1.0")
     read_counts("two-phase engine", ("twophase_emit", "twophase_rescan"))
+
+    # Server auto: the engine TWOPHASE_MIN_N (from the crossover) gives at N
+    ex.reset_launch_counts()
+    auto = ann.Server.build(X, k)
+    want = "twophase" if N >= tp.TWOPHASE_MIN_N else "rank"
+    desc = auto.describe()
+    if desc["mode"] != "exact" or desc["exact_engine"] != f"cuda-{want}":
+        raise AssertionError(f"Server auto did not resolve to cuda-{want}: {desc}")
+    serve(f"exact f32 auto TWOPHASE_MIN_N={tp.TWOPHASE_MIN_N} (cuda-{want})", auto)
+    del auto
+    read_counts("Server auto", ("twophase_emit", "twophase_rescan") if want == "twophase"
+                else ("exact_knn",))
 
     # path 3: the same server escaping the route runs the rank kernel
     ex.reset_launch_counts()
@@ -848,14 +906,7 @@ def main() -> None:
     updates(srv_packed, Yc, args.seed, dev, read_counts)
 
     # -- phase 5: crossover and profiles -----------------------------------------------
-    for label, Xs in (("f32", X), ("bf16", Xb)):
-        for n in (250_000, 500_000, N):
-            Xn = Xs[:n]
-            rank_ms = cuda_ms(lambda: ex.exact_knn(Xn, Y, k), reps=5)
-            two_ms = cuda_ms(lambda: tp.exact_knn_twophase(Xn, Y, k), reps=5)
-            phase("crossover", f"{label} n={n} m={M} k={k} seg={tp.auto_seg(n)}: rank "
-                               f"{rank_ms:.3f} ms two-phase {two_ms:.3f} ms "
-                               f"(two-phase/rank {two_ms / rank_ms:.3f})")
+    crossover(X, Xb, Y, k, args.seed, dev)
     profile_serving("Server f32 two-phase", servers["f32"], Y)
     del servers
     profile_serving(f"Server packed bf16 w={PACKED_WINDOW} P={PACKED_PROBES}", srv_packed, Yc)
@@ -870,6 +921,32 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def crossover(X, Xb, Y, k: int, seed: int, dev) -> None:
+    """Rank kernel against the two-phase engine, f32 and bf16 stored, on
+    the prefixes 250k, 500k and 1M of the main corpus and on 2M and 4M
+    corpora drawn on the card from ``seed``; then the threshold the rule
+    of ``ops/twophase.py:TWOPHASE_MIN_N`` takes from the f32 ratios: the
+    smallest measured n from which two-phase / rank <= 1 at that n and at
+    every larger one (8,000,000, the exact engine's limit, where none)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    ratios = {}
+    for n in (250_000, 500_000, N, 2 * N, 4 * N):
+        Xf = X[:n] if n <= N else torch.randn(n, 128, generator=gen, device=dev)
+        for label, Xs in (("f32", Xf), ("bf16", Xb[:n] if n <= N else Xf.to(torch.bfloat16))):
+            rank_ms = cuda_ms(lambda: ex.exact_knn(Xs, Y, k), reps=5)
+            two_ms = cuda_ms(lambda: tp.exact_knn_twophase(Xs, Y, k), reps=5)
+            ratios[label, n] = two_ms / rank_ms
+            phase("crossover", f"{label} n={n} m={M} k={k} seg={tp.auto_seg(n)}: rank "
+                               f"{rank_ms:.3f} ms two-phase {two_ms:.3f} ms "
+                               f"(two-phase/rank {two_ms / rank_ms:.3f})")
+        del Xf, Xs
+    sizes = sorted(n for label, n in ratios if label == "f32")
+    rule = next((n for i, n in enumerate(sizes)
+                 if all(ratios["f32", m] <= 1.0 for m in sizes[i:])), 8_000_000)
+    phase("crossover", f"threshold by the rule (f32, n up to {sizes[-1]}): {rule}; "
+                       f"TWOPHASE_MIN_N {tp.TWOPHASE_MIN_N}")
 
 
 def merge_paths(srv, serve, results, read_counts, X, Y) -> None:

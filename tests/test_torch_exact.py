@@ -251,26 +251,41 @@ def test_kernel_matches_plain_on_card(dt, kernel):
                 assert_match(ia.cpu(), da.cpu(), ib[:, :k].cpu(), db.cpu(),
                              rtol=1e-3 if cdt is not None else rtol)
     elif kernel == "emit":
-        for seg, e in ((16, None), (64, excl), (128, None), (512, excl)):
-            before = ex.launches["twophase_emit"]
-            va, ia = tp.segment_minima(p, q, seg, exclude=e, scale=scale)
-            assert ex.launches["twophase_emit"] == before + 1
-            vb, ib = tp.segment_minima_plain(p, q, seg, exclude=e, scale=scale)
-            torch.cuda.synchronize()
-            fin = torch.isfinite(vb)
-            assert torch.equal(fin, torch.isfinite(va))
-            np.testing.assert_allclose(va[fin].cpu().numpy(), vb[fin].cpu().numpy(),
-                                       rtol=1e-5, atol=1e-4)  # both widen to fp32
-            # argmin ids may differ only where two rows of a segment near-tie
-            qq, _, _ = ex._prepare(p, q, scale)  # as the kernel multiplies them
-            if dt in ("bf16", "f16"):
-                qq = qq.to(p.dtype).float()
-            x = p.double()
-            rows = torch.nonzero((ia != ib) & fin)
-            for r, s in rows.tolist()[:50]:
-                sa = (x[ia[r, s]] - qq[r].double()).pow(2).sum()
-                sb = (x[ib[r, s]] - qq[r].double()).pow(2).sum()
-                assert abs(float(sa - sb)) <= 1e-4 * abs(float(sb)) + 1e-3
+        # seg 8 (lane groups), 16, 64 (32-row chunks), 128, 256, 512 and 1,024
+        # (segments of several tiles; n is a multiple of none of them, and
+        # splits take whole segments); then any d (feature chunks past
+        # d = 128 in f32), m = 37 and 1, exclude
+        runs = [(p, q, [(8, None), (16, None), (64, excl), (128, None), (256, excl),
+                        (512, excl), (1024, None)])]
+        for dd in (33, 256, 960, 2048):
+            raw = torch.randn(1001, dd, generator=g).to(dev)
+            if dt == "int8":
+                raw = torch.clamp(torch.round(raw / scale), -127, 127)
+            qd = torch.randn(37, dd, generator=g).to(dev)
+            runs.append((raw.to(p.dtype), qd, [(32, excl[:37]), (256, None)]))
+            runs.append((raw.to(p.dtype), qd[:1].contiguous(), [(8, excl[:1]), (1024, None)]))
+        for pts, qq, scases in runs:
+            for seg, e in scases:
+                before = ex.launches["twophase_emit"]
+                va, ia = tp.segment_minima(pts, qq, seg, exclude=e, scale=scale)
+                assert ex.launches["twophase_emit"] == before + 1
+                vb, ib = tp.segment_minima_plain(pts, qq, seg, exclude=e, scale=scale)
+                torch.cuda.synchronize()
+                assert va.shape == vb.shape == (qq.shape[0], -(-pts.shape[0] // seg))
+                fin = torch.isfinite(vb)
+                assert torch.equal(fin, torch.isfinite(va))
+                np.testing.assert_allclose(va[fin].cpu().numpy(), vb[fin].cpu().numpy(),
+                                           rtol=1e-5, atol=1e-4)  # fp32 sums of exact products
+                # argmin ids may differ only where two rows of a segment near-tie
+                qk, _, _ = ex._prepare(pts, qq, scale)  # as the kernel multiplies them
+                if dt in ("bf16", "f16"):
+                    qk = qk.to(pts.dtype).float()
+                x = pts.double()
+                rows = torch.nonzero((ia != ib) & fin)
+                for r, sg in rows.tolist()[:50]:
+                    sa = (x[ia[r, sg]] - qk[r].double()).pow(2).sum()
+                    sb = (x[ib[r, sg]] - qk[r].double()).pow(2).sum()
+                    assert abs(float(sa - sb)) <= 1e-4 * abs(float(sb)) + 1e-3
     else:
         m = q.shape[0]
         qq, _, _ = ex._prepare(p, q, scale)
@@ -311,13 +326,14 @@ def one_hot_rows(n: int, d: int, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["rank", "rescan_merge", "stream"])
+@pytest.mark.parametrize("kernel", ["rank", "rescan_merge", "stream", "emit"])
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
 def test_stream_fragment_layout_on_card(dt, kernel):
     """One-hot integer rows against unit-vector queries (``one_hot_rows``):
     every product is exact in every type, so each tensor-core kernel (rank,
-    rescan merge, stream) must equal its plain version bit for bit; a wrong
-    fragment index moves a dot product to another (row, query) and shows.
+    rescan merge, stream, two-phase emit) must equal its plain version bit
+    for bit; a wrong fragment index moves a dot product to another (row,
+    query) and shows.
     Among the many equal distances here, which ids the replace-the-worst
     merge keeps depends on the tile: the stream's plain version walks the
     kernel's 128-row tiles, the rescan merge's also its corpus splits
@@ -333,6 +349,15 @@ def test_stream_fragment_layout_on_card(dt, kernel):
         pts = X.to(tdt)
         scale = 1.0 if dt == "int8" else None
         excl = torch.arange(d, dtype=torch.int32, device=dev)
+        if kernel == "emit":
+            from approximatenn_tpu_torch.ops import twophase as tp
+
+            for seg, e in ((8, None), (128, excl), (256, None), (256, excl)):
+                va, ia = tp.segment_minima(pts, q, seg, exclude=e, scale=scale)
+                vb, ib = tp.segment_minima_plain(pts, q, seg, exclude=e, scale=scale)
+                torch.cuda.synchronize()
+                assert torch.equal(va, vb) and torch.equal(ia, ib), (dt, n, d, seg)
+            continue
         for k, e in ((10, None), (10, excl), (128, None)):
             if kernel == "rank":
                 ia, da = ex.exact_knn(pts, q, k, exclude=e, scale=scale)
@@ -351,7 +376,7 @@ def test_stream_fragment_layout_on_card(dt, kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["rank", "rescan_merge", "stream"])
+@pytest.mark.parametrize("kernel", ["rank", "rescan_merge", "stream", "twophase"])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_nan_and_inf_rows_never_return_on_card(dt, kernel):
     """Rows holding a NaN or an infinite coordinate have NaN or +inf
@@ -360,12 +385,18 @@ def test_nan_and_inf_rows_never_return_on_card(dt, kernel):
     replace-the-worst kernels (rescan merge, stream) a NaN left in a tile's
     lane reduction orders differently in different lanes, so lanes would
     leave the rounds apart while the rest still shuffle with the whole warp
-    (the card stops with an illegal instruction)."""
+    (the card stops with an illegal instruction); the two-phase engine
+    (``exact_knn_twophase``: emit, then the rescan) counts a NaN score as
+    +inf in its segment minima too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda")
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
-    kw = {"rank": {}, "rescan_merge": {"merge": "rescan"}, "stream": {"stream": True}}[kernel]
+    from approximatenn_tpu_torch.ops import twophase as tp
+
+    kw = {"rank": {}, "rescan_merge": {"merge": "rescan"}, "stream": {"stream": True},
+          "twophase": {}}[kernel]
+    fn = tp.exact_knn_twophase if kernel == "twophase" else ex.exact_knn
     g = torch.Generator().manual_seed(3)
     X = torch.randn(1000, 96, generator=g)
     q = torch.randn(37, 96, generator=g).to(dev)
@@ -376,8 +407,8 @@ def test_nan_and_inf_rows_never_return_on_card(dt, kernel):
     X[700] = float("inf")
     X[701, 0] = -float("inf")
     for k in (10, 128):
-        ia, da = ex.exact_knn(X.to(dev, tdt), q, k, **kw)
-        ib, db = ex.exact_knn(far.to(dev, tdt), q, k, **kw)
+        ia, da = fn(X.to(dev, tdt), q, k, **kw)
+        ib, db = fn(far.to(dev, tdt), q, k, **kw)
         torch.cuda.synchronize()
         assert not torch.isin(ia, torch.tensor(bad, dtype=ia.dtype, device=dev)).any(), k
         assert torch.equal(ia, ib) and torch.equal(da, db), k
@@ -404,10 +435,8 @@ def test_split_geometry_with_132_sms(shape):
     shapes on a card of 132 SMs (the H100 SXM), one block resident per SM:
     at the serving shape (1M x 128, m = 1000) 32 query blocks x 4 splits =
     128 blocks, one wave; at the graph chunk (m = 65,536 queries) 2048 query
-    blocks and no split, 16 waves.  The emit kernel keeps its own geometry
-    (about four resident blocks per SM: 17 splits at serving)."""
-    from approximatenn_tpu_torch.ops import twophase as tp
-
+    blocks and no split, 16 waves.  The two-phase emit runs the same grid
+    (``test_emit_splits_cut_on_segment_boundaries``)."""
     m, want = {"serving": (1000, 4), "graph_chunk": (65536, 1)}[shape]
     n, sms, qb, tn = 1_000_000, 132, 32, 128
     s = ex.splits(m, n, sms, qb, tn)
@@ -417,11 +446,32 @@ def test_split_geometry_with_132_sms(shape):
     assert blocks / (waves * sms) >= 7 / 8  # at most 1/8 of the SM slots idle
     assert all(ex.splits(m, nn, sms, qb, tn) <= 32 for nn in (n, 10**8))  # the kernels' cap
     if shape == "serving":
-        assert tp.emit_splits(m, n, sms, qb, tn) == 17
         # one query: every split it may have, the card still mostly idle
         assert ex.splits(1, n, sms, qb, tn) == 32
         # a corpus of one tile cannot be split
         assert ex.splits(m, 100, sms, qb, tn) == 1
+
+
+@pytest.mark.parametrize("seg", [2**i for i in range(11)])
+def test_emit_splits_cut_on_segment_boundaries(seg):
+    """The two-phase emit's grid on the tile loop (``ops/twophase.py:
+    segment_minima`` takes the rank kernel's splits, ``knn_tile.cuh:
+    launch_tiled`` rounds a split up to whole segments): for n not a tile
+    multiple every split boundary is a segment boundary, the splits cover
+    the corpus, and at the serving shape (1M x 128, m = 1000, seg = 128 on
+    132 SMs) the blocks keep at least 7/8 of the SMs busy."""
+    sms, qb, tn = 132, 32, 128
+    for n in (1, 1001, 5003, 20_011, 1_000_003):
+        for m in (1, 37, 300, 1000, 65_536):
+            s = ex.splits(m, n, sms, qb, tn)
+            per = ex.split_rows(n, s, tn, max(1, seg // tn))
+            starts = [b * per for b in range(s + 1)]  # split b: rows [b per, (b + 1) per) below n
+            assert all(b % tn == 0 and b % seg == 0 for b in starts if b < n), (n, m, s, per)
+            assert starts[-1] >= n  # the splits cover every row
+    s = ex.splits(1000, 1_000_000, sms, qb, tn)
+    assert ex.split_rows(1_000_000, s, tn, 1) * s >= 1_000_000
+    blocks = -(-1000 // qb) * s
+    assert blocks / (-(-blocks // sms) * sms) >= 7 / 8
 
 
 @pytest.mark.cuda

@@ -190,10 +190,11 @@ def test_knob_checks():
 
 
 ROUTES = {
-    # name: (n, k, kw, no_twophase, engine on a CUDA corpus)
-    "merge_rescan": (500_000, 10, {"merge": "rescan"}, False, "rank"),
-    "stream": (500_000, 10, {"stream": True}, False, "rank"),
-    "compute_dtype": (500_000, 10, {"compute_dtype": torch.bfloat16}, False, "rank"),
+    # name: (n, k, kw, no_twophase, engine on a CUDA corpus); at the
+    # two-phase threshold, where a pinned knob keeps the rank family
+    "merge_rescan": (tp.TWOPHASE_MIN_N, 10, {"merge": "rescan"}, False, "rank"),
+    "stream": (tp.TWOPHASE_MIN_N, 10, {"stream": True}, False, "rank"),
+    "compute_dtype": (tp.TWOPHASE_MIN_N, 10, {"compute_dtype": torch.bfloat16}, False, "rank"),
     "rescan_big_k": (10_000, 200, {"merge": "rescan"}, False, "brute"),
 }
 

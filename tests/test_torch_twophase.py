@@ -141,14 +141,15 @@ def test_smallest_orders_by_distance_then_id():
     assert torch.isinf(out_d[0, 5:]).all()
 
 
+MIN_N = tp.TWOPHASE_MIN_N  # the rule's threshold, whatever its value
 ROUTES = {
     # name: (n, k, kw, no_twophase, engine on a CUDA corpus)
-    "small_n_rank": (100_000, 10, {}, False, "rank"),
-    "large_n_twophase": (500_000, 10, {}, False, "twophase"),
-    "two_phase_knobs": (500_000, 10, {"seg": 64, "rescan": "xla"}, False, "twophase"),
-    "k_plus_2_over_128": (500_000, 127, {}, False, "rank"),
-    "no_twophase": (500_000, 10, {}, True, "rank"),
-    "rank_knob_pinned": (500_000, 10, {"merge": "rank"}, False, "rank"),
+    "small_n_rank": (MIN_N - 1, 10, {}, False, "rank"),
+    "large_n_twophase": (MIN_N, 10, {}, False, "twophase"),
+    "two_phase_knobs": (MIN_N, 10, {"seg": 64, "rescan": "xla"}, False, "twophase"),
+    "k_plus_2_over_128": (MIN_N, 127, {}, False, "rank"),
+    "no_twophase": (MIN_N, 10, {}, True, "rank"),
+    "rank_knob_pinned": (MIN_N, 10, {"merge": "rank"}, False, "rank"),
     "big_k": (10_000, 200, {}, False, "twophase"),
     "big_k_no_twophase": (10_000, 200, {}, True, "twophase"),
     "big_k_near_n": (1_000, 200, {}, False, "brute"),
