@@ -27,6 +27,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+from torch.profiler import record_function
 
 from ..config import default_device
 from ..ops.exact import KMAX, exact_kernel, exact_search, stream_dtype
@@ -264,7 +265,8 @@ class Server:
             return self
         self.index = self.index.add_points(new_points)
         self.points = self.index.points
-        self._repack()
+        with record_function("add_points: re-pack"):
+            self._repack()
         return self
 
     def remove_points(self, ids) -> "Server":

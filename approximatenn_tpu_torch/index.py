@@ -25,6 +25,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .config import itype
 
@@ -202,24 +203,26 @@ class ANNIndex:
         # bulk append per table: rank each new point within its bucket
         # (stable sort + searchsorted) and write slot counts[b] + rank;
         # slots past the capacity are dropped
-        codes, _ = query_codes(self.row_means, self.bases, new_points)
-        counts = self.counts.clone()
-        arange_m = torch.arange(m, device=dev)
-        for t in range(self.tries):
-            ct = codes[:, t]
-            order = torch.argsort(ct, stable=True)
-            sc = ct[order]
-            first = torch.searchsorted(sc, sc, side="left")
-            slot = counts[t, sc.long()].long() + (arange_m - first)
-            keep = slot < self.tmax
-            tables[t, sc[keep].long(), slot[keep]] = (n_old + order[keep]).to(itype)
-            counts[t] += torch.bincount(ct.long(), minlength=self.n_buckets).to(itype)
+        with record_function("add_points: bucket append"):
+            codes, _ = query_codes(self.row_means, self.bases, new_points)
+            counts = self.counts.clone()
+            arange_m = torch.arange(m, device=dev)
+            for t in range(self.tries):
+                ct = codes[:, t]
+                order = torch.argsort(ct, stable=True)
+                sc = ct[order]
+                first = torch.searchsorted(sc, sc, side="left")
+                slot = counts[t, sc.long()].long() + (arange_m - first)
+                keep = slot < self.tmax
+                tables[t, sc[keep].long(), slot[keep]] = (n_old + order[keep]).to(itype)
+                counts[t] += torch.bincount(ct.long(), minlength=self.n_buckets).to(itype)
 
         # exact graph rows: k + 1 (the self-match) + one per tombstone, then
         # the self-match and removed rows masked by id and the row re-sorted
         n_dead = 0 if self.dead is None else int(self.dead.sum())
         kk = min(self.k + 1 + n_dead, n_new)
-        gnew, gd = exact_search(all_points, new_points, kk)
+        with record_function("add_points: exact rows"):
+            gnew, gd = exact_search(all_points, new_points, kk)
         gnew, gd = gnew.to(itype), gd.float()
         own = (n_old + torch.arange(m, dtype=itype, device=dev))[:, None]
         drop = gnew == own
@@ -234,23 +237,24 @@ class ANNIndex:
         graph = torch.cat([graph, gnew])
 
         if repair_reverse_edges:
-            aff = torch.unique(gnew)
-            aff = aff[aff < n_old]
-            if self.dead is not None and aff.numel():
-                aff = aff[~self.dead[aff.long()]]
-            if aff.numel():
-                new_ids = n_old + torch.arange(m, dtype=itype, device=dev)
+            with record_function("add_points: reverse-edge repair"):
+                aff = torch.unique(gnew)
+                aff = aff[aff < n_old]
+                if self.dead is not None and aff.numel():
+                    aff = aff[~self.dead[aff.long()]]
+                if aff.numel():
+                    new_ids = n_old + torch.arange(m, dtype=itype, device=dev)
 
-                def repair_stage(qb, curb, rr):
-                    cand = torch.cat([curb, new_ids[None].expand(qb.shape[0], m)], -1)
-                    dd = candidate_dists(qb, all_points, cand, exclude_self=rr)
-                    return dedup_topk(cand, dd, self.k, n_new)[0]
+                    def repair_stage(qb, curb, rr):
+                        cand = torch.cat([curb, new_ids[None].expand(qb.shape[0], m)], -1)
+                        dd = candidate_dists(qb, all_points, cand, exclude_self=rr)
+                        return dedup_topk(cand, dd, self.k, n_new)[0]
 
-                block = pick_block(aff.numel(), self.k + m, d, 4)
-                rows = aff.long()
-                graph[rows] = blocked_over_rows(
-                    repair_stage, aff.numel(), max(1, min(block, aff.numel())),
-                    all_points[rows], graph[rows], aff)
+                    block = pick_block(aff.numel(), self.k + m, d, 4)
+                    rows = aff.long()
+                    graph[rows] = blocked_over_rows(
+                        repair_stage, aff.numel(), max(1, min(block, aff.numel())),
+                        all_points[rows], graph[rows], aff)
 
         dead = self.dead
         if dead is not None:  # new points are live; slot n_new is the sentinel

@@ -249,7 +249,7 @@ def rescan_windows(points: torch.Tensor, q: torch.Tensor, starts: torch.Tensor,
         out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise launch_error(lib, "twophase_rescan", err)
-    launches["twophase_rescan"] += 1
+    launches["twophase_rescan_all" if k is None else "twophase_rescan"] += 1
     return out_i, out_d
 
 

@@ -102,6 +102,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                       "approximatenn_tpu/ops/pallas_exact.py:383"),
     "twophase_rescan": ("approximatenn_tpu_torch/csrc/twophase_knn.cu",
                         "approximatenn_tpu/ops/pallas_exact.py:1144"),
+    # the same kernel's emit-all launches (k > 128: every window row)
+    "twophase_rescan_all": ("approximatenn_tpu_torch/csrc/twophase_knn.cu",
+                            "approximatenn_tpu/ops/pallas_exact.py:1144"),
     "probe_topk": ("approximatenn_tpu_torch/csrc/probe_knn.cu",
                    "approximatenn_tpu/ops/pallas_probe.py:59"),
     "exact_knn_rescan": ("approximatenn_tpu_torch/csrc/rescan_merge_knn.cu",
@@ -128,6 +131,9 @@ PACKED_WINDOW, PACKED_PROBES, RERANK = 96, 18, 50
 # (tests/parity_packed_prefix.py), and the card's search equals the CPU's
 RECALL_GUARD = 0.75
 N_REMOVE, N_ADD = 10_000, 10_000
+# add_points' exact rows after the removals: k + 1 (the self-match) + the
+# tombstones, through the two-phase engine's emit-all rescan
+ADD_K = 10 + 1 + N_REMOVE
 # H100 SXM datasheet peaks at 700 W (not measured here): fp32 on the CUDA
 # cores and HBM3; a kernel's bound is the larger of its two times
 PEAK_FP32 = 67e12
@@ -711,13 +717,36 @@ def main() -> None:
                     f"{tp_rescan_plain_ms:.3f} ms")
     pairs, distinct = rescan_rows(starts, N, seg)
     phase("kernel", f"rescan windows n={N} m={M} P={P} seg={seg}: {pairs} (query, row) "
-                    f"pairs over {distinct} distinct rows")
+                    f"pairs over {distinct} distinct rows; effective L2 read rate (pairs x "
+                    f"row bytes / kernel time) {pairs * 512 / tp_rescan_ms / 1e9:.3f} TB/s")
+    # the rescan at the updates' emit-all shape: P = ADD_K + 2 windows, in
+    # exact_knn_twophase's query blocks of (32 << 20) // (P * seg) queries
+    p_all = ADD_K + 2
+    m_all = (32 << 20) // (p_all * seg)
+    q_all = Y[:m_all].contiguous()
+    starts_all = window_starts(X, q_all, p_all, seg)
+    errs["twophase_rescan_all"] = check_rescan(
+        f"emit-all updates' shape n={N} m={m_all} P={p_all} seg={seg}", X, q_all, starts_all,
+        seg, None)
+    all_ms = cuda_ms(lambda: tp.rescan_windows(X, q_all, starts_all, seg, None), reps=10)
+    all_plain_ms = cuda_ms(lambda: tp.rescan_windows_plain(X, q_all, starts_all, seg, None),
+                           reps=1)
+    pairs_all, distinct_all = rescan_rows(starts_all, N, seg)
+    phase("kernel", f"time rescan emit-all n={N} m={m_all} P={p_all} seg={seg}: kernel "
+                    f"{all_ms:.3f} ms plain {all_plain_ms:.3f} ms; {pairs_all} (query, row) "
+                    f"pairs over {distinct_all} distinct rows, {pairs_all * 512 / 1e9:.3f} GB "
+                    f"of row reads ({1e3 * pairs_all * 512 / PEAK_BYTES:.3f} ms at the HBM "
+                    f"peak, where no row is read from L2) and {m_all * p_all * seg * 8 / 1e9:.3f} "
+                    f"GB written; effective read rate {pairs_all * 512 / all_ms / 1e9:.3f} TB/s")
     bounds = {
         "exact_knn": bound(2.0 * M * N * 128, 4.0 * (N * 128 + M * 128) + 8.0 * M * k),
         "twophase_emit": bound(2.0 * M * N * 128,
                                4.0 * (N * 128 + M * 128) + 8.0 * M * n_seg),
         "twophase_rescan": bound(3.0 * pairs * 128,
                                  4.0 * (distinct * 128 + M * 128 + M * P) + 8.0 * M * k),
+        "twophase_rescan_all": bound(3.0 * pairs_all * 128,
+                                     4.0 * (distinct_all * 128 + m_all * 128 + m_all * p_all)
+                                     + 8.0 * m_all * p_all * seg),
     }
     # the rescan merge and the stream also read pn (n,) and |q|^2 (m,)
     for name in ("exact_knn_rescan", "exact_knn_stream"):
@@ -764,6 +793,7 @@ def main() -> None:
     timing = {"exact_knn": (kern_ms, plain_ms, lib_ms),
               "twophase_emit": (emit_ms, emit_plain_ms, lib_emit_ms),
               "twophase_rescan": (tp_rescan_ms, tp_rescan_plain_ms, None),
+              "twophase_rescan_all": (all_ms, all_plain_ms, None),
               "exact_knn_rescan": (rescan_ms, rescan_plain_ms, lib_ms),
               "exact_knn_stream": (stream_ms, stream_plain_ms, lib_ms)}
     for name, (b_ms, b_by) in bounds.items():
@@ -874,7 +904,7 @@ def main() -> None:
         servers[label] = srv
     if results[f"exact f32 twophase_min_n={N} (cuda-twophase)"][2] != 1.0:
         raise AssertionError("f32 two-phase recall up to ties is not 1.0")
-    read_counts("two-phase engine", ("twophase_emit", "twophase_rescan"))
+    read_counts("two-phase engine", ("twophase_emit", "twophase_rescan", "twophase_rescan_all"))
 
     # Server auto: the engine TWOPHASE_MIN_N (from the crossover) gives at N
     ex.reset_launch_counts()
@@ -954,7 +984,7 @@ def merge_paths(srv, serve, results, read_counts, X, Y) -> None:
     kernel, the rescan merge and the stream pinned, in f32 and with bf16
     compute; each with the launch counts set to 0 just before it."""
     exact_keys = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_emit",
-                  "twophase_rescan")
+                  "twophase_rescan", "twophase_rescan_all")
     rank_ids = None
     for cdt in (None, torch.bfloat16):
         for label, kw, kernel in (("no_twophase", {"no_twophase": True}, "rank"),
@@ -1070,7 +1100,8 @@ def packed_serving(seed: int, dev, read_counts):
     phase("kernel", f"time probe n={N} m={M} tries=10 P={PACKED_PROBES} w={w} k=10 bf16: "
                     f"kernel {kern_ms:.3f} ms plain {plain_ms:.3f} ms; {triples} distinct "
                     f"(query, table, slot) triples over {rows} distinct rows; bound "
-                    f"{b[0]:.3f} ms ({b[1]})")
+                    f"{b[0]:.3f} ms ({b[1]}); effective L2 read rate (triples x row bytes / "
+                    f"kernel time) {triples * 256 / kern_ms / 1e9:.3f} TB/s")
 
     # the card against the same search on the CPU (plain probe), the view
     # moved through PackedIndex.from_numpy
@@ -1091,7 +1122,11 @@ def updates(srv, Yc, seed: int, dev, read_counts) -> None:
     """Updates on the packed server: remove 1% of the ids (none may come
     back), add 10,000 points drawn from the mixture's centre distribution
     (each must find itself at distance 0); the re-packed view must still
-    run the probe kernel."""
+    run the probe kernel.  The path must launch every kernel it runs: the
+    probe, and the kernels of the exact rows' search (``add_points`` asks
+    ``exact_search`` for k + 1 + the tombstones); then the same
+    ``add_points`` replayed on a copy of the server taken before it, under
+    ``torch.profiler``, split by stage and by kernel."""
     ex.reset_launch_counts()
     n0 = srv.packed.n
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
@@ -1108,6 +1143,10 @@ def updates(srv, Yc, seed: int, dev, read_counts) -> None:
     if torch.isin(ids.long(), vic).any():
         raise AssertionError("a removed id came back")
     new = torch.from_numpy(4.0 * gaussian(np.random.default_rng(seed + 3), N_ADD, 128)).to(dev)
+    # the exact rows' request and the engine exact_search routes it to
+    kk = min(srv.index.k + 1 + int(srv.index.dead.sum()), n0 + N_ADD)
+    engine = tp.route(n0 + N_ADD, kk, ())
+    before = dataclasses.replace(srv)  # add_points replaces the server's fields
     t0 = time.perf_counter()
     srv.add_points(new)
     fence()
@@ -1126,7 +1165,60 @@ def updates(srv, Yc, seed: int, dev, read_counts) -> None:
                      f"layout {desc['layout']}, n {desc['n']}, live {srv.packed.n_live}")
     if found != N_ADD or desc["layout"] != "packed" or desc["n"] != n0 + N_ADD:
         raise AssertionError("updates: new points not found or view not re-packed")
-    read_counts("updates", ("probe_topk",))
+    exact_rows = {"twophase": ("twophase_emit", "twophase_rescan_all" if kk > ex.KMAX
+                               else "twophase_rescan"),
+                  "rank": ("exact_knn",)}.get(engine, ())
+    read_counts(f"updates (exact rows k={kk} on the {engine} engine)",
+                ("probe_topk",) + exact_rows)
+    profile_add(before, new)
+    del before
+
+
+def profile_add(srv, new) -> None:
+    """``srv.add_points(new)`` under torch.profiler: device time of the
+    stages (the ``add_points:`` ranges: bucket append, exact rows,
+    reverse-edge repair, re-pack; each range's device time is the span of
+    the kernels it launched), then of the kernels, grouped as the exact
+    rows' emit, rescan and split merge, the rank kernel, the selection's
+    ``torch.topk`` and sort kernels, and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fence()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.add_points(new)
+        fence()
+        wall_s = time.perf_counter() - t0
+    stages, kernels = {}, []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if ev.key.startswith("add_points:"):
+            dev_s, host_s = stages.get(ev.key, (0.0, 0.0))
+            stages[ev.key] = (dev_s + dev_us / 1e6, host_s + ev.cpu_time_total / 1e6)
+        elif dev_us > 0 and not ev.key.startswith("aten::"):
+            kernels.append((dev_us / 1e6, ev.count, ev.key))
+    busy = sum(r[0] for r in kernels)
+    phase("updates", f"profile add {N_ADD} points: wall {wall_s:.3f} s under the profiler, "
+                     f"device {busy:.3f} s, idle share {1 - busy / wall_s:.3f}; stages "
+                     "(host s, device s): " + ", ".join(
+                         f"{key[12:]} {h:.3f}, {t:.3f}" for key, (t, h) in stages.items()))
+    groups = {"emit": ("EmitSelect",), "rescan": ("rescan_kernel",),
+              "split merge": ("split_merge",), "rank": ("RankSelect",),
+              "topk and sort": ("topk", "TopK", "radix", "Radix", "sort", "Sort")}
+    sums = dict.fromkeys(list(groups) + ["rest"], 0.0)
+    counts = dict.fromkeys(sums, 0)
+    for t, count, key in kernels:
+        g = next((name for name, pats in groups.items() if any(p in key for p in pats)),
+                 "rest")
+        sums[g] += t
+        counts[g] += count
+    phase("updates", "profile add by kernel group: " + ", ".join(
+        f"{g} {sums[g]:.3f} s ({counts[g]} launches)" for g in sums))
+    kernels.sort(reverse=True)
+    for t, count, key in kernels[:8]:
+        phase("updates", f"  {t:.3f} s ({100 * t / busy:.1f}%), {count} launches: {key[:90]}")
 
 
 def compare_with_cpu(label, view, queries, ids, dists, c_ids, c_d) -> tuple[int, int]:

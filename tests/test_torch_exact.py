@@ -295,9 +295,10 @@ def test_kernel_matches_plain_on_card(dt, kernel):
             starts = torch.where(sel < p.shape[0], sel // seg * seg,
                                  torch.full_like(sel, p.shape[0]))
             starts[0, -3:] = p.shape[0]  # exhausted picks
-            before = ex.launches["twophase_rescan"]
+            key = "twophase_rescan_all" if k is None else "twophase_rescan"
+            before = ex.launches[key]
             ia, da = tp.rescan_windows(p, qq, starts, seg, k)
-            assert ex.launches["twophase_rescan"] == before + 1
+            assert ex.launches[key] == before + 1
             ib, db = tp.rescan_windows_plain(p, qq, starts, seg, k)
             torch.cuda.synchronize()
             assert ia.shape == ib.shape == (m, P * seg if k is None else k)
