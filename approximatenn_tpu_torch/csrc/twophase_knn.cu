@@ -42,13 +42,23 @@
 //     1M, m = 1000, k = 10) at 3 flop per element; queries that pick the
 //     same segment share its rows, so the least it must read from memory
 //     is the distinct rows (~6,100 of the 7,813 segments, ~400 MB, there).
-//     Memory, not arithmetic, sets its time.  One block per
-//     query; a warp computes one row at a time with coalesced loads over
-//     the features and a shuffle sum, then inserts the 32 rows it just
-//     scored into its own sorted top-k (ballot against the current k-th,
-//     warp-cooperative shift, as the rank kernel does).  The eight warp
-//     lists are merged at the end.  No array of all P * seg distances is
-//     kept: at seg = 512, k = 126 that would be 65,536 candidates a query.
+//     Memory, not arithmetic, sets its time, and the rows are scattered,
+//     so it is a latency-bound gather: rows are scored by knn_gather.cuh's
+//     RowScorer (lane groups with 16-byte loads, the query in registers,
+//     several rows' loads in flight a group, log2(G) shuffles a row), the
+//     same scorer as the probe.  The grid is (query, split of the query's
+//     P windows): the wrapper takes the fewest splits (at most 32) whose
+//     blocks fill the card (ops/twophase.py:rescan_splits), one at the
+//     serving shape and many for add_points' emit-all launches of 26
+//     queries, whose every window row is read.  Each warp inserts the 32
+//     rows it just scored into its own sorted top-k (ballot against the
+//     current k-th, warp-cooperative shift, as the rank kernel does); the
+//     eight warp lists are merged at the end, into the output or, with
+//     several splits, into a split's list that knn_common.cuh's
+//     split_merge_kernel merges.  Emit-all (k = 0) writes every window
+//     row's pair where it belongs, so its splits need no merge.  No array
+//     of all P * seg distances is kept: at seg = 512, k = 126 that would
+//     be 65,536 candidates a query.
 //
 // Precision: emit computes what the rank kernel computes for every tier
 // ("highest", "split3", "default"): float32 dots in three TF32 passes with
@@ -61,6 +71,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
 
+#include "knn_gather.cuh"
 #include "knn_tile.cuh"
 
 namespace {
@@ -168,68 +179,59 @@ struct EmitSelect {
   __device__ void finish(int, int) const {}
 };
 
-// Rescan: one block per query.  starts (m, P): the first row of each
-// window, n for an exhausted pick; window p covers local rows
-// [p * seg, (p + 1) * seg).  k > 0: the k nearest into out (m, k);
-// k == 0: every local row's (distance, id) into out (m, P * seg), +inf and
-// id n where the row does not exist.
-template <typename T>
-__global__ void __launch_bounds__(NT)
+// Rescan: block (query qi, split s) takes windows [s * per, min((s + 1) *
+// per, P)) of the query's P.  starts (m, P): the first row of each window,
+// n for an exhausted pick; window p covers local rows [p * seg, (p + 1) *
+// seg).  k > 0: the k nearest of the split into out at ((qi * splits + s)
+// * k) (one split: the result); k == 0: every local row's (distance, id)
+// into out (m, P * seg), +inf and id n where the row does not exist.  Rows
+// of nvec V-byte vectors, lane groups of G.
+template <typename T, int V, int R>
+__global__ void __launch_bounds__(NT, (gather::min_blocks<T, V, R, false>()))
 rescan_kernel(const T* __restrict__ pts, const float* __restrict__ q,
-              const int* __restrict__ starts, int n, int d, int P,
-              int seg_log, int k, float* __restrict__ out_d,
+              const int* __restrict__ starts, int n, int d, int nvec, int G, int P,
+              int per, int seg_log, int k, float* __restrict__ out_d,
               int* __restrict__ out_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qv = reinterpret_cast<float*>(smem);   // [d]
-  int* St = reinterpret_cast<int*>(Qv + d);      // [P]
-  float* topd = reinterpret_cast<float*>(St + P);  // [NW][k]
+  int* St = reinterpret_cast<int*>(Qv + d);      // [per]
+  float* topd = reinterpret_cast<float*>(St + per);  // [NW][k]
   int* topi = reinterpret_cast<int*>(topd + NW * k);  // [NW][k]
 
-  const int qi = blockIdx.x;
+  const int qi = blockIdx.x, split = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int seg = 1 << seg_log;
-  const int L = P << seg_log;
+  const int p0 = split * per;
+  const int np = min(per, P - p0);
+  const int L = np << seg_log;
   for (int c = tid; c < d; c += NT) Qv[c] = (float)Tr<T>::qv(q[(long long)qi * d + c]);
-  for (int p = tid; p < P; p += NT) St[p] = starts[(long long)qi * P + p];
+  for (int p = tid; p < np; p += NT) St[p] = starts[(long long)qi * P + p0 + p];
   for (int e = tid; e < NW * k; e += NT) { topd[e] = pos_inf(); topi[e] = ID_NONE; }
   __syncthreads();
 
+  const gather::RowScorer<T, V, R> sc(pts, Qv, nvec, G, lane);
   float* ld = topd + warp * k;
   int* li = topi + warp * k;
   float wd = pos_inf();
   int wi = ID_NONE;
-  // warp w scores the 32-row groups w, w + NW, ...; lane r keeps row r's result
+  // warp w scores the 32-row batches w, w + NW, ...; lane r keeps row r's result
   for (int l0 = warp * 32; l0 < L; l0 += NW * 32) {
-    float my_d = pos_inf();
-    int my_i = n;
-#pragma unroll 4
-    for (int r = 0; r < 32; ++r) {
-      const int l = l0 + r;
-      bool valid = false;
-      int row = 0;
-      if (l < L) {
-        const int s = St[l >> seg_log];
-        const int o = l & (seg - 1);
-        valid = s < n && o < n - s;
-        if (valid) row = s + o;
-      }
-      float acc = 0.f;
-      if (valid) {  // uniform over the warp
-        const T* x = pts + (long long)row * d;
-        for (int c = lane; c < d; c += 32) {
-          const float df = (float)Tr<T>::pt(x, c) - Qv[c];
-          acc = fmaf(df, df, acc);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == r && valid) { my_d = acc; my_i = row; }
+    const int l = l0 + lane;
+    int row = -1;
+    if (l < L) {
+      const int s = St[l >> seg_log];
+      const int o = l & (seg - 1);
+      if (s < n && o < n - s) row = s + o;
     }
+    const float dist = sc.score_batch(row);
+    const float my_d = row >= 0 ? dist : pos_inf();
+    const int my_i = row >= 0 ? row : n;
     if (k == 0) {
-      const int l = l0 + lane;
       if (l < L) {
-        out_d[(long long)qi * L + l] = my_d;
-        out_i[(long long)qi * L + l] = my_i;
+        const long long o = (long long)qi * ((long long)P << seg_log) +
+                            ((long long)p0 << seg_log) + l;
+        out_d[o] = my_d;
+        out_i[o] = my_i;
       }
       continue;
     }
@@ -255,6 +257,7 @@ rescan_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   float hd = pos_inf();
   int hid = ID_NONE;
   if (lane < NW) { hd = topd[lane * k]; hid = topi[lane * k]; }
+  const long long base = ((long long)qi * gridDim.y + split) * k;
   for (int j = 0; j < k; ++j) {
     float bd = hd;
     int bi = hid, bl = lane;
@@ -266,10 +269,9 @@ rescan_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       if (lex_less(od, oi, bd, bi) || (od == bd && oi == bi && ol < bl)) { bd = od; bi = oi; bl = ol; }
     }
     if (lane == 0) {
-      const long long o = (long long)qi * k + j;
       const bool real = bd < pos_inf();
-      out_d[o] = real ? bd : pos_inf();
-      out_i[o] = real ? bi : n;
+      out_d[base + j] = real ? bd : pos_inf();
+      out_i[base + j] = real ? bi : n;
     }
     if (lane == bl) {
       ++head;
@@ -288,17 +290,62 @@ int emit(const void* pts, const float* q, const int* excl, int n, int d, int m, 
 }
 
 template <typename T>
-int rescan(const void* pts, const float* q, const int* starts, int n, int d, int m,
-           int P, int seg_log, int k, float* out_d, int* out_i, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)d + sizeof(int) * (size_t)P +
-                      (sizeof(float) + sizeof(int)) * (size_t)NW * k;
-  cudaError_t err = cudaFuncSetAttribute(rescan_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  rescan_kernel<T><<<m, NT, smem, stream>>>(static_cast<const T*>(pts), q, starts, n, d, P,
-                                            seg_log, k, out_d, out_i);
-  return (int)cudaGetLastError();
+struct RescanLaunch {
+  const void* pts;
+  const float* q;
+  const int* starts;
+  int n, d, nvec, G, m, P, per, splits, seg_log, k;
+  float *out_d, *part_d;
+  int *out_i, *part_i;
+  cudaStream_t stream;
+
+  template <int V, int R>
+  cudaError_t run() {
+    const size_t smem = sizeof(float) * (size_t)d + sizeof(int) * (size_t)per +
+                        (sizeof(float) + sizeof(int)) * (size_t)NW * k;
+    cudaError_t err = cudaFuncSetAttribute(rescan_kernel<T, V, R>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    // several selecting splits write their lists to part, merged after
+    const bool merge = k > 0 && splits > 1;
+    rescan_kernel<T, V, R><<<dim3(m, splits), NT, smem, stream>>>(
+        static_cast<const T*>(pts), q, starts, n, d, nvec, G, P, per, seg_log, k,
+        merge ? part_d : out_d, merge ? part_i : out_i);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !merge) return err;
+    return launch_split_merge(part_d, part_i, nullptr, n, m, k, splits, 1.0f, out_d, out_i,
+                              stream);
+  }
+};
+
+// resident blocks of one rescan instantiation on an SM (by its registers
+// and threads; shared memory is small), for the wrapper's split count
+template <typename T>
+struct RescanOccupancy {
+  int* blocks;
+
+  template <int V, int R>
+  cudaError_t run() {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, rescan_kernel<T, V, R>, NT, 0);
+  }
+};
+
+template <typename T>
+int rescan(const void* pts, const float* q, const int* starts, int n, int d, int m, int P,
+           int seg_log, int k, int V, int G, int R, int splits, float* out_d, int* out_i,
+           float* part_d, int* part_i, cudaStream_t stream) {
+  if (!gather::geometry_ok(d, (int)sizeof(T), V, G, R) ||
+      reinterpret_cast<uintptr_t>(pts) % V || (k > 0 && splits > 1 && (!part_d || !part_i)))
+    return (int)cudaErrorInvalidValue;
+  const int nvec = (int)((long long)d * sizeof(T) / V);
+  const int per = (P + splits - 1) / splits;
+  // splits that would hold no window are not launched: the caller sizes
+  // part for ceil(P / per) of them
+  if ((P + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
+  RescanLaunch<T> f{pts, q, starts, n, d, nvec, G, m, P, per, splits, seg_log, k,
+                    out_d, part_d, out_i, part_i, stream};
+  return (int)gather::dispatch<T>(V, R, f);
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -332,22 +379,43 @@ int twophase_emit_launch(int device, const void* pts, int dtype, const float* q,
 
 // starts (m, P) int32: window first rows, n = exhausted.  seg = 1 << seg_log.
 // k in [1, 128]: out_d/out_i hold m * k entries; k == 0 (emit all): m * P * seg.
+// The scorer's geometry (knn_gather.cuh): vec bytes a load, lanes a group,
+// rows a group keeps in flight.  splits (<= 32, each taking ceil(P /
+// splits) windows, none empty) blocks a query; with k > 0 and more than one,
+// part_d/part_i hold m * splits * k entries for the split lists.
 int twophase_rescan_launch(int device, const void* pts, int dtype, const float* q,
                            const int* starts, int n, int d, int m, int P, int seg_log,
-                           int k, float* out_d, int* out_i, void* stream) {
+                           int k, int vec, int lanes, int rows, int splits, float* out_d,
+                           int* out_i, float* part_d, int* part_i, void* stream) {
   if (k < 0 || k > knn::KMAX || n < 1 || d < 1 || m < 1 || P < 1 || seg_log < 0 ||
-      seg_log > 30 || ((long long)P << seg_log) >= (1LL << 31))
+      seg_log > 30 || ((long long)P << seg_log) >= (1LL << 31) || splits < 1 ||
+      splits > MAX_SPLITS || splits > P)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return rescan<float>(pts, q, starts, n, d, m, P, seg_log, k, out_d, out_i, s);
-    case 1: return rescan<__nv_bfloat16>(pts, q, starts, n, d, m, P, seg_log, k, out_d, out_i, s);
-    case 2: return rescan<__half>(pts, q, starts, n, d, m, P, seg_log, k, out_d, out_i, s);
-    case 3: return rescan<int8_t>(pts, q, starts, n, d, m, P, seg_log, k, out_d, out_i, s);
+    case 0: return rescan<float>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, rows, splits, out_d, out_i, part_d, part_i, s);
+    case 1: return rescan<__nv_bfloat16>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, rows, splits, out_d, out_i, part_d, part_i, s);
+    case 2: return rescan<__half>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, rows, splits, out_d, out_i, part_d, part_i, s);
+    case 3: return rescan<int8_t>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, rows, splits, out_d, out_i, part_d, part_i, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// resident rescan blocks an SM holds for this dtype and geometry (-1 for a
+// geometry the kernel does not take), on the current device
+int twophase_rescan_blocks_per_sm(int dtype, int vec, int rows) {
+  int blocks = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: { RescanOccupancy<float> f{&blocks}; err = gather::dispatch<float>(vec, rows, f); break; }
+    case 1: { RescanOccupancy<__nv_bfloat16> f{&blocks}; err = gather::dispatch<__nv_bfloat16>(vec, rows, f); break; }
+    case 2: { RescanOccupancy<__half> f{&blocks}; err = gather::dispatch<__half>(vec, rows, f); break; }
+    case 3: { RescanOccupancy<int8_t> f{&blocks}; err = gather::dispatch<int8_t>(vec, rows, f); break; }
+    default: break;
+  }
+  return err == cudaSuccess ? blocks : -1;
 }
 
 // emit's geometry (the tile loop's): queries per block and corpus rows per tile

@@ -27,10 +27,14 @@ from __future__ import annotations
 import torch
 
 from ..config import itype
-from .exact import _DTYPE_CODE, KMAX, _library, device_index, launch_error, launches
+from .exact import (_DTYPE_CODE, KMAX, _library, device_index, gather_geometry,
+                    launch_error, launches)
 from .twophase import smallest
 
 _BLOCK_ELEMS = 64 << 20  # plain version: ~256 MB of float32 rows per query block
+# warps the kernel gives a (query, table) pair, 8 / this pairs a block
+# (PERF.md §6 PR 9: the reading that chose it)
+WARPS_PER_PAIR = 2
 
 
 def prepare(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tensor, *,
@@ -50,12 +54,17 @@ def prepare(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tensor,
 
 
 def probe_topk(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tensor, *,
-               k: int, n: int, n_pad: int, window: int):
+               k: int, n: int, n_pad: int, window: int,
+               geometry: tuple[int, int, int] | None = None,
+               warps_per_pair: int = WARPS_PER_PAIR):
     """Per-table probe-window top-k (see the module docstring).
     ``pts_flat`` (tries * n_pad, d) f32/bf16/f16/int8 rows; ``queries`` (m,
     d) float (for int8 rows, q / scale); ``starts`` (m, tries, P) int32
     within [0, n_pad - window]; ``n`` the live bound; k <= 128 (the
-    kernel's selection width, a limit of this port)."""
+    kernel's selection width, a limit of this port).  ``geometry`` (the
+    row scorer's (V, G, R), :func:`~.exact.gather_geometry` by default)
+    and ``warps_per_pair`` (1, 2, 4 or 8) set the kernel's launch, for
+    readings; the result does not depend on them."""
     if pts_flat.dim() != 2 or queries.dim() != 2 or starts.dim() != 3:
         raise ValueError("pts_flat and queries must be 2-D, starts 3-D")
     if pts_flat.dtype not in _DTYPE_CODE:
@@ -85,10 +94,13 @@ def probe_topk(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tens
     if m == 0:
         return out_i, out_d
     lib = _library("probe_knn")
+    vec, lanes, rows = geometry or gather_geometry(d, pts_flat.element_size(),
+                                                   pts_flat.data_ptr())
     err = lib.probe_topk_launch(
         device_index(dev), pts_flat.data_ptr(), _DTYPE_CODE[pts_flat.dtype], q.data_ptr(),
-        starts.data_ptr(), m, tries, P, d, n_pad, window, n, k, out_d.data_ptr(),
-        out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        starts.data_ptr(), m, tries, P, d, n_pad, window, n, k, vec, lanes, rows,
+        warps_per_pair, out_d.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise launch_error(lib, "probe_topk", err)
     launches["probe_topk"] += 1

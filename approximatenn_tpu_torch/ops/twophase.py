@@ -31,8 +31,8 @@ import math
 import torch
 
 from ..config import itype
-from .exact import (_DTYPE_CODE, KMAX, _check, _prepare, device_index, launch_error,
-                    launches, place, splits, tile_geometry, _library)
+from .exact import (_DTYPE_CODE, KMAX, _check, _prepare, device_index, gather_geometry,
+                    launch_error, launches, place, splits, tile_geometry, _library)
 
 # At and above this corpus size exact serving takes the two-phase engine:
 # the smallest n from which two-phase / rank <= 1 in float32 there and at
@@ -208,8 +208,25 @@ def segment_merge(points: torch.Tensor, queries: torch.Tensor, k: int, seg: int,
 
 # -- phase 3: the rescan kernel and its plain version --------------------------
 
+def rescan_splits(m: int, P: int, sms: int, per_sm: int) -> int:
+    """Blocks a query of the rescan kernel's grid on a card of ``sms`` SMs
+    holding ``per_sm`` rescan blocks each: the fewest splits of the
+    query's P windows (at most 32 and P) whose m x s blocks fill at least
+    7/8 of those block slots, then as few as give every split a window
+    (split s takes windows ``[s * per, min((s + 1) * per, P))``, per =
+    ceil(P / s)).  Unlike the rank kernel's :func:`~.exact.splits`, whose
+    blocks hold an SM each, several rescan blocks share an SM and finish
+    at different times, so the last wave's tail is not counted.  One at
+    the serving shape (m = 1000), many for add_points' emit-all blocks of
+    26 queries."""
+    s = min(32, P, max(1, -(-7 * sms * per_sm // (8 * m))))
+    per = -(-P // s)
+    return -(-P // per)
+
+
 def rescan_windows(points: torch.Tensor, q: torch.Tensor, starts: torch.Tensor,
-                   seg: int, k: int | None):
+                   seg: int, k: int | None, *, geometry: tuple[int, int, int] | None = None,
+                   n_splits: int | None = None):
     """Phase 3 over windows ``[starts[i, p], starts[i, p] + seg)`` (start n =
     an exhausted pick; rows >= n do not exist): diff-form squared L2 of the
     queries ``q`` as the kernel multiplies them (quantised for int8).
@@ -217,7 +234,10 @@ def rescan_windows(points: torch.Tensor, q: torch.Tensor, starts: torch.Tensor,
     ties to the smaller id, (n, +inf) past the real rows.  ``k`` None: every
     window row, (ids (m, P*seg), distances), id n and +inf where a row does
     not exist.  The rescan kernel on a CUDA tensor,
-    :func:`rescan_windows_plain` on a CPU tensor."""
+    :func:`rescan_windows_plain` on a CPU tensor.  ``geometry`` (the row
+    scorer's (V, G, R), :func:`~.exact.gather_geometry` by default) and
+    ``n_splits`` (:func:`rescan_splits` by default) set the kernel's
+    launch, for readings; the result does not depend on them."""
     _check(points, q, 1, None, "highest")
     _check_seg(seg)
     if k is not None and not 1 <= k <= KMAX:
@@ -243,14 +263,55 @@ def rescan_windows(points: torch.Tensor, q: torch.Tensor, starts: torch.Tensor,
     q = q.contiguous()
     starts = starts.contiguous()
     lib = _library("twophase_knn")
+    vec, lanes, rows = geometry or gather_geometry(d, points.element_size(),
+                                                   points.data_ptr())
+    code = _DTYPE_CODE[points.dtype]
+    if n_splits is None:
+        per_sm = lib.twophase_rescan_blocks_per_sm(code, vec, rows)
+        if per_sm < 1:
+            raise RuntimeError(f"twophase_rescan: no resident block at geometry "
+                               f"{(vec, lanes, rows)}")
+        n_splits = rescan_splits(
+            m, P, torch.cuda.get_device_properties(dev).multi_processor_count, per_sm)
+    elif not 1 <= n_splits <= min(32, P):
+        raise ValueError(f"n_splits must lie in [1, min(32, P) = {min(32, P)}], got {n_splits}")
+    else:  # as few as give every split a window, at the same boundaries
+        n_splits = -(-P // -(-P // n_splits))
+    part_d = part_i = None
+    if k is not None and n_splits > 1:  # the splits' lists, merged by the launcher
+        part_d = torch.empty((m, n_splits, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((m, n_splits, k), dtype=itype, device=dev)
     err = lib.twophase_rescan_launch(
-        device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
-        starts.data_ptr(), n, d, m, P, seg.bit_length() - 1, 0 if k is None else k,
-        out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        device_index(dev), points.data_ptr(), code, q.data_ptr(), starts.data_ptr(), n, d, m,
+        P, seg.bit_length() - 1, 0 if k is None else k, vec, lanes, rows, n_splits,
+        out_d.data_ptr(), out_i.data_ptr(), part_d.data_ptr() if part_d is not None else None,
+        part_i.data_ptr() if part_i is not None else None,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise launch_error(lib, "twophase_rescan", err)
     launches["twophase_rescan_all" if k is None else "twophase_rescan"] += 1
     return out_i, out_d
+
+
+def rescan_windows_plain_by_splits(points: torch.Tensor, q: torch.Tensor,
+                                   starts: torch.Tensor, seg: int, k: int | None,
+                                   n_splits: int):
+    """The rescan's plain version as the kernel's grid runs it: each
+    query's P windows in ``n_splits`` ranges of ceil(P / n_splits) (the
+    kernel's split boundaries), each range rescanned on its own, then the
+    ranges' ascending lists merged by (distance, id) (``k`` None: their
+    window rows side by side, where the kernel writes them).  Ids are
+    unique across windows, so this equals :func:`rescan_windows_plain`."""
+    P = starts.shape[1]
+    per = -(-P // n_splits)
+    parts = [rescan_windows_plain(points, q, starts[:, lo: lo + per].contiguous(), seg, k)
+             for lo in range(0, P, per)]
+    ids = torch.cat([i for i, _ in parts], 1)
+    dists = torch.cat([dd for _, dd in parts], 1)
+    if k is None:
+        return ids, dists
+    d_k, i_k = smallest(dists, ids, k)
+    return torch.where(torch.isinf(d_k), torch.full_like(i_k, points.shape[0]), i_k), d_k
 
 
 def rescan_windows_plain(points: torch.Tensor, q: torch.Tensor,

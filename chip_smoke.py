@@ -19,10 +19,19 @@ Phases, one line each, and a non-zero exit on the first failure:
    256, 960 and 2,048 with segments of 8, 256 and 1,024 rows over n =
    20,011 (splits take whole segments), m = 1 and 37, bf16, f16, int8, its
    time at the serving shape in f32 and bf16 stored beside the library's
-   segment minimum.  Probe kernel:
+   segment minimum.  The rescan also at d = 33 in four types (rows of no
+   whole 16-byte vectors), emit-all over a split grid at add_points' block
+   of 26 queries with more windows than segments (n = 100,003, P = 1,000),
+   k = 1 and 128 merged from several splits, m = 1, NaN and infinite
+   coordinates (never selected); its time at the serving shape and at
+   add_points' emit-all shape (m = 26, P = 10,013), its effective read
+   rates, and sweeps of the row scorer's geometry (R, G; f32, bf16, int8)
+   and of the emit-all split count.  Probe kernel:
    overlapping windows, clipped starts, a live bound below n, every window
    past the live bound, k = 128 over fewer distinct slots, P = m = tries =
-   1, d = 96, bf16, f16, int8 (the main shape is checked in step 4).
+   1, d = 96, bf16, f16, int8, d = 33 in four types, NaN and infinite
+   coordinates (the main shape is checked in step 4, with its L2 read rate
+   and a sweep of warps a pair and the row scorer's geometry).
    Rescan-merge and streaming kernels: the rank kernel's degenerate set
    plus d = 33 and m = 37, ``compute_dtype=torch.bfloat16`` on an f32
    corpus (the rank kernel too), and the serving shape.  Rank and rescan
@@ -59,7 +68,9 @@ Phases, one line each, and a non-zero exit on the first failure:
    the f32 and int8 views; recall@10 against a float64 oracle (>= 0.75 at
    window 96, a gross-error guard), the card against the same search on
    the CPU on 50 queries;
-   then updates on that server (remove 1% of ids, add 10,000 points);
+   then updates on that server (remove 1% of ids, add 10,000 points; the
+   path must launch the probe and the exact rows' kernels, and the add is
+   replayed under ``torch.profiler`` and split by stage and kernel);
 5. the rank/two-phase crossover on prefixes of the corpus (250k, 500k,
    1M) and on 2M and 4M corpora drawn on the card (f32 and bf16), with the
    threshold the ``TWOPHASE_MIN_N`` rule takes from it, and
@@ -140,6 +151,9 @@ PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12  # tensor cores, dense
 PEAK_BF16 = 989e12  # tensor cores, dense
 PEAK_BYTES = 3.35e12
+# profiler rows with device time that are no kernel: the tracer's mark for
+# a full launch queue (the host waiting to launch)
+NOT_KERNELS = ("Command Buffer Full",)
 
 
 def phase(name: str, msg: str) -> None:
@@ -198,6 +212,24 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
     """(least milliseconds the card could take, what bounds it)."""
     t_ops, t_bytes = flop / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gather_sweep(label, fn, d: int, itemsize: int, reps: int = 20, extra=(None,)) -> None:
+    """Times of a gather kernel (the probe or the rescan) at every row
+    scorer geometry it takes (rows in flight R = 2, 4, 8 a group, lane
+    groups G from R to 32; ``fn(geometry, e)`` for each ``e`` of
+    ``extra``), one line, CUDA events, ``reps`` calls each."""
+    times = []
+    for e in extra:
+        for r in (2, 4, 8):
+            for lanes in (x for x in (2, 4, 8, 16, 32) if x >= r):
+                geom = ex.gather_geometry(d, itemsize, rows=r, lanes=lanes)
+                ms = cuda_ms(lambda: fn(geom, e), reps=reps)
+                times.append((ms, f"{'' if e is None else f'{e} '}R{r} G{lanes}"))
+    best = min(times)
+    phase("kernel", f"sweep {label} (default {ex.gather_geometry(d, itemsize)[1:]} as (G, R); "
+                    f"best {best[1]} {best[0]:.3f} ms): "
+                    + ", ".join(f"{name} {ms:.3f}" for ms, name in times))
 
 
 def check_tile_layout(dev) -> None:
@@ -395,6 +427,45 @@ def probe_work(starts, window: int) -> tuple[int, int]:
     return triples, rows
 
 
+def rescan_gather_checks(randn, dev) -> None:
+    """The rescan's row scorer and split grid beyond the main shapes: rows
+    of no whole 16-byte vectors (d = 33, four types), emit-all over a
+    split grid at add_points' block of 26 queries with more windows than
+    segments, k = 1 and 128 merged from several splits, one query, and
+    rows holding NaN or infinite coordinates (never selected)."""
+    x33, q33 = randn(20_011, 33), randn(200, 33)
+    x8, s8 = ex.quantize_corpus(x33)
+    for label, pts, sc in (("f32", x33, None), ("bf16", x33.to(torch.bfloat16), None),
+                           ("f16", x33.to(torch.float16), None), ("int8", x8, float(s8))):
+        st = window_starts(pts, q33, 12, 64, scale=sc)
+        qk = kernel_queries(pts, q33, sc)
+        check_rescan(f"{label} d=33 n=20011 m=200 seg=64 k=10", pts, qk, st, 64, 10)
+        check_rescan(f"{label} d=33 n=20011 m=200 seg=64 emit-all", pts, qk, st, 64, None)
+    x, q = randn(100_003, 128), randn(26, 128)
+    st = window_starts(x, q, 1000, 128)  # 782 segments: 218 exhausted picks a query
+    check_rescan("emit-all n=100003 m=26 P=1000 seg=128 (P x seg > n, split grid)", x, q, st,
+                 128, None)
+    for kk in (1, 128):
+        check_rescan(f"split grid n=100003 m=26 P=40 seg=128 k={kk}", x, q,
+                     st[:, :40].contiguous(), 128, kk)
+    check_rescan("split grid n=100003 m=1 P=40 seg=128 k=10", x, q[:1].contiguous(),
+                 st[:1, :40].contiguous(), 128, 10)
+    xb, qb = randn(20_011, 96), randn(300, 96)
+    st = window_starts(xb, qb, 12, 64)  # windows picked on the finite rows
+    bad = torch.randperm(20_011, generator=torch.Generator().manual_seed(9))[:600].to(dev)
+    xb[bad[:200], 3] = float("nan")
+    xb[bad[200:400]] = float("inf")
+    xb[bad[400:], 0] = -float("inf")
+    for label, pts in (("f32", xb), ("bf16", xb.to(torch.bfloat16))):
+        qk = kernel_queries(pts, qb, None)
+        for kk in (10, None):
+            check_rescan(f"NaN and infinite coordinates {label} n=20011 m=300 seg=64 k={kk}",
+                         pts, qk, st, 64, kk)
+        ids, _ = tp.rescan_windows(pts, qk, st, 64, 10)
+        if torch.isin(ids, bad.to(ids.dtype)).any():
+            raise AssertionError(f"rescan {label}: a NaN or infinite row was selected")
+
+
 def synthetic_probe_checks(randn, dev) -> None:
     """The probe kernel's degenerate shapes on random rows (the main shape
     is checked on the packed view in :func:`packed_serving`)."""
@@ -431,6 +502,25 @@ def synthetic_probe_checks(randn, dev) -> None:
     case("d=96", None, 300, 3, 8, 96, 40, 50, 4000, overlap=True)
     for dt, label in ((torch.bfloat16, "bf16"), (torch.float16, "f16"), ("int8", "int8")):
         case(f"{label} m=300 tries=3 P=8", dt, 300, 3, 8, 128, 96, 10, 3500, overlap=True)
+    # rows of no whole 16-byte vectors: 4-, 2- and 1-byte loads
+    for dt, label in ((None, "f32"), (torch.bfloat16, "bf16"), (torch.float16, "f16"),
+                      ("int8", "int8")):
+        case(f"{label} d=33 m=300 tries=3 P=8", dt, 300, 3, 8, 33, 96, 10, 3500, overlap=True)
+    # rows holding NaN or infinite coordinates score NaN or +inf: never returned
+    rows, q = randn(3 * n_pad, 96), randn(100, 96)
+    bad = torch.randperm(3 * n_pad, generator=g)[:300].to(dev)
+    rows[bad[:100], 5] = float("nan")
+    rows[bad[100:200]] = float("inf")
+    rows[bad[200:], 0] = -float("inf")
+    base = torch.randint(0, n_pad - 256, (100, 3, 1), generator=g)
+    starts = (base + torch.randint(0, 128, (100, 3, 6), generator=g)).to(torch.int32).to(dev)
+    for label, r in (("f32", rows), ("bf16", rows.to(torch.bfloat16))):
+        check_probe(f"NaN and infinite coordinates {label} m=100 tries=3 P=6 w=128 k=50", r, q,
+                    starts, k=50, n=n_pad - 1, n_pad=n_pad, window=128)
+        pa, _ = pr.probe_topk(r, q, starts, k=50, n=n_pad - 1, n_pad=n_pad, window=128)
+        flat = pa.long() + (torch.arange(3, device=dev) * n_pad)[None, :, None]
+        if torch.isin(flat, bad).any():
+            raise AssertionError(f"probe {label}: a NaN or infinite row was returned")
 
 
 def oracle64(points64, queries64, k):
@@ -601,6 +691,7 @@ def main() -> None:
                  window_starts(small, q1k[:50], P, 32), 32, k)
     check_rescan("exhausted emit-all n=100 seg=32 P=12", small, q1k[:50],
                  window_starts(small, q1k[:50], P, 32), 32, None)
+    rescan_gather_checks(randn, dev)
 
     synthetic_probe_checks(randn, dev)
 
@@ -738,6 +829,33 @@ def main() -> None:
                     f"of row reads ({1e3 * pairs_all * 512 / PEAK_BYTES:.3f} ms at the HBM "
                     f"peak, where no row is read from L2) and {m_all * p_all * seg * 8 / 1e9:.3f} "
                     f"GB written; effective read rate {pairs_all * 512 / all_ms / 1e9:.3f} TB/s")
+    # the row scorer's geometry and the rescan's split count, for the
+    # defaults (ops/exact.py:GATHER_ROWS, ops/twophase.py:rescan_splits)
+    gather_sweep(f"rescan f32 n={N} m={M} k={k}",
+                 lambda geom, _: tp.rescan_windows(X, Y, starts, seg, k, geometry=geom), 128, 4)
+    starts_b = window_starts(Xb, Y, P, seg)
+    gather_sweep(f"rescan bf16 n={N} m={M} k={k}",
+                 lambda geom, _: tp.rescan_windows(Xb, Y, starts_b, seg, k, geometry=geom),
+                 128, 2)
+    X8s, s8s = ex.quantize_corpus(X)
+    starts_8 = window_starts(X8s, Y, P, seg, scale=float(s8s))
+    q8 = kernel_queries(X8s, Y, float(s8s))
+    gather_sweep(f"rescan int8 n={N} m={M} k={k}",
+                 lambda geom, _: tp.rescan_windows(X8s, q8, starts_8, seg, k, geometry=geom),
+                 128, 1)
+    del X8s
+    gather_sweep(f"rescan emit-all f32 n={N} m={m_all} P={p_all}",
+                 lambda geom, _: tp.rescan_windows(X, q_all, starts_all, seg, None,
+                                                   geometry=geom), 128, 4, reps=5)
+    split_ms = {s: cuda_ms(lambda: tp.rescan_windows(X, q_all, starts_all, seg, None,
+                                                     n_splits=s), reps=3)
+                for s in (1, 2, 4, 8, 16, 24, 32)}
+    per_sm = ex._library("twophase_knn").twophase_rescan_blocks_per_sm(
+        0, *ex.gather_geometry(128, 4)[::2])
+    rule = tp.rescan_splits(m_all, p_all, torch.cuda.get_device_properties(dev)
+                            .multi_processor_count, per_sm)
+    phase("kernel", f"rescan emit-all splits (rule: {rule}, {per_sm} resident blocks an SM): "
+                    + ", ".join(f"{s_} {t:.3f} ms" for s_, t in split_ms.items()))
     bounds = {
         "exact_knn": bound(2.0 * M * N * 128, 4.0 * (N * 128 + M * 128) + 8.0 * M * k),
         "twophase_emit": bound(2.0 * M * N * 128,
@@ -1091,6 +1209,10 @@ def packed_serving(seed: int, dev, read_counts):
                       f"w={PACKED_WINDOW} k=10 bf16", pv.point_rows, Yc, starts, k=10, **kw)
     check_probe(f"main shape k={RERANK}", pv.point_rows, Yc, starts, k=RERANK, **kw)
     kern_ms = cuda_ms(lambda: pr.probe_topk(pv.point_rows, Yc, starts, k=10, **kw), reps=20)
+    gather_sweep(f"probe bf16 n={N} m={M} tries=10 P={PACKED_PROBES} k=10 (warps a pair, R, G)",
+                 lambda geom, wpp: pr.probe_topk(pv.point_rows, Yc, starts, k=10, geometry=geom,
+                                                 warps_per_pair=wpp, **kw),
+                 128, 2, extra=(1, 2, 4, 8))
     q, st, w = pr.prepare(pv.point_rows, Yc, starts, n_pad=pv.n_pad, window=PACKED_WINDOW)
     plain_ms = cuda_ms(lambda: pr.probe_topk_plain(pv.point_rows, q, st, k=10, n=pv.live_bound,
                                                    n_pad=pv.n_pad, window=w), reps=3)
@@ -1197,7 +1319,7 @@ def profile_add(srv, new) -> None:
         if ev.key.startswith("add_points:"):
             dev_s, host_s = stages.get(ev.key, (0.0, 0.0))
             stages[ev.key] = (dev_s + dev_us / 1e6, host_s + ev.cpu_time_total / 1e6)
-        elif dev_us > 0 and not ev.key.startswith("aten::"):
+        elif dev_us > 0 and not ev.key.startswith("aten::") and ev.key not in NOT_KERNELS:
             kernels.append((dev_us / 1e6, ev.count, ev.key))
     busy = sum(r[0] for r in kernels)
     phase("updates", f"profile add {N_ADD} points: wall {wall_s:.3f} s under the profiler, "
@@ -1264,7 +1386,7 @@ def profile_serving(label, srv, Y, reps: int = 5) -> None:
         if dev_us is None:
             dev_us = ev.self_cuda_time_total
         # an aten op's device time is its kernels', which have rows of their own
-        if dev_us > 0 and not ev.key.startswith("aten::"):
+        if dev_us > 0 and not ev.key.startswith("aten::") and ev.key not in NOT_KERNELS:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)

@@ -160,9 +160,43 @@ def test_probe_topk_checks():
     assert (pos[..., 10:] == 10).all() and torch.isinf(dd[..., 10:]).all()
 
 
-def _card_case(g, dev, dt, m, tries, P, d, n_pad, window, k, n, overlap):
+def _check_on_card(rows, q, starts, *, k, n, n_pad, window, **kw):
+    """One launch of the kernel (``kw``: its geometry) against the plain
+    version on the same prepared inputs: slots equal outside near-ties,
+    distances at rtol 1e-5 / atol 1e-4, (n, +inf) past the live slots."""
+    m, tries = starts.shape[:2]
+    before = ex.launches["probe_topk"]
+    pa, da = pr.probe_topk(rows, q, starts, k=k, n=n, n_pad=n_pad, window=window, **kw)
+    assert ex.launches["probe_topk"] == before + 1
+    qq, st, w = pr.prepare(rows, q, starts, n_pad=n_pad, window=window)
+    pb, db = pr.probe_topk_plain(rows, qq, st, k=min(k + 1, 128), n=n, n_pad=n_pad,
+                                 window=w)
+    torch.cuda.synchronize()
+    if k < 128:
+        pb, dref = pb[..., :k], db
+    else:
+        dref = db
+    pa, da, pb, dref = (x.cpu().reshape(m * tries, -1) for x in (pa, da, pb, dref))
+    ok, _ = ids_agree(pa, pb, dref, rtol=1e-5)
+    assert ok, kw
+    dref = dref[:, :k]
+    fin = torch.isfinite(dref)
+    assert torch.equal(fin, torch.isfinite(da))
+    np.testing.assert_allclose(da[fin].numpy(), dref[fin].numpy(), rtol=1e-5, atol=1e-4)
+    assert (pa[~fin] == n).all()
+    return pa
+
+
+def _inputs(g, dev, dt, m, tries, P, d, n_pad, window, overlap, offset=False):
+    """Random rows of type ``dt`` (``offset``: an f32 view 4 bytes past an
+    allocation, so rows start off the 16-byte grid), queries as the wrapper
+    takes them, starts (overlapping windows or spread ones)."""
     rows = torch.randn(tries * n_pad, d, generator=g).to(dev)
     q = torch.randn(m, d, generator=g).to(dev)
+    if offset:
+        flat = torch.empty(tries * n_pad * d + 1, device=dev)
+        flat[1:] = rows.reshape(-1)
+        rows = flat[1:].view(tries * n_pad, d)
     if dt == "bf16":
         rows = rows.to(torch.bfloat16)
     elif dt == "f16":
@@ -176,41 +210,92 @@ def _card_case(g, dev, dt, m, tries, P, d, n_pad, window, k, n, overlap):
         starts = base + torch.randint(0, window, (m, tries, P), generator=g)
     else:
         starts = torch.randint(0, hi + 1, (m, tries, P), generator=g)
-    starts = torch.clamp(starts, max=hi).to(torch.int32).to(dev)
-    before = ex.launches["probe_topk"]
-    pa, da = pr.probe_topk(rows, q, starts, k=k, n=n, n_pad=n_pad, window=window)
-    assert ex.launches["probe_topk"] == before + 1
-    qq, st, w = pr.prepare(rows, q, starts, n_pad=n_pad, window=window)
-    pb, db = pr.probe_topk_plain(rows, qq, st, k=min(k + 1, 128), n=n, n_pad=n_pad,
-                                 window=w)
-    torch.cuda.synchronize()
-    if k < 128:
-        pb, dref = pb[..., :k], db
-    else:
-        dref = db
-    pa, da, pb, dref = (x.cpu().reshape(m * tries, -1) for x in (pa, da, pb, dref))
-    ok, _ = ids_agree(pa, pb, dref, rtol=1e-5)
-    assert ok
-    dref = dref[:, :k]
-    fin = torch.isfinite(dref)
-    assert torch.equal(fin, torch.isfinite(da))
-    np.testing.assert_allclose(da[fin].numpy(), dref[fin].numpy(), rtol=1e-5, atol=1e-4)
-    assert (pa[~fin] == n).all()
+    return rows, q, torch.clamp(starts, max=hi).to(torch.int32).to(dev)
+
+
+# the degenerate set: (m, tries, P, d, window, k, live bound, overlapping windows)
+DEGENERATE = ((200, 4, 18, 128, 96, 10, 4000, False),
+              (200, 4, 8, 96, 40, 50, 3000, True),
+              (64, 3, 2, 128, 16, 128, 4000, False),
+              (1, 1, 1, 128, 8, 10, 4000, False),
+              (50, 2, 4, 128, 32, 10, 10, False))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
 def test_kernel_matches_plain_on_card(dt):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = _card()
     g = torch.Generator().manual_seed(0)
-    dev = torch.device("cuda")
     n_pad = 4096
-    # (m, tries, P, d, window, k, live bound, overlapping windows)
-    for m, tries, P, d, window, k, n, overlap in (
-            (200, 4, 18, 128, 96, 10, 4000, False),
-            (200, 4, 8, 96, 40, 50, 3000, True),
-            (64, 3, 2, 128, 16, 128, 4000, False),
-            (1, 1, 1, 128, 8, 10, 4000, False),
-            (50, 2, 4, 128, 32, 10, 10, False)):
-        _card_case(g, dev, dt, m, tries, P, d, n_pad, window, k, n, overlap)
+    for m, tries, P, d, window, k, n, overlap in DEGENERATE:
+        rows, q, starts = _inputs(g, dev, dt, m, tries, P, d, n_pad, window, overlap)
+        _check_on_card(rows, q, starts, k=k, n=n, n_pad=n_pad, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
+def test_kernel_rows_of_any_width_on_card(dt):
+    """Rows whose bytes are no multiple of 16 (d = 33: 4-byte f32, 2-byte
+    bf16/f16 and 1-byte int8 loads), d = 96 (lanes left idle in a group),
+    d = 300 (rows read in several passes) and, in f32, rows off the 16-byte
+    grid (4-byte loads)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(1)
+    n_pad = 2048
+    for d, offset in ((33, False), (96, False), (300, False), (128, dt == "f32")):
+        for m, tries, P, window, k, n, overlap in ((120, 3, 12, 64, 10, 2000, True),
+                                                   (30, 2, 3, 16, 128, 1900, False)):
+            rows, q, starts = _inputs(g, dev, dt, m, tries, P, d, n_pad, window, overlap,
+                                      offset)
+            _check_on_card(rows, q, starts, k=k, n=n, n_pad=n_pad, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+def test_kernel_every_geometry_on_card(dt):
+    """The degenerate set at every launch geometry the kernel takes: rows
+    in flight R = 2, 4, 8 a group, lane groups G from R to 32 (one or
+    several passes a row), 1, 2, 4 or 8 warps a (query, table) pair."""
+    dev = _card()
+    g = torch.Generator().manual_seed(2)
+    n_pad = 4096
+    size = {"f32": 4, "bf16": 2, "int8": 1}[dt]
+    for m, tries, P, d, window, k, n, overlap in DEGENERATE:
+        rows, q, starts = _inputs(g, dev, dt, m, tries, P, d, n_pad, window, overlap)
+        for r in (2, 4, 8):
+            for lanes in (x for x in (2, 4, 8, 16, 32) if x >= r):
+                geom = ex.gather_geometry(d, size, rows=r, lanes=lanes)
+                for wpp in (1, 2, 4, 8):
+                    _check_on_card(rows, q, starts, k=k, n=n, n_pad=n_pad, window=window,
+                                   geometry=geom, warps_per_pair=wpp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_nan_and_inf_rows_never_return_on_card(dt):
+    """Rows holding a NaN or an infinite coordinate score NaN or +inf: the
+    kernel runs through them, never returns their slots, and equals the
+    plain version (more finite slots than k in every window union)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    n_pad, window = 2048, 128
+    rows, q, starts = _inputs(g, dev, "f32", 100, 3, 6, 96, n_pad, window, True)
+    bad = torch.randint(0, 3 * n_pad, (300,), generator=g).to(dev)
+    rows[bad[:100], 5] = float("nan")
+    rows[bad[100:200]] = float("inf")
+    rows[bad[200:], 0] = -float("inf")
+    if dt == "bf16":
+        rows = rows.to(torch.bfloat16)
+    for k in (10, 50):
+        pa = _check_on_card(rows, q, starts, k=k, n=n_pad - 1, n_pad=n_pad, window=window)
+        slots = bad.cpu() % n_pad
+        tables = bad.cpu() // n_pad
+        for t in range(3):
+            got = pa.reshape(100, 3, k)[:, t]
+            assert not torch.isin(got, slots[tables == t].to(got.dtype)).any(), (k, t)

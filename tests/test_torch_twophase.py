@@ -4,7 +4,10 @@ package's ``exact_knn_pallas(merge="twophase")`` and ``exact_knn_twophase``
 oracle, on the CPU where the plain versions of the emit and rescan kernels
 run; plus the routing of ``exact_search`` and ``Server``.  The kernels
 themselves are held against the plain versions on a card by the
-``cuda``-marked test in tests/test_torch_exact.py.
+``cuda``-marked test in tests/test_torch_exact.py, and the rescan's row
+scorer and split grid by this file's ``cuda``-marked tests:
+
+    python -m pytest --noconftest tests/test_torch_twophase.py -m cuda -q
 
 JAX is imported only inside the tests that compare with it.
 """
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 import approximatenn_tpu_torch as tann
+from approximatenn_tpu_torch.harness.scoring import ids_agree
 from approximatenn_tpu_torch.ops import exact as ex
 from approximatenn_tpu_torch.ops import twophase as tp
 
@@ -236,3 +240,136 @@ def test_exact_knn_merge_options():
         tp.exact_knn_twophase(p, q, 3, rescan="bogus")
     ids, dd = ex.exact_knn(p, q, 200, merge="twophase", twophase_seg=4)  # any k
     assert ids.shape == (2, 200) and (ids[:, 3:] == 10).all()
+
+
+# -- the rescan kernel on a card ------------------------------------------------
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _corpus(g, dev, dt, n, d):
+    """(rows of type ``dt``, the scale of int8 rows or None)."""
+    x = torch.randn(n, d, generator=g).to(dev)
+    if dt == "int8":
+        return ex.quantize_corpus(x)
+    return x.to({"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[dt]), None
+
+
+def _starts(g, n, m, P, seg, dev):
+    """Per query P window starts: distinct segments in random order, then
+    exhausted picks (start n) where P exceeds the segments."""
+    n_seg = -(-n // seg)
+    st = torch.full((m, P), n, dtype=torch.int32)
+    for i in range(m):
+        segs = torch.randperm(n_seg, generator=g)[:P]
+        st[i, : segs.numel()] = (segs * seg).to(torch.int32)
+    return st.to(dev)
+
+
+def _rescan_on_card(pts, q, starts, seg, k, **kw):
+    """One launch of the rescan (``kw``: its geometry and split count)
+    against the plain version: emit-all ids equal, selected ids equal
+    outside near-ties, distances at rtol 1e-5 / atol 1e-4, (n, +inf) past
+    the real rows."""
+    key = "twophase_rescan_all" if k is None else "twophase_rescan"
+    before = ex.launches[key]
+    ia, da = tp.rescan_windows(pts, q, starts, seg, k, **kw)
+    assert ex.launches[key] == before + 1
+    ib, db = tp.rescan_windows_plain(pts, q, starts, seg, None if k is None else min(k + 1, 128))
+    torch.cuda.synchronize()
+    ia, da, ib, db = ia.cpu(), da.cpu(), ib.cpu(), db.cpu()
+    if k is None:
+        assert torch.equal(ia, ib), kw
+    else:
+        ok, _ = ids_agree(ia, ib[:, :k], db, rtol=1e-5)
+        assert ok, kw
+        db, ib = db[:, :k], ib[:, :k]
+        assert bool((ia[~torch.isfinite(da)] == pts.shape[0]).all())
+    fin = torch.isfinite(db)
+    assert torch.equal(fin, torch.isfinite(da)), kw
+    np.testing.assert_allclose(da[fin].numpy(), db[fin].numpy(), rtol=1e-5, atol=1e-4)
+    return ia
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
+def test_rescan_rows_of_any_width_on_card(dt):
+    """Rows whose bytes are no multiple of 16 (d = 33: 4-byte f32, 2-byte
+    bf16/f16 and 1-byte int8 loads), d = 96 and d = 300 (rows read in
+    several passes), selecting and emit-all, one split and several."""
+    dev = _card()
+    g = torch.Generator().manual_seed(4)
+    for d in (33, 96, 300):
+        pts, scale = _corpus(g, dev, dt, 5003, d)
+        q, _, _ = ex._prepare(pts, torch.randn(40, d, generator=g).to(dev), scale)
+        starts = _starts(g, 5003, 40, 14, 64, dev)
+        for k, splits in ((10, None), (10, 5), (128, 3), (None, None), (None, 7)):
+            _rescan_on_card(pts, q, starts, 64, k, n_splits=splits)
+
+
+@pytest.mark.cuda
+def test_rescan_split_grid_on_card():
+    """The split grid: emit-all at add_points' block of 26 queries with P x
+    seg past n (n = 100,003, seg = 128, P = 1,000 windows over 782
+    segments), the rule's split count and 32; k = 1 and 128 with several
+    splits merged; one query."""
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    n, seg = 100_003, 128
+    pts, _ = _corpus(g, dev, "f32", n, 128)
+    q = torch.randn(26, 128, generator=g).to(dev)
+    starts = _starts(g, n, 26, 1000, seg, dev)
+    assert int((starts == n).sum()) == 26 * (1000 - 782)
+    for splits in (None, 32):
+        _rescan_on_card(pts, q, starts, seg, None, n_splits=splits)
+    for k in (1, 128):
+        for splits in (None, 2, 17, 32):
+            _rescan_on_card(pts, q, starts[:, :40].contiguous(), seg, k, n_splits=splits)
+    for k, splits in ((10, None), (10, 12), (None, 32)):
+        _rescan_on_card(pts, q[:1].contiguous(), starts[:1, :40].contiguous(), seg, k,
+                        n_splits=splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+def test_rescan_every_geometry_on_card(dt):
+    """Every launch geometry the kernel takes: rows in flight R = 2, 4, 8 a
+    group, lane groups G from R to 32 (one or several passes a row),
+    selecting and emit-all, one split and several."""
+    dev = _card()
+    g = torch.Generator().manual_seed(6)
+    pts, scale = _corpus(g, dev, dt, 3001, 128)
+    q, _, _ = ex._prepare(pts, torch.randn(30, 128, generator=g).to(dev), scale)
+    starts = _starts(g, 3001, 30, 12, 32, dev)
+    size = pts.element_size()
+    for r in (2, 4, 8):
+        for lanes in (x for x in (2, 4, 8, 16, 32) if x >= r):
+            geom = ex.gather_geometry(128, size, rows=r, lanes=lanes)
+            for k, splits in ((10, 1), (10, 4), (None, 3)):
+                _rescan_on_card(pts, q, starts, 32, k, geometry=geom, n_splits=splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rescan_nan_and_inf_rows_on_card(dt):
+    """Rows holding a NaN or an infinite coordinate score NaN or +inf: the
+    kernel runs through them, never selects them, writes their NaN or
+    +inf where emit-all asks for every row, and equals the plain version
+    (more finite rows than k in every query's windows)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(4000, 96, generator=g)
+    bad = torch.randperm(4000, generator=g)[:120]
+    x[bad[:40], 3] = float("nan")
+    x[bad[40:80]] = float("inf")
+    x[bad[80:], 0] = -float("inf")
+    pts = x.to(dev, {"f32": torch.float32, "bf16": torch.bfloat16}[dt])
+    q = torch.randn(50, 96, generator=g).to(dev)
+    starts = _starts(g, 4000, 50, 10, 64, dev)
+    for k, splits in ((10, None), (10, 4), (128, 2)):
+        ids = _rescan_on_card(pts, q, starts, 64, k, n_splits=splits)
+        assert not torch.isin(ids, bad.to(ids.dtype)).any(), (k, splits)
+    _rescan_on_card(pts, q, starts, 64, None, n_splits=5)
