@@ -12,14 +12,17 @@
 //     loads V bytes at a time (16 where the row's bytes and the data
 //     pointer allow it: 4 f32, 8 bf16 or f16, 16 int8 values), neighbouring
 //     lanes on neighbouring addresses, and widens them to fp32.  A row is
-//     nvec = d * sizeof(T) / V vectors, read in ceil(nvec / G) passes (one
-//     where nvec <= G: d = 128 takes G = 32 in f32, 16 in bf16, 8 in int8);
+//     nvec = d * sizeof(T) / V vectors, read in ceil(nvec / G) passes;
 //   * the lane's query vector of the first pass lives in registers, loaded
-//     once; later passes (long rows) read theirs from shared memory, once
-//     for R rows;
+//     once; later passes read theirs from shared memory, once for ROWS
+//     rows;
 //   * a group reduces in log2(G) xor shuffles;
-//   * every group keeps R rows' loads in flight before it reduces any of
-//     them, so a warp has 32 R / G rows in flight.
+//   * every group keeps ROWS (4) rows' loads in flight before it reduces
+//     any of them, so a warp has 128 / G rows in flight.
+// A reading chose 4 rows in flight over 2 and 8, and lane groups that read
+// a row in two passes (d = 128: G = 16 in f32, 8 in bf16, 4 in int8) over
+// one pass or more: fewer shuffles a row and more rows in flight a warp
+// (PERF.md §6 PR 9; the wrappers pick G, ops/exact.py:gather_geometry).
 // score_batch scores the 32 rows of a batch, one row index a lane, and
 // leaves lane b with row b's distance: the callers select on that as
 // before (a ballot against the warp's k-th, or a direct write).
@@ -36,23 +39,19 @@ namespace knn {
 namespace gather {
 
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int ROWS = 4;  // rows a lane group keeps in flight (ops/exact.py:GATHER_ROWS)
+
 // The resident blocks an SM that a gather kernel's __launch_bounds__ asks
 // of ptxas, so at most 65536 / (256 x this) registers a thread: four (64
 // registers) where the instantiation fits them unspilled, two (128) where
-// it does not, one (no limit) for the probe's R = 8.  Left to itself ptxas
-// held some instantiations to 64 registers and spilled, others to 80.
-// PROBE: the probe kernel's (its selection state takes more registers).
-template <typename T, int V, int R, bool PROBE>
+// it does not (16-byte int8 rows; the probe's 16-byte half rows, whose
+// selection state takes more).  Left to itself ptxas held some
+// instantiations to 64 registers and spilled.
+template <typename T, int V, bool PROBE>
 constexpr int min_blocks() {
-  if (R == 8) return PROBE ? 1 : 2;
-  if (sizeof(T) == 4) return 4;
-  if (V < 16) return 4;
+  if (sizeof(T) == 4 || V < 16) return 4;
   return sizeof(T) == 2 && !PROBE ? 4 : 2;
 }
-// rows a group keeps in flight for rows of fewer than 16 bytes a vector
-// (odd widths: one instantiation each, at the wrappers' default R,
-// ops/exact.py:GATHER_ROWS); 16-byte rows take R = 2, 4 or 8
-constexpr int NARROW_ROWS = 4;
 
 template <int V> struct VecT;
 template <> struct VecT<16> { using type = uint4; };
@@ -98,9 +97,10 @@ __device__ __forceinline__ void widen(const typename VecT<V>::type& v,
 // One warp's scorer: rows of `nvec` V-byte vectors from `rows` (row r at
 // vector r * nvec; the pointer and V * nvec are multiples of V), the query
 // as d = nvec * E floats in shared memory, lane groups of G lanes with
-// R <= G <= 32.
-template <typename T, int V, int R>
+// ROWS <= G <= 32.
+template <typename T, int V>
 struct RowScorer {
+  static constexpr int R = ROWS;
   static constexpr int E = V / (int)sizeof(T);
   using VT = typename VecT<V>::type;
 
@@ -178,32 +178,19 @@ struct RowScorer {
   }
 };
 
-// f.template run<V, R>() for a launch's vector bytes V and group rows R:
-// V = 16 takes R = 2, 4 or 8, a narrower vector R = NARROW_ROWS; V must be
-// at least sizeof(T).  Anything else is cudaErrorInvalidValue.
+// f.template run<V>() for a launch's vector bytes V (at least sizeof(T));
+// anything else is cudaErrorInvalidValue.
 template <typename T, typename F>
-cudaError_t dispatch(int V, int R, F& f) {
+cudaError_t dispatch(int V, F& f) {
   switch (V) {
-    case 16:
-      if (R == 2) return f.template run<16, 2>();
-      if (R == 4) return f.template run<16, 4>();
-      if (R == 8) return f.template run<16, 8>();
-      break;
-    case 8:
-      if (R == NARROW_ROWS) return f.template run<8, NARROW_ROWS>();
-      break;
-    case 4:
-      if (R == NARROW_ROWS) return f.template run<4, NARROW_ROWS>();
-      break;
+    case 16: return f.template run<16>();
+    case 8: return f.template run<8>();
+    case 4: return f.template run<4>();
     case 2:
-      if constexpr (sizeof(T) <= 2) {
-        if (R == NARROW_ROWS) return f.template run<2, NARROW_ROWS>();
-      }
+      if constexpr (sizeof(T) <= 2) return f.template run<2>();
       break;
     case 1:
-      if constexpr (sizeof(T) == 1) {
-        if (R == NARROW_ROWS) return f.template run<1, NARROW_ROWS>();
-      }
+      if constexpr (sizeof(T) == 1) return f.template run<1>();
       break;
     default:
       break;
@@ -212,12 +199,11 @@ cudaError_t dispatch(int V, int R, F& f) {
 }
 
 // A launch's geometry is valid: V a power of two in [sizeof(T), 16]
-// dividing the row's bytes, G a power of two in [R, 32].
-inline bool geometry_ok(int d, int itemsize, int V, int G, int R) {
+// dividing the row's bytes, G a power of two in [ROWS, 32].
+inline bool geometry_ok(int d, int itemsize, int V, int G) {
   const bool pow2v = V == 1 || V == 2 || V == 4 || V == 8 || V == 16;
-  const bool pow2g = G == 1 || G == 2 || G == 4 || G == 8 || G == 16 || G == 32;
-  return pow2v && V >= itemsize && ((long long)d * itemsize) % V == 0 && pow2g && G >= R &&
-         R >= 1;
+  return pow2v && V >= itemsize && ((long long)d * itemsize) % V == 0 &&
+         (G == 4 || G == 8 || G == 16 || G == 32);
 }
 
 }  // namespace gather

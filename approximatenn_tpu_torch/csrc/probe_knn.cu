@@ -51,8 +51,8 @@ using namespace knn;
 // Pair p = query * tries + table; block b holds pairs b * ppb .. b * ppb +
 // ppb - 1, ppb = NW / wpp, pair slot w / wpp of warp w.  starts (m, tries,
 // P); out (m, tries, k).  Rows of nvec V-byte vectors, lane groups of G.
-template <typename T, int V, int R>
-__global__ void __launch_bounds__(NT, (gather::min_blocks<T, V, R, true>()))
+template <typename T, int V>
+__global__ void __launch_bounds__(NT, (gather::min_blocks<T, V, true>()))
 probe_kernel(const T* __restrict__ pts, const float* __restrict__ q,
              const int* __restrict__ starts, int pairs, int tries, int P, int d,
              int nvec, int G, int wpp, int n_pad, int window, int live, int k,
@@ -112,7 +112,7 @@ probe_kernel(const T* __restrict__ pts, const float* __restrict__ q,
 
   if (has) {
     const int L = off[P];
-    const gather::RowScorer<T, V, R> sc(pts + (long long)t * n_pad * d, qv, nvec, G, lane);
+    const gather::RowScorer<T, V> sc(pts + (long long)t * n_pad * d, qv, nvec, G, lane);
     float* ld = topd + warp * k;
     int* li = topi + warp * k;
     float wd = pos_inf();
@@ -193,18 +193,18 @@ struct ProbeLaunch {
   int* out_i;
   cudaStream_t stream;
 
-  template <int V, int R>
+  template <int V>
   cudaError_t run() {
     const int ppb = NW / wpp;
     const size_t smem = sizeof(float) * (size_t)ppb * d +
                         sizeof(int) * (size_t)ppb * (2 * P + 1) +
                         (sizeof(float) + sizeof(int)) * (size_t)NW * k;
-    cudaError_t err = cudaFuncSetAttribute(probe_kernel<T, V, R>,
+    cudaError_t err = cudaFuncSetAttribute(probe_kernel<T, V>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
     const unsigned blocks = (unsigned)((pairs + ppb - 1) / ppb);
-    probe_kernel<T, V, R><<<blocks, NT, smem, stream>>>(
+    probe_kernel<T, V><<<blocks, NT, smem, stream>>>(
         static_cast<const T*>(pts), q, starts, pairs, tries, P, d, nvec, G, wpp, n_pad,
         window, live, k, out_d, out_i);
     return cudaGetLastError();
@@ -213,15 +213,15 @@ struct ProbeLaunch {
 
 template <typename T>
 int probe(const void* pts, const float* q, const int* starts, int m, int tries, int P,
-          int d, int n_pad, int window, int live, int k, int V, int G, int R, int wpp,
+          int d, int n_pad, int window, int live, int k, int V, int G, int wpp,
           float* out_d, int* out_i, cudaStream_t stream) {
-  if (!gather::geometry_ok(d, (int)sizeof(T), V, G, R) ||
+  if (!gather::geometry_ok(d, (int)sizeof(T), V, G) ||
       reinterpret_cast<uintptr_t>(pts) % V)
     return (int)cudaErrorInvalidValue;
   const int nvec = (int)((long long)d * sizeof(T) / V);
   ProbeLaunch<T> f{pts, q, starts, m * tries, tries, P, d, nvec, G, wpp, n_pad, window,
                    live, k, out_d, out_i, stream};
-  return (int)gather::dispatch<T>(V, R, f);
+  return (int)gather::dispatch<T>(V, f);
 }
 
 }  // namespace
@@ -232,12 +232,11 @@ extern "C" {
 // 1 = bfloat16, 2 = float16, 3 = int8.  pts (tries * n_pad, d) rows;
 // q (m, d) float32; starts (m, tries, P) int32 with 0 <= start <=
 // n_pad - window; out_d/out_i (m, tries, k).  The scorer's geometry
-// (knn_gather.cuh): vec bytes a load, lanes a group, rows a group keeps in
-// flight; wpp warps a (query, table) pair (1, 2, 4 or 8).  Returns the CUDA
-// error code (0 = launched).
+// (knn_gather.cuh): vec bytes a load, lanes a group; wpp warps a (query,
+// table) pair (1, 2, 4 or 8).  Returns the CUDA error code (0 = launched).
 int probe_topk_launch(int device, const void* pts, int dtype, const float* q,
                       const int* starts, int m, int tries, int P, int d, int n_pad,
-                      int window, int live, int k, int vec, int lanes, int rows, int wpp,
+                      int window, int live, int k, int vec, int lanes, int wpp,
                       float* out_d, int* out_i, void* stream) {
   if (k < 1 || k > knn::KMAX || m < 1 || tries < 1 || P < 1 || d < 1 || n_pad < 1 ||
       window < 1 || window > n_pad || live < 0 || live > n_pad ||
@@ -248,10 +247,10 @@ int probe_topk_launch(int device, const void* pts, int dtype, const float* q,
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return probe<float>(pts, q, starts, m, tries, P, d, n_pad, window, live, k, vec, lanes, rows, wpp, out_d, out_i, s);
-    case 1: return probe<__nv_bfloat16>(pts, q, starts, m, tries, P, d, n_pad, window, live, k, vec, lanes, rows, wpp, out_d, out_i, s);
-    case 2: return probe<__half>(pts, q, starts, m, tries, P, d, n_pad, window, live, k, vec, lanes, rows, wpp, out_d, out_i, s);
-    case 3: return probe<int8_t>(pts, q, starts, m, tries, P, d, n_pad, window, live, k, vec, lanes, rows, wpp, out_d, out_i, s);
+    case 0: return probe<float>(pts, q, starts, m, tries, P, d, n_pad, window, live, k, vec, lanes, wpp, out_d, out_i, s);
+    case 1: return probe<__nv_bfloat16>(pts, q, starts, m, tries, P, d, n_pad, window, live, k, vec, lanes, wpp, out_d, out_i, s);
+    case 2: return probe<__half>(pts, q, starts, m, tries, P, d, n_pad, window, live, k, vec, lanes, wpp, out_d, out_i, s);
+    case 3: return probe<int8_t>(pts, q, starts, m, tries, P, d, n_pad, window, live, k, vec, lanes, wpp, out_d, out_i, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

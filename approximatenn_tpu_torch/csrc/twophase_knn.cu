@@ -186,8 +186,8 @@ struct EmitSelect {
 // * k) (one split: the result); k == 0: every local row's (distance, id)
 // into out (m, P * seg), +inf and id n where the row does not exist.  Rows
 // of nvec V-byte vectors, lane groups of G.
-template <typename T, int V, int R>
-__global__ void __launch_bounds__(NT, (gather::min_blocks<T, V, R, false>()))
+template <typename T, int V>
+__global__ void __launch_bounds__(NT, (gather::min_blocks<T, V, false>()))
 rescan_kernel(const T* __restrict__ pts, const float* __restrict__ q,
               const int* __restrict__ starts, int n, int d, int nvec, int G, int P,
               int per, int seg_log, int k, float* __restrict__ out_d,
@@ -209,7 +209,7 @@ rescan_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   for (int e = tid; e < NW * k; e += NT) { topd[e] = pos_inf(); topi[e] = ID_NONE; }
   __syncthreads();
 
-  const gather::RowScorer<T, V, R> sc(pts, Qv, nvec, G, lane);
+  const gather::RowScorer<T, V> sc(pts, Qv, nvec, G, lane);
   float* ld = topd + warp * k;
   int* li = topi + warp * k;
   float wd = pos_inf();
@@ -299,17 +299,17 @@ struct RescanLaunch {
   int *out_i, *part_i;
   cudaStream_t stream;
 
-  template <int V, int R>
+  template <int V>
   cudaError_t run() {
     const size_t smem = sizeof(float) * (size_t)d + sizeof(int) * (size_t)per +
                         (sizeof(float) + sizeof(int)) * (size_t)NW * k;
-    cudaError_t err = cudaFuncSetAttribute(rescan_kernel<T, V, R>,
+    cudaError_t err = cudaFuncSetAttribute(rescan_kernel<T, V>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
     // several selecting splits write their lists to part, merged after
     const bool merge = k > 0 && splits > 1;
-    rescan_kernel<T, V, R><<<dim3(m, splits), NT, smem, stream>>>(
+    rescan_kernel<T, V><<<dim3(m, splits), NT, smem, stream>>>(
         static_cast<const T*>(pts), q, starts, n, d, nvec, G, P, per, seg_log, k,
         merge ? part_d : out_d, merge ? part_i : out_i);
     err = cudaGetLastError();
@@ -325,17 +325,17 @@ template <typename T>
 struct RescanOccupancy {
   int* blocks;
 
-  template <int V, int R>
+  template <int V>
   cudaError_t run() {
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, rescan_kernel<T, V, R>, NT, 0);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, rescan_kernel<T, V>, NT, 0);
   }
 };
 
 template <typename T>
 int rescan(const void* pts, const float* q, const int* starts, int n, int d, int m, int P,
-           int seg_log, int k, int V, int G, int R, int splits, float* out_d, int* out_i,
+           int seg_log, int k, int V, int G, int splits, float* out_d, int* out_i,
            float* part_d, int* part_i, cudaStream_t stream) {
-  if (!gather::geometry_ok(d, (int)sizeof(T), V, G, R) ||
+  if (!gather::geometry_ok(d, (int)sizeof(T), V, G) ||
       reinterpret_cast<uintptr_t>(pts) % V || (k > 0 && splits > 1 && (!part_d || !part_i)))
     return (int)cudaErrorInvalidValue;
   const int nvec = (int)((long long)d * sizeof(T) / V);
@@ -345,7 +345,7 @@ int rescan(const void* pts, const float* q, const int* starts, int n, int d, int
   if ((P + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
   RescanLaunch<T> f{pts, q, starts, n, d, nvec, G, m, P, per, splits, seg_log, k,
                     out_d, part_d, out_i, part_i, stream};
-  return (int)gather::dispatch<T>(V, R, f);
+  return (int)gather::dispatch<T>(V, f);
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -379,13 +379,13 @@ int twophase_emit_launch(int device, const void* pts, int dtype, const float* q,
 
 // starts (m, P) int32: window first rows, n = exhausted.  seg = 1 << seg_log.
 // k in [1, 128]: out_d/out_i hold m * k entries; k == 0 (emit all): m * P * seg.
-// The scorer's geometry (knn_gather.cuh): vec bytes a load, lanes a group,
-// rows a group keeps in flight.  splits (<= 32, each taking ceil(P /
+// The scorer's geometry (knn_gather.cuh): vec bytes a load, lanes a group.
+// splits (<= 32, each taking ceil(P /
 // splits) windows, none empty) blocks a query; with k > 0 and more than one,
 // part_d/part_i hold m * splits * k entries for the split lists.
 int twophase_rescan_launch(int device, const void* pts, int dtype, const float* q,
                            const int* starts, int n, int d, int m, int P, int seg_log,
-                           int k, int vec, int lanes, int rows, int splits, float* out_d,
+                           int k, int vec, int lanes, int splits, float* out_d,
                            int* out_i, float* part_d, int* part_i, void* stream) {
   if (k < 0 || k > knn::KMAX || n < 1 || d < 1 || m < 1 || P < 1 || seg_log < 0 ||
       seg_log > 30 || ((long long)P << seg_log) >= (1LL << 31) || splits < 1 ||
@@ -395,24 +395,24 @@ int twophase_rescan_launch(int device, const void* pts, int dtype, const float* 
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return rescan<float>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, rows, splits, out_d, out_i, part_d, part_i, s);
-    case 1: return rescan<__nv_bfloat16>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, rows, splits, out_d, out_i, part_d, part_i, s);
-    case 2: return rescan<__half>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, rows, splits, out_d, out_i, part_d, part_i, s);
-    case 3: return rescan<int8_t>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, rows, splits, out_d, out_i, part_d, part_i, s);
+    case 0: return rescan<float>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, splits, out_d, out_i, part_d, part_i, s);
+    case 1: return rescan<__nv_bfloat16>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, splits, out_d, out_i, part_d, part_i, s);
+    case 2: return rescan<__half>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, splits, out_d, out_i, part_d, part_i, s);
+    case 3: return rescan<int8_t>(pts, q, starts, n, d, m, P, seg_log, k, vec, lanes, splits, out_d, out_i, part_d, part_i, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// resident rescan blocks an SM holds for this dtype and geometry (-1 for a
-// geometry the kernel does not take), on the current device
-int twophase_rescan_blocks_per_sm(int dtype, int vec, int rows) {
+// resident rescan blocks an SM holds for this dtype and load width (-1 for
+// a width the kernel does not take), on the current device
+int twophase_rescan_blocks_per_sm(int dtype, int vec) {
   int blocks = -1;
   cudaError_t err = cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: { RescanOccupancy<float> f{&blocks}; err = gather::dispatch<float>(vec, rows, f); break; }
-    case 1: { RescanOccupancy<__nv_bfloat16> f{&blocks}; err = gather::dispatch<__nv_bfloat16>(vec, rows, f); break; }
-    case 2: { RescanOccupancy<__half> f{&blocks}; err = gather::dispatch<__half>(vec, rows, f); break; }
-    case 3: { RescanOccupancy<int8_t> f{&blocks}; err = gather::dispatch<int8_t>(vec, rows, f); break; }
+    case 0: { RescanOccupancy<float> f{&blocks}; err = gather::dispatch<float>(vec, f); break; }
+    case 1: { RescanOccupancy<__nv_bfloat16> f{&blocks}; err = gather::dispatch<__nv_bfloat16>(vec, f); break; }
+    case 2: { RescanOccupancy<__half> f{&blocks}; err = gather::dispatch<__half>(vec, f); break; }
+    case 3: { RescanOccupancy<int8_t> f{&blocks}; err = gather::dispatch<int8_t>(vec, f); break; }
     default: break;
   }
   return err == cudaSuccess ? blocks : -1;

@@ -74,12 +74,12 @@ _ENTRY_POINTS = {
         "twophase_emit_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                  _ci, _vp, _vp, _vp],
         "twophase_rescan_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
-                                   _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
-        "twophase_rescan_blocks_per_sm": [_ci, _ci, _ci],
+                                   _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
+        "twophase_rescan_blocks_per_sm": [_ci, _ci],
         "twophase_knn_query_block": [], "twophase_knn_tile_rows": [],
     },
     "probe_knn": {"probe_topk_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
-                                        _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp]},
+                                        _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp]},
     "rescan_merge_knn": {"exact_knn_rescan_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _vp, _ci,
                                                      _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
                                                      ctypes.c_float, _vp],
@@ -314,33 +314,30 @@ def split_rows(n: int, n_splits: int, tile_rows: int, split_tiles: int = 1) -> i
 
 
 # rows a lane group of csrc/knn_gather.cuh's row scorer keeps in flight
-# (its R): 2, 4 or 8 with 16-byte loads, knn_gather.cuh's NARROW_ROWS (the
-# same 4) with narrower ones.  PERF.md §6 PR 9: the reading that chose it,
-# and the two passes a row.
+# (its ROWS), the least lanes a group takes
 GATHER_ROWS = 4
 
 
-def gather_geometry(d: int, itemsize: int, ptr: int = 0, *, rows: int | None = None,
-                    lanes: int | None = None) -> tuple[int, int, int]:
-    """(bytes a load V, lanes a group G, rows a group keeps in flight R)
-    of the row scorer the probe and the two-phase rescan share
-    (``csrc/knn_gather.cuh``), for rows of ``d`` elements of ``itemsize``
-    bytes at data pointer ``ptr``: V is the widest of 16, 8, 4, 2 and 1
-    bytes that divides a row's bytes and the pointer; R is ``rows`` at V =
-    16, else :data:`GATHER_ROWS`; G is ``lanes`` or the smallest power of
-    two that covers a row's V-byte vectors in two passes, within [R, 32]
-    (d = 128: 16 lanes in f32, 8 in bf16 and f16, 4 in int8)."""
+def gather_geometry(d: int, itemsize: int, ptr: int = 0, *,
+                    lanes: int | None = None) -> tuple[int, int]:
+    """(bytes a load V, lanes a group G) of the row scorer the probe and
+    the two-phase rescan share (``csrc/knn_gather.cuh``), for rows of
+    ``d`` elements of ``itemsize`` bytes at data pointer ``ptr``: V is the
+    widest of 16, 8, 4, 2 and 1 bytes that divides a row's bytes and the
+    pointer; G is ``lanes`` or the smallest power of two that covers a
+    row's V-byte vectors in two passes, within [:data:`GATHER_ROWS`, 32]
+    (d = 128: 16 lanes in f32, 8 in bf16 and f16, 4 in int8; PERF.md §6
+    PR 9 has the reading that chose two passes)."""
     row_bytes = d * itemsize
     v = 16
     while row_bytes % v or ptr % v:
         v //= 2
-    r = rows if rows is not None and v == 16 else GATHER_ROWS
     if lanes is None:
         half = -(-(row_bytes // v) // 2)  # vectors a pass
-        lanes = min(32, max(r, 1 << (half - 1).bit_length()))
-    if lanes & (lanes - 1) or not r <= lanes <= 32:
-        raise ValueError(f"lanes={lanes} must be a power of two in [{r}, 32]")
-    return v, lanes, r
+        lanes = min(32, max(GATHER_ROWS, 1 << (half - 1).bit_length()))
+    if lanes & (lanes - 1) or not GATHER_ROWS <= lanes <= 32:
+        raise ValueError(f"lanes={lanes} must be a power of two in [{GATHER_ROWS}, 32]")
+    return v, lanes
 
 
 def tile_geometry(name: str) -> tuple[int, int]:

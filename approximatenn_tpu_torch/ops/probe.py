@@ -55,14 +55,14 @@ def prepare(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tensor,
 
 def probe_topk(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tensor, *,
                k: int, n: int, n_pad: int, window: int,
-               geometry: tuple[int, int, int] | None = None,
+               geometry: tuple[int, int] | None = None,
                warps_per_pair: int = WARPS_PER_PAIR):
     """Per-table probe-window top-k (see the module docstring).
     ``pts_flat`` (tries * n_pad, d) f32/bf16/f16/int8 rows; ``queries`` (m,
     d) float (for int8 rows, q / scale); ``starts`` (m, tries, P) int32
     within [0, n_pad - window]; ``n`` the live bound; k <= 128 (the
     kernel's selection width, a limit of this port).  ``geometry`` (the
-    row scorer's (V, G, R), :func:`~.exact.gather_geometry` by default)
+    row scorer's (V, G), :func:`~.exact.gather_geometry` by default)
     and ``warps_per_pair`` (1, 2, 4 or 8) set the kernel's launch, for
     readings; the result does not depend on them."""
     if pts_flat.dim() != 2 or queries.dim() != 2 or starts.dim() != 3:
@@ -94,12 +94,11 @@ def probe_topk(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tens
     if m == 0:
         return out_i, out_d
     lib = _library("probe_knn")
-    vec, lanes, rows = geometry or gather_geometry(d, pts_flat.element_size(),
-                                                   pts_flat.data_ptr())
+    vec, lanes = geometry or gather_geometry(d, pts_flat.element_size(), pts_flat.data_ptr())
     err = lib.probe_topk_launch(
         device_index(dev), pts_flat.data_ptr(), _DTYPE_CODE[pts_flat.dtype], q.data_ptr(),
-        starts.data_ptr(), m, tries, P, d, n_pad, window, n, k, vec, lanes, rows,
-        warps_per_pair, out_d.data_ptr(), out_i.data_ptr(),
+        starts.data_ptr(), m, tries, P, d, n_pad, window, n, k, vec, lanes, warps_per_pair,
+        out_d.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise launch_error(lib, "probe_topk", err)

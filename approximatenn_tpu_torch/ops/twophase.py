@@ -225,7 +225,7 @@ def rescan_splits(m: int, P: int, sms: int, per_sm: int) -> int:
 
 
 def rescan_windows(points: torch.Tensor, q: torch.Tensor, starts: torch.Tensor,
-                   seg: int, k: int | None, *, geometry: tuple[int, int, int] | None = None,
+                   seg: int, k: int | None, *, geometry: tuple[int, int] | None = None,
                    n_splits: int | None = None):
     """Phase 3 over windows ``[starts[i, p], starts[i, p] + seg)`` (start n =
     an exhausted pick; rows >= n do not exist): diff-form squared L2 of the
@@ -235,7 +235,7 @@ def rescan_windows(points: torch.Tensor, q: torch.Tensor, starts: torch.Tensor,
     window row, (ids (m, P*seg), distances), id n and +inf where a row does
     not exist.  The rescan kernel on a CUDA tensor,
     :func:`rescan_windows_plain` on a CPU tensor.  ``geometry`` (the row
-    scorer's (V, G, R), :func:`~.exact.gather_geometry` by default) and
+    scorer's (V, G), :func:`~.exact.gather_geometry` by default) and
     ``n_splits`` (:func:`rescan_splits` by default) set the kernel's
     launch, for readings; the result does not depend on them."""
     _check(points, q, 1, None, "highest")
@@ -263,14 +263,12 @@ def rescan_windows(points: torch.Tensor, q: torch.Tensor, starts: torch.Tensor,
     q = q.contiguous()
     starts = starts.contiguous()
     lib = _library("twophase_knn")
-    vec, lanes, rows = geometry or gather_geometry(d, points.element_size(),
-                                                   points.data_ptr())
+    vec, lanes = geometry or gather_geometry(d, points.element_size(), points.data_ptr())
     code = _DTYPE_CODE[points.dtype]
     if n_splits is None:
-        per_sm = lib.twophase_rescan_blocks_per_sm(code, vec, rows)
+        per_sm = lib.twophase_rescan_blocks_per_sm(code, vec)
         if per_sm < 1:
-            raise RuntimeError(f"twophase_rescan: no resident block at geometry "
-                               f"{(vec, lanes, rows)}")
+            raise RuntimeError(f"twophase_rescan: no resident block at {vec}-byte loads")
         n_splits = rescan_splits(
             m, P, torch.cuda.get_device_properties(dev).multi_processor_count, per_sm)
     elif not 1 <= n_splits <= min(32, P):
@@ -283,7 +281,7 @@ def rescan_windows(points: torch.Tensor, q: torch.Tensor, starts: torch.Tensor,
         part_i = torch.empty((m, n_splits, k), dtype=itype, device=dev)
     err = lib.twophase_rescan_launch(
         device_index(dev), points.data_ptr(), code, q.data_ptr(), starts.data_ptr(), n, d, m,
-        P, seg.bit_length() - 1, 0 if k is None else k, vec, lanes, rows, n_splits,
+        P, seg.bit_length() - 1, 0 if k is None else k, vec, lanes, n_splits,
         out_d.data_ptr(), out_i.data_ptr(), part_d.data_ptr() if part_d is not None else None,
         part_i.data_ptr() if part_i is not None else None,
         torch.cuda.current_stream(dev).cuda_stream)

@@ -25,7 +25,7 @@ Phases, one line each, and a non-zero exit on the first failure:
    k = 1 and 128 merged from several splits, m = 1, NaN and infinite
    coordinates (never selected); its time at the serving shape and at
    add_points' emit-all shape (m = 26, P = 10,013), its effective read
-   rates, and sweeps of the row scorer's geometry (R, G; f32, bf16, int8)
+   rates, and sweeps of the row scorer's lane groups (f32, bf16, int8)
    and of the emit-all split count.  Probe kernel:
    overlapping windows, clipped starts, a live bound below n, every window
    past the live bound, k = 128 over fewer distinct slots, P = m = tries =
@@ -215,20 +215,18 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
 
 
 def gather_sweep(label, fn, d: int, itemsize: int, reps: int = 20, extra=(None,)) -> None:
-    """Times of a gather kernel (the probe or the rescan) at every row
-    scorer geometry it takes (rows in flight R = 2, 4, 8 a group, lane
-    groups G from R to 32; ``fn(geometry, e)`` for each ``e`` of
-    ``extra``), one line, CUDA events, ``reps`` calls each."""
+    """Times of a gather kernel (the probe or the rescan) at every lane
+    group its row scorer takes (G = 4 to 32 lanes a row; ``fn(geometry,
+    e)`` for each ``e`` of ``extra``), one line, CUDA events, ``reps``
+    calls each."""
     times = []
     for e in extra:
-        for r in (2, 4, 8):
-            for lanes in (x for x in (2, 4, 8, 16, 32) if x >= r):
-                geom = ex.gather_geometry(d, itemsize, rows=r, lanes=lanes)
-                ms = cuda_ms(lambda: fn(geom, e), reps=reps)
-                times.append((ms, f"{'' if e is None else f'{e} '}R{r} G{lanes}"))
+        for lanes in (4, 8, 16, 32):
+            ms = cuda_ms(lambda: fn(ex.gather_geometry(d, itemsize, lanes=lanes), e), reps=reps)
+            times.append((ms, f"{'' if e is None else f'{e} '}G{lanes}"))
     best = min(times)
-    phase("kernel", f"sweep {label} (default {ex.gather_geometry(d, itemsize)[1:]} as (G, R); "
-                    f"best {best[1]} {best[0]:.3f} ms): "
+    phase("kernel", f"sweep {label} (default G{ex.gather_geometry(d, itemsize)[1]}; best "
+                    f"{best[1]} {best[0]:.3f} ms): "
                     + ", ".join(f"{name} {ms:.3f}" for ms, name in times))
 
 
@@ -829,8 +827,8 @@ def main() -> None:
                     f"of row reads ({1e3 * pairs_all * 512 / PEAK_BYTES:.3f} ms at the HBM "
                     f"peak, where no row is read from L2) and {m_all * p_all * seg * 8 / 1e9:.3f} "
                     f"GB written; effective read rate {pairs_all * 512 / all_ms / 1e9:.3f} TB/s")
-    # the row scorer's geometry and the rescan's split count, for the
-    # defaults (ops/exact.py:GATHER_ROWS, ops/twophase.py:rescan_splits)
+    # the row scorer's lane groups and the rescan's split count, against
+    # the defaults (ops/exact.py:gather_geometry, ops/twophase.py:rescan_splits)
     gather_sweep(f"rescan f32 n={N} m={M} k={k}",
                  lambda geom, _: tp.rescan_windows(X, Y, starts, seg, k, geometry=geom), 128, 4)
     starts_b = window_starts(Xb, Y, P, seg)
@@ -851,7 +849,7 @@ def main() -> None:
                                                      n_splits=s), reps=3)
                 for s in (1, 2, 4, 8, 16, 24, 32)}
     per_sm = ex._library("twophase_knn").twophase_rescan_blocks_per_sm(
-        0, *ex.gather_geometry(128, 4)[::2])
+        0, ex.gather_geometry(128, 4)[0])
     rule = tp.rescan_splits(m_all, p_all, torch.cuda.get_device_properties(dev)
                             .multi_processor_count, per_sm)
     phase("kernel", f"rescan emit-all splits (rule: {rule}, {per_sm} resident blocks an SM): "
@@ -1209,7 +1207,7 @@ def packed_serving(seed: int, dev, read_counts):
                       f"w={PACKED_WINDOW} k=10 bf16", pv.point_rows, Yc, starts, k=10, **kw)
     check_probe(f"main shape k={RERANK}", pv.point_rows, Yc, starts, k=RERANK, **kw)
     kern_ms = cuda_ms(lambda: pr.probe_topk(pv.point_rows, Yc, starts, k=10, **kw), reps=20)
-    gather_sweep(f"probe bf16 n={N} m={M} tries=10 P={PACKED_PROBES} k=10 (warps a pair, R, G)",
+    gather_sweep(f"probe bf16 n={N} m={M} tries=10 P={PACKED_PROBES} k=10 (warps a pair, G)",
                  lambda geom, wpp: pr.probe_topk(pv.point_rows, Yc, starts, k=10, geometry=geom,
                                                  warps_per_pair=wpp, **kw),
                  128, 2, extra=(1, 2, 4, 8))

@@ -27,24 +27,23 @@ def test_gather_geometry(dt, d):
     least power of two in [R, 32] that covers a row in two passes; a data
     pointer off the vector's alignment narrows the load."""
     size = ITEMSIZE[dt]
-    v, g, r = ex.gather_geometry(d, size)
+    v, g = ex.gather_geometry(d, size)
     row_bytes = d * size
     assert row_bytes % v == 0 and size <= v <= 16
     assert v == (16 if row_bytes % 16 == 0 else {33: size}[d])
-    assert r == ex.GATHER_ROWS
-    assert ex.gather_geometry(d, size, rows=8)[2] == (8 if v == 16 else ex.GATHER_ROWS)
-    assert g & (g - 1) == 0 and r <= g <= 32
+    assert g & (g - 1) == 0 and ex.GATHER_ROWS <= g <= 32
     nvec = row_bytes // v
     assert 2 * g >= nvec or g == 32  # two passes a row where 32 lanes allow it
-    assert g == r or nvec > g  # and no more lanes than that
+    assert g == ex.GATHER_ROWS or nvec > g  # and no more lanes than that
     if d == 128:
         assert (v, g) == (16, {"f32": 16, "bf16": 8, "f16": 8, "int8": 4}[dt])
     # a pointer aligned to 4 bytes only (an offset view) takes 4-byte loads
     if size <= 4 and row_bytes % 16 == 0:
         assert ex.gather_geometry(d, size, ptr=4)[0] == 4
     assert ex.gather_geometry(d, size, lanes=32)[1] == 32
-    with pytest.raises(ValueError):
-        ex.gather_geometry(d, size, lanes=3)
+    for bad in (2, 3, 64):
+        with pytest.raises(ValueError):
+            ex.gather_geometry(d, size, lanes=bad)
 
 
 def test_rescan_split_count():

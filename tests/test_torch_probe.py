@@ -259,21 +259,20 @@ def test_kernel_rows_of_any_width_on_card(dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
 def test_kernel_every_geometry_on_card(dt):
-    """The degenerate set at every launch geometry the kernel takes: rows
-    in flight R = 2, 4, 8 a group, lane groups G from R to 32 (one or
-    several passes a row), 1, 2, 4 or 8 warps a (query, table) pair."""
+    """The degenerate set at every launch geometry the kernel takes: lane
+    groups of 4 to 32 lanes (one or several passes a row), 1, 2, 4 or 8
+    warps a (query, table) pair."""
     dev = _card()
     g = torch.Generator().manual_seed(2)
     n_pad = 4096
     size = {"f32": 4, "bf16": 2, "int8": 1}[dt]
     for m, tries, P, d, window, k, n, overlap in DEGENERATE:
         rows, q, starts = _inputs(g, dev, dt, m, tries, P, d, n_pad, window, overlap)
-        for r in (2, 4, 8):
-            for lanes in (x for x in (2, 4, 8, 16, 32) if x >= r):
-                geom = ex.gather_geometry(d, size, rows=r, lanes=lanes)
-                for wpp in (1, 2, 4, 8):
-                    _check_on_card(rows, q, starts, k=k, n=n, n_pad=n_pad, window=window,
-                                   geometry=geom, warps_per_pair=wpp)
+        for lanes in (4, 8, 16, 32):
+            geom = ex.gather_geometry(d, size, lanes=lanes)
+            for wpp in (1, 2, 4, 8):
+                _check_on_card(rows, q, starts, k=k, n=n, n_pad=n_pad, window=window,
+                               geometry=geom, warps_per_pair=wpp)
 
 
 @pytest.mark.cuda

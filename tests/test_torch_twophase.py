@@ -336,20 +336,19 @@ def test_rescan_split_grid_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
 def test_rescan_every_geometry_on_card(dt):
-    """Every launch geometry the kernel takes: rows in flight R = 2, 4, 8 a
-    group, lane groups G from R to 32 (one or several passes a row),
-    selecting and emit-all, one split and several."""
+    """Every launch geometry the kernel takes: lane groups of 4 to 32
+    lanes (one or several passes a row), selecting and emit-all, one split
+    and several."""
     dev = _card()
     g = torch.Generator().manual_seed(6)
     pts, scale = _corpus(g, dev, dt, 3001, 128)
     q, _, _ = ex._prepare(pts, torch.randn(30, 128, generator=g).to(dev), scale)
     starts = _starts(g, 3001, 30, 12, 32, dev)
     size = pts.element_size()
-    for r in (2, 4, 8):
-        for lanes in (x for x in (2, 4, 8, 16, 32) if x >= r):
-            geom = ex.gather_geometry(128, size, rows=r, lanes=lanes)
-            for k, splits in ((10, 1), (10, 4), (None, 3)):
-                _rescan_on_card(pts, q, starts, 32, k, geometry=geom, n_splits=splits)
+    for lanes in (4, 8, 16, 32):
+        geom = ex.gather_geometry(128, size, lanes=lanes)
+        for k, splits in ((10, 1), (10, 4), (None, 3)):
+            _rescan_on_card(pts, q, starts, 32, k, geometry=geom, n_splits=splits)
 
 
 @pytest.mark.cuda
