@@ -22,7 +22,8 @@
 // A reading chose 4 rows in flight over 2 and 8, and lane groups that read
 // a row in two passes (d = 128: G = 16 in f32, 8 in bf16, 4 in int8) over
 // one pass or more: fewer shuffles a row and more rows in flight a warp
-// (PERF.md §6 PR 9; the wrappers pick G, ops/exact.py:gather_geometry).
+// (PERF.md §6, the row scorer's sweep; the wrappers pick G,
+// ops/exact.py:gather_geometry).
 // score_batch scores the 32 rows of a batch, one row index a lane, and
 // leaves lane b with row b's distance: the callers select on that as
 // before (a ballot against the warp's k-th, or a direct write).

@@ -327,7 +327,7 @@ def gather_geometry(d: int, itemsize: int, ptr: int = 0, *,
     pointer; G is ``lanes`` or the smallest power of two that covers a
     row's V-byte vectors in two passes, within [:data:`GATHER_ROWS`, 32]
     (d = 128: 16 lanes in f32, 8 in bf16 and f16, 4 in int8; PERF.md §6
-    PR 9 has the reading that chose two passes)."""
+    has the reading that chose two passes)."""
     row_bytes = d * itemsize
     v = 16
     while row_bytes % v or ptr % v:

@@ -33,7 +33,7 @@ from .twophase import smallest
 
 _BLOCK_ELEMS = 64 << 20  # plain version: ~256 MB of float32 rows per query block
 # warps the kernel gives a (query, table) pair, 8 / this pairs a block
-# (PERF.md §6 PR 9: the reading that chose it)
+# (PERF.md §6: the reading that chose it)
 WARPS_PER_PAIR = 2
 
 
