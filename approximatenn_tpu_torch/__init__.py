@@ -11,12 +11,15 @@ never jax.
     ids, dists = exact_search(points, queries, k)                     # exact
     pv = index.packed(dtype=torch.bfloat16, window=96)               # packed view
     ids, dists = search_packed_fused(pv, queries, n_probes=18)       # probe kernel
+    report = tune(points, k, target_recall=0.9)                      # operating point
+    srv = report.server()
 """
 
 from .config import ftype, itype, set_ftype
 from .engine.build import build, build_graph_only
 from .engine.search import search, search_packed, search_packed_fused
 from .engine.serving import Server
+from .engine.tuning import TuneReport, tune
 from .index import ANNIndex, PackedIndex, stage_points
 from .ops.distance import brute_force_knn, brute_force_knn_self
 from .ops.exact import exact_search, quantize_corpus
@@ -49,4 +52,5 @@ __all__ = [
     "search_packed", "search_packed_fused", "stage_points", "precomp",
     "query", "brute_force_knn", "brute_force_knn_self", "exact_search",
     "exact_knn_twophase", "quantize_corpus", "ftype", "itype", "set_ftype",
+    "tune", "TuneReport",
 ]

@@ -67,11 +67,23 @@ Phases, one line each, and a non-zero exit on the first failure:
    at that shape with k = 10 and 50), window 192 with ``rerank_width`` 50,
    the f32 and int8 views; recall@10 against a float64 oracle (>= 0.75 at
    window 96, a gross-error guard), the card against the same search on
-   the CPU on 50 queries;
-   then updates on that server (remove 1% of ids, add 10,000 points; the
-   path must launch the probe and the exact rows' kernels, and the add is
-   replayed under ``torch.profiler`` and split by stage and kernel);
-5. the rank/two-phase crossover on prefixes of the corpus (250k, 500k,
+   the CPU on 50 queries; then ``tune`` on that corpus and those queries
+   (k = 10, tries = 10, target recall 0.9, every trial timed, batch 1000,
+   bf16 packed rows, 2 probe counts x 2 windows x 2 rerank widths and the
+   f32 and bf16 exact tiers: every trial and the winner; every packed trial on
+   the probe kernel, and ``report.server()`` serving the winner at its
+   recall within 0.005); then updates on the packed server (remove 1% of
+   ids, add 10,000 points; the path must launch the probe and the exact
+   rows' kernels, and the add is replayed under ``torch.profiler`` and
+   split by stage and kernel);
+5. the harness CLIs on the card: ``test_correctness`` (index mode and
+   ``-y 20``, "Prob correct" >= 0.8), ``time_results``, ``ann_bench`` on
+   the gaussian-100k stand-in through the probe kernel (one JSON line);
+   then the parity band, the JAX package's TPU gate as card vs CPU:
+   ``compare_results`` at n = 2000, d = 64, k = 10, tries 4, seed 11, once
+   with ``--arbitrate`` (the diff ids as tie_f64, tie_f32, real) and once
+   with ``--max-diff-frac 0.0005``, which must exit 0;
+6. the rank/two-phase crossover on prefixes of the corpus (250k, 500k,
    1M) and on 2M and 4M corpora drawn on the card (f32 and bf16), with the
    threshold the ``TWOPHASE_MIN_N`` rule takes from it, and
    ``torch.profiler`` breakdowns of two-phase and packed serving.
@@ -86,9 +98,11 @@ without the package beside it, the script fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
-import subprocess
+import os
 import sys
 import time
 
@@ -98,6 +112,8 @@ import torch
 import approximatenn_tpu_torch as ann
 from approximatenn_tpu_torch.data.synthetic import clustered_gaussian, gaussian
 from approximatenn_tpu_torch.engine.search import probe_starts
+from approximatenn_tpu_torch.harness import ann_bench, compare_results, test_correctness
+from approximatenn_tpu_torch.harness import time_results
 from approximatenn_tpu_torch.harness.scoring import ids_agree, recall_at_k
 from approximatenn_tpu_torch.ops import exact as ex
 from approximatenn_tpu_torch.ops import probe as pr
@@ -105,6 +121,7 @@ from approximatenn_tpu_torch.ops import twophase as tp
 from approximatenn_tpu_torch.ops.distance import brute_force_knn
 from approximatenn_tpu_torch.ops.hash import query_codes
 from approximatenn_tpu_torch.utils.profiling import fence
+from approximatenn_tpu_torch.utils.runtime import card_name_and_limit
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "exact_knn": ("approximatenn_tpu_torch/csrc/exact_knn.cu",
@@ -142,6 +159,16 @@ PACKED_WINDOW, PACKED_PROBES, RERANK = 96, 18, 50
 # (tests/parity_packed_prefix.py), and the card's search equals the CPU's
 RECALL_GUARD = 0.75
 N_REMOVE, N_ADD = 10_000, 10_000
+# tune on the packed corpus: target recall@10 and the grid (cut to the
+# smoke's time: 2 probe counts x 2 windows x 2 rerank widths, 2 exact tiers)
+TUNE_TARGET = 0.9
+TUNE_GRID = dict(probe_grid=(None, PACKED_PROBES), window_grid=(PACKED_WINDOW, 192),
+                 rerank_grid=(None, RERANK), exact_tiers=(None, "bf16"))
+# report.server() must serve the winner at the recall the tuner measured
+TUNE_SERVER_TOL = 0.005
+# the card-vs-CPU parity gate of the JAX package's TPU smoke, band unchanged
+PARITY_ARGS = ["-n", "2000", "-d", "64", "-k", "10", "-t", "4", "-o", "1", "--seed", "11"]
+PARITY_BAND = "0.0005"
 # add_points' exact rows after the removals: k + 1 (the self-match) + the
 # tombstones, through the two-phase engine's emit-all rescan
 ADD_K = 10 + 1 + N_REMOVE
@@ -564,9 +591,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_name_and_limit()
+    if smi is None:
+        raise SystemExit("chip_smoke: nvidia-smi did not give the card's name and power limit")
     card = torch.cuda.get_device_name(0)
     phase("env", f"python {sys.version.split()[0]} torch {torch.__version__} "
                  f"cuda {torch.version.cuda} device {card} count "
@@ -1049,9 +1076,14 @@ def main() -> None:
     errs["probe_topk"] = packed_err
     timing["probe_topk"] = packed_timing
     bounds["probe_topk"] = packed_bound
+    tune_phase(srv_packed.points, Yc, args.seed, read_counts)
     updates(srv_packed, Yc, args.seed, dev, read_counts)
 
-    # -- phase 5: crossover and profiles -----------------------------------------------
+    # path 5: the harness CLIs on the card and the card-vs-CPU parity band
+    harness_phase(args.seed, read_counts)
+    parity_band(read_counts)
+
+    # -- phase 6: crossover and profiles -----------------------------------------------
     crossover(X, Xb, Y, k, args.seed, dev)
     profile_serving("Server f32 two-phase", servers["f32"], Y)
     del servers
@@ -1236,6 +1268,105 @@ def packed_serving(seed: int, dev, read_counts):
                     f"{n_cmp} rows compared, ids equal outside near-ties ({n_tied} "
                     f"near-tie rows), distances rtol 1e-5")
     return srv, Yc, err, (kern_ms, plain_ms, None), b
+
+
+def tune_phase(Xc, Yc, seed: int, read_counts) -> None:
+    """``ann.tune`` on the packed phase's corpus and queries (k = 10, tries
+    = 10, target recall 0.9, measured, batch 1000, bf16 packed rows, the
+    ``TUNE_GRID``; ``measure_all`` times every trial, so each line has its
+    QPS): every trial's ``as_dict()`` and the winner.  Every
+    packed trial must take the probe kernel ("fused"), the tune must launch
+    the rank kernel (oracle, graph, exact trials) and the probe kernel, and
+    ``report.server()`` must serve the winner at its recall within
+    ``TUNE_SERVER_TOL``."""
+    ex.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = ann.tune(Xc, 10, queries=Yc, batch=M, target_recall=TUNE_TARGET, measure=True,
+                   measure_all=True, tries=10, capacity="auto", seed=seed,
+                   packed_dtype=torch.bfloat16, **TUNE_GRID)
+    fence()
+    tune_s = time.perf_counter() - t0
+    for t in rep.trials:
+        phase("tune", f"trial {json.dumps(t.as_dict())}")
+    phase("tune", f"winner {json.dumps(rep.best.as_dict())}; n={N} m={M} k=10 tries=10 "
+                  f"target {TUNE_TARGET}, measured {rep.measured}, batch {rep.batch}, "
+                  f"{len(rep.trials)} trials in {tune_s:.2f} s (build and pack included)")
+    packed = [t for t in rep.trials if t.engine == "packed"]
+    if not rep.measured or rep.best.qps is None:
+        raise AssertionError("tune on the card did not time its trials")
+    if not packed or any(t.knobs["path"] != "fused" for t in packed):
+        raise AssertionError("a packed trial did not take the probe kernel: "
+                             f"{[t.knobs['path'] for t in packed]}")
+    truth = ann.exact_search(Xc, Yc, 10)[0].cpu().numpy()
+    srv = rep.server()
+    ids, dd = srv.search(Yc)
+    fence()
+    rec = recall_at_k(truth, ids.cpu().numpy(), 10)
+    phase("tune", f"report.server(): {srv.describe()}; recall@10 {rec:.4f} against the "
+                  f"trial's {rep.best.recall:.4f}")
+    if ids.shape != (M, 10) or abs(rec - rep.best.recall) > TUNE_SERVER_TOL:
+        raise AssertionError(f"report.server() serves recall {rec} against the winner's "
+                             f"{rep.best.recall}")
+    del srv, rep
+    read_counts("tune", ("exact_knn", "probe_topk"))
+
+
+def run_cli(name: str, label: str, main, argv) -> str:
+    """Run a harness CLI's ``main(argv)``, print its output under
+    ``[name]``, fail on a non-zero exit; return the output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
+        phase(name, f"{label}: {line}")
+    if rc != 0:
+        raise AssertionError(f"{label} {' '.join(argv)} exited {rc}")
+    return out
+
+
+def harness_phase(seed: int, read_counts) -> None:
+    """The reference-shaped CLIs on the card: ``test_correctness`` in index
+    and query mode ("Prob correct" >= 0.8), ``time_results``, and
+    ``ann_bench`` on the synthetic gaussian-100k stand-in served through the
+    probe kernel (one JSON line; recall@10 held to ``RECALL_GUARD``)."""
+    ex.reset_launch_counts()
+    sd = ["--seed", str(seed)]
+    for label, extra in (("index", []), ("query -y 20", ["-y", "20"])):
+        out = run_cli("harness", f"test_correctness {label}", test_correctness.main,
+                      ["-n", "2000", "-d", "32", "-k", "10", "-t", "6", "-o", "3", *sd, *extra])
+        prob = float(out.split("Prob correct: ")[1].split(".\n")[0])
+        if prob < 0.8:
+            raise AssertionError(f"test_correctness {label}: Prob correct {prob} < 0.8")
+    run_cli("harness", "time_results", time_results.main,
+            ["-n", "2000", "-d", "32", "-o", "3", *sd])
+    # no dataset files are staged: the synthetic stand-in, nothing written
+    os.environ.setdefault("ANN_TPU_DATA", os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "datasets"))
+    out = run_cli("harness", "ann_bench", ann_bench.main,
+                  ["--dataset", "gaussian-100k", "--k", "10", "--tries", "10", "--packed",
+                   "--fused", "--packed-dtype", "bf16", "--n-probes", str(PACKED_PROBES),
+                   "--window", str(PACKED_WINDOW), "--max-queries", str(M)])
+    rec = json.loads(out.strip().splitlines()[-1])
+    if (rec["layout"] != "packed-fused" or rec["device"] != torch.cuda.get_device_name(0)
+            or not rec["qps"] > 0 or rec["recall_at_k"] < RECALL_GUARD):
+        raise AssertionError(f"ann_bench: bad record {rec}")
+    read_counts("harness", ("exact_knn", "probe_topk"))
+
+
+def parity_band(read_counts) -> None:
+    """``compare_results`` card against CPU at the JAX package's TPU gate
+    (n = 2000, d = 64, k = 10, tries 4, one sample, seed 11): one
+    ``--arbitrate`` run for the diff ids' attribution (tie_f64, tie_f32,
+    real), then the gate with ``--max-diff-frac 0.0005``, which must exit
+    0."""
+    ex.reset_launch_counts()
+    run_cli("parity_band", "compare_results --arbitrate", compare_results.main,
+            PARITY_ARGS + ["--arbitrate"])
+    run_cli("parity_band", f"compare_results --max-diff-frac {PARITY_BAND}",
+            compare_results.main, PARITY_ARGS + ["--max-diff-frac", PARITY_BAND])
+    phase("parity_band", f"graph diffs card vs CPU within the band {PARITY_BAND}: ok")
+    read_counts("parity_band", ("exact_knn",))
 
 
 def updates(srv, Yc, seed: int, dev, read_counts) -> None:
