@@ -181,16 +181,19 @@ class Server:
             skw = {**self._search_kw, **kw}
             # popped whichever way routing goes: neither engine takes it
             no_tp = bool(skw.pop("no_twophase", False))
+            # a per-call or pinned scale overrides the stored one, as in the
+            # JAX Server, whose scale lives in _search_kw
+            scale = skw.pop("scale", self.scale)
             if self._route_twophase(k, no_tp, skw):
                 # a float64 corpus runs the kernels in float32, as exact_search does
                 pts = self.points if self.points.element_size() <= 4 else self.points.float()
                 return exact_knn_twophase(pts, queries.float().contiguous(), k,
-                                          scale=self.scale, **skw)
+                                          scale=scale, **skw)
             for key in _TWOPHASE_ONLY_KW:
                 skw.pop(key, None)
             # the Server made the routing decision: exact_search must not
             # re-make it with its own threshold
-            return exact_search(self.points, queries, k, scale=self.scale,
+            return exact_search(self.points, queries, k, scale=scale,
                                 no_twophase=True, **skw)
         kw = {**self._search_kw, **kw}
         kw.setdefault("n_probes", self.n_probes)

@@ -256,3 +256,27 @@ def test_search_accepts_chunked_and_ignores_it(built, chunked):
     got = tann.search(tidx, T(Y), chunked=chunked, n_probes=3)
     assert_match(got, jann.search(jidx, jnp.asarray(Y), chunked=chunked, n_probes=3), rows)
     assert same(got, tann.search(tidx, T(Y), n_probes=3))
+
+
+@pytest.mark.parametrize("factor", [1.0, 1.5])
+def test_exact_int8_server_takes_a_per_call_scale(factor):
+    """An int8 exact ``Server.search(q, scale=s)`` once raised ``TypeError``
+    (a duplicate ``scale``); the JAX ``Server`` keeps its scale in
+    ``_search_kw``, so a per-call one overrides it.  Both packages on the
+    same corpus and grid, the stored scale and 1.5x it."""
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((500, 16)).astype(np.float32)
+    Y = rng.standard_normal((20, 16)).astype(np.float32)
+    jsrv = jann.Server.build(jnp.asarray(X), K, mode="exact", storage_dtype=jnp.int8)
+    srv = tann.Server.build(T(X), K, mode="exact", storage_dtype=torch.int8)
+    js = float(jsrv._search_kw["scale"])
+    assert srv.scale == pytest.approx(js, rel=1e-6)
+    srv.scale = js  # one grid for both packages
+    assert torch.equal(srv.points, T(np.asarray(jsrv.points)))
+    s = js * factor
+    got = srv.search(T(Y), scale=s)
+    assert_match(got, jsrv.search(jnp.asarray(Y), scale=jnp.float32(s)))
+    if factor == 1.0:
+        assert same(got, srv.search(T(Y)))
+    else:  # the call's scale, not the stored one, reached the engine
+        assert not torch.equal(got[1], srv.search(T(Y))[1])
