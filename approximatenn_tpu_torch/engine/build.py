@@ -59,11 +59,13 @@ def hash_points(xc: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
 
 
 def hash_stage(points, generator, *, d_short, tries, rb, rlb, ra, rla, dtype,
-               bases=None):
-    """Center, sample (unless ``bases`` is given), hash.  Returns
-    (row_means, bases, codes (tries, n), counts (tries, 2^d_short))."""
+               bases=None, row_means=None):
+    """Center (on ``row_means`` when given, else the points' mean), sample
+    (unless ``bases`` is given), hash.  Returns (row_means, bases, codes
+    (tries, n), counts (tries, 2^d_short))."""
     points = points.to(dtype)
-    row_means = points.mean(0)
+    if row_means is None:
+        row_means = points.mean(0)
     if bases is None:
         bases = sample_bases(generator, points.shape[1], d_short, tries, rb, rlb,
                              ra, rla, dtype, points.device)

@@ -54,18 +54,32 @@ def _storage_points(points: torch.Tensor, dtype) -> torch.Tensor:
     return out
 
 
-def _quantize_points(points: torch.Tensor):
+def _quantize_points(points: torch.Tensor, scale=None):
     """(n, d) float -> ((n + 1, d) int8 rows, () float32 scale): the exact
     engine's convention (:func:`~.ops.exact.quantize_corpus`, rows
-    round(x / scale) clipped to [-127, 127], scale max|x| / 127) plus a zero
-    sentinel row, which int8 cannot make +inf: sentinel and dead slots are
-    masked by position instead (``PackedIndex.live_bound``)."""
+    round(x / scale) clipped to [-127, 127], scale max|x| / 127 unless one
+    is given) plus a zero sentinel row, which int8 cannot make +inf:
+    sentinel and dead slots are masked by position instead
+    (``PackedIndex.live_bound``)."""
     from .ops.exact import quantize_corpus
 
-    q, scale = quantize_corpus(points)
+    q, scale = quantize_corpus(points, scale)
     out = torch.zeros((q.shape[0] + 1, q.shape[1]), dtype=torch.int8, device=q.device)
     out[:-1] = q
     return out, scale
+
+
+def hash_codes(row_means, bases: torch.Tensor, points: torch.Tensor,
+               chunk: int = 1 << 20) -> torch.Tensor:
+    """(n, tries) int32 bucket codes of ``points`` against every table, in
+    chunks of ``chunk`` rows (bounds the centred copy and the projection)."""
+    from .ops.hash import query_codes
+
+    n = points.shape[0]
+    if bases.shape[1] == 0:
+        return torch.zeros((n, bases.shape[0]), dtype=itype, device=points.device)
+    return torch.cat([query_codes(row_means, bases, points[lo: min(lo + chunk, n)])[0]
+                      for lo in range(0, n, chunk)])
 
 
 def to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str | None]:
@@ -325,7 +339,6 @@ class ANNIndex:
         starts down to that alignment, so it decides which slots are
         candidates, as in the JAX package."""
         from .ops.buckets import pack_tables
-        from .ops.hash import query_codes
 
         if points is None:
             points = self.points
@@ -350,13 +363,7 @@ class ANNIndex:
         align = math.lcm(w, 32 if quantize else 8)
         n_pad = -(-(n + 1) // align) * align
 
-        if self.d_short:
-            chunk = 1 << 20  # bounds the centred copy and the projection
-            codes = torch.cat([query_codes(self.row_means, self.bases,
-                                           points[lo: min(lo + chunk, n)])[0]
-                               for lo in range(0, n, chunk)])
-        else:
-            codes = torch.zeros((n, self.tries), dtype=itype, device=self.device)
+        codes = hash_codes(self.row_means, self.bases, points[:n])
         n_live = n
         if self.dead is not None:
             dead_rows = self.dead[:n]

@@ -58,7 +58,14 @@ Phases, one line each, and a non-zero exit on the first failure:
    to ties in f32, ids equal to the rank kernel's outside near-ties,
    ``describe()`` and the launch counts naming the pinned kernel).  Results
    are checked against a float64 oracle on the card, and the card's hash
-   search against the same search on the CPU;
+   search against the same search on the CPU; then the sharded layer
+   (``parallel/``, phase ``sharded``) on a one-rank NCCL group at the same
+   shape: ``build_sharded`` equal to ``build`` (bases, row means, tables,
+   counts, exact graph), ``search_sharded`` equal to ``search``,
+   ``search_exact_sharded`` through the rank kernel and with
+   ``twophase=True`` (recall@10 1.0 up to ties, ids of ``exact_search``
+   outside near-ties), each sharded call's QPS beside the single-card
+   call's;
 4. packed hash serving at the SIFT-1M stand-in's full width: a clustered
    1M x 128 float32 corpus (``data/synthetic.clustered_gaussian``, 10,000
    clusters) with queries drawn as the JAX package's stand-ins draw them;
@@ -67,13 +74,21 @@ Phases, one line each, and a non-zero exit on the first failure:
    at that shape with k = 10 and 50), window 192 with ``rerank_width`` 50,
    the f32 and int8 views; recall@10 against a float64 oracle (>= 0.75 at
    window 96, a gross-error guard), the card against the same search on
-   the CPU on 50 queries; then ``tune`` on that corpus and those queries
-   (k = 10, tries = 10, target recall 0.9, every trial timed, batch 1000,
-   bf16 packed rows, 2 probe counts x 2 windows x 2 rerank widths and the
-   f32 and bf16 exact tiers: every trial and the winner; every packed trial on
-   the probe kernel, and ``report.server()`` serving the winner at its
-   recall within 0.005); then updates on the packed server (remove 1% of
-   ids, add 10,000 points; the path must launch the probe and the exact
+   the CPU on 50 queries; the sharded layer on that corpus (one NCCL
+   rank: ``build_sharded`` + ``packed_sharded`` bf16 equal to the packed
+   ``Server``'s index and view, ``search_packed_fused_sharded`` equal to
+   ``search_packed_fused``) and on two gloo ranks sharing the card
+   (n = 200,001, a pad row on the last shard, hash graph; the fused packed
+   search and ``search_exact_sharded`` with and without ``twophase``; gates:
+   the exact searches equal the global ``exact_search``, no id >= n, the
+   card equals the same two-rank search on the CPU on 50 queries with the
+   index carried by ``to_numpy``/``from_numpy``); then ``tune`` on that
+   corpus and those queries (k = 10, tries = 10, target recall 0.9, every
+   trial timed, batch 1000, bf16 packed rows, 2 probe counts x 2 windows x
+   2 rerank widths and the f32 and bf16 exact tiers: every trial and the
+   winner; every packed trial on the probe kernel, and ``report.server()``
+   serving the winner at its recall within 0.005); then updates on the
+   packed server (remove 1% of ids, add 10,000 points; the path must launch the probe and the exact
    rows' kernels, and the add is replayed under ``torch.profiler`` and
    split by stage and kernel);
 5. the harness CLIs on the card: ``test_correctness`` (index mode and
@@ -108,6 +123,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import approximatenn_tpu_torch as ann
 from approximatenn_tpu_torch.data.synthetic import clustered_gaussian, gaussian
@@ -120,6 +136,8 @@ from approximatenn_tpu_torch.ops import probe as pr
 from approximatenn_tpu_torch.ops import twophase as tp
 from approximatenn_tpu_torch.ops.distance import brute_force_knn
 from approximatenn_tpu_torch.ops.hash import query_codes
+from approximatenn_tpu_torch.parallel import dryrun, multihost
+from approximatenn_tpu_torch.parallel import sharded as sh
 from approximatenn_tpu_torch.utils.profiling import fence
 from approximatenn_tpu_torch.utils.runtime import card_name_and_limit
 
@@ -169,6 +187,9 @@ TUNE_SERVER_TOL = 0.005
 # the card-vs-CPU parity gate of the JAX package's TPU smoke, band unchanged
 PARITY_ARGS = ["-n", "2000", "-d", "64", "-k", "10", "-t", "4", "-o", "1", "--seed", "11"]
 PARITY_BAND = "0.0005"
+# the sharded phase's two gloo ranks on the one card: n not a multiple of 2,
+# so the last shard holds a zero pad row
+SHARDED_N2, SHARDED_RANKS, SHARDED_TIMEOUT = 200_001, 2, 600
 # add_points' exact rows after the removals: k + 1 (the self-match) + the
 # tombstones, through the two-phase engine's emit-all rescan
 ADD_K = 10 + 1 + N_REMOVE
@@ -585,7 +606,14 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernel-only", action="store_true",
                     help="stop after the kernel-vs-plain phase")
+    # one rank of the sharded phase's two-rank run (dryrun.launch appends these)
+    for flag in ("--rank", "--world"):
+        ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--store", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank is not None:
+        sharded_rank(args)
+        return
 
     # -- phase 0: environment -------------------------------------------------
     if not torch.cuda.is_available():
@@ -951,8 +979,8 @@ def main() -> None:
     fence()
     total = dict.fromkeys(ex.launches, 0)
 
-    def read_counts(path: str, need: tuple) -> dict:
-        counts = dict(ex.launches)
+    def read_counts(path: str, need: tuple, counts: dict | None = None) -> dict:
+        counts = dict(ex.launches) if counts is None else counts
         for name in need:
             if counts[name] < 1:
                 raise AssertionError(f"{path}: kernel {name} was not launched")
@@ -999,8 +1027,13 @@ def main() -> None:
                     f"recall@10 {hash_recall:.4f}; card vs CPU search on "
                     f"{CPU_CHECK_QUERIES} queries: {n_cmp} rows compared, ids equal "
                     f"outside near-ties ({n_tied} near-tie rows), distances rtol 1e-5")
-    del index, graph, gd
     read_counts("build -> search", ("exact_knn",))
+
+    # the sharded layer on one NCCL rank, held to the single-card calls
+    multihost.initialize()
+    mesh = sh.make_mesh()
+    sharded_exact(mesh, index, X, Y, X64, Y64, true_s, smi, read_counts)
+    del index, graph, gd
 
     # path 2: the two-phase engine through its entry points
     ex.reset_launch_counts()
@@ -1076,6 +1109,9 @@ def main() -> None:
     errs["probe_topk"] = packed_err
     timing["probe_topk"] = packed_timing
     bounds["probe_topk"] = packed_bound
+    sharded_packed(mesh, srv_packed, Yc, args.seed, smi, read_counts)
+    dist.destroy_process_group()
+    sharded_two_ranks(args.seed, smi, read_counts)
     tune_phase(srv_packed.points, Yc, args.seed, read_counts)
     updates(srv_packed, Yc, args.seed, dev, read_counts)
 
@@ -1099,6 +1135,214 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def pipelined(fn, reps: int):
+    """(queries a second over ``reps`` pipelined calls after a warm-up,
+    the last call's result); ``fn`` returns (ids, dists) of M queries."""
+    fn()
+    fence()
+    t0 = time.perf_counter()
+    outs = [fn() for _ in range(reps)]
+    fence()
+    return outs[-1][0].shape[0] * reps / (time.perf_counter() - t0), outs[-1]
+
+
+def sharded_exact(mesh, index, X, Y, X64, Y64, true_s, smi, read_counts) -> None:
+    """Phase ``sharded`` (a), exact-1M: ``build_sharded`` (exact graph
+    through the rank kernel) on one NCCL rank equals the single-card
+    ``build`` at the same seed (bases, row means, tables, counts, graph);
+    ``search_sharded`` equals ``search``; ``search_exact_sharded`` through
+    the rank kernel and with ``twophase=True`` (emit and rescan) has
+    recall@10 1.0 up to ties against the float64 oracle and the ids of
+    ``exact_search`` outside near-ties.  Each sharded call's QPS beside the
+    single-card call's: the layer's own cost on one card."""
+    k = 10
+    ex.reset_launch_counts()
+    t0 = time.perf_counter()
+    sidx = sh.build_sharded(X, k, mesh=mesh, tries=index.tries, seed=0)
+    fence()
+    build_s = time.perf_counter() - t0
+    for name in ("bases", "row_means", "tables", "counts", "graph"):
+        if not torch.equal(getattr(sidx, name), getattr(index, name)):
+            raise AssertionError(f"build_sharded on one rank: {name} differ from build's")
+    if (sidx.tmax, sidx.d_short, sidx.n_local) != (index.tmax, index.d_short, N):
+        raise AssertionError("build_sharded on one rank: another layout than build's")
+    phase("sharded", f"build_sharded n={N} d=128 k={k} tries={index.tries} on 1 rank "
+                     f"({dist.get_backend()}, collectives "
+                     f"{'through host memory' if mesh.host_staged else 'on the card'}): "
+                     f"{build_s:.2f} s; bases, row means, tables, counts and graph equal "
+                     f"to build's [{smi}]")
+    read_counts("sharded build (1 rank)", ("exact_knn",))
+
+    ex.reset_launch_counts()
+    s_qps, (sids, sdd) = pipelined(lambda: sh.search_sharded(sidx, X, Y, mesh=mesh), 5)
+    c_qps, (cids, cdd) = pipelined(lambda: ann.search(index, X, Y), 5)
+    if not (torch.equal(sids, cids) and torch.equal(sdd, cdd)):
+        raise AssertionError("search_sharded on one rank differs from search")
+    phase("sharded", f"search_sharded n={N} m={M}: {s_qps:.1f} QPS, single-card search "
+                     f"{c_qps:.1f} QPS; ids and distances equal [{smi}]")
+    read_counts("sharded search (1 rank)", ())
+
+    ref_ids, ref_d = ann.exact_search(X, Y, k)
+    for label, kw, single, need in (
+            ("rank kernel", {}, lambda: ann.exact_search(X, Y, k), ("exact_knn",)),
+            ("twophase=True", {"twophase": True}, lambda: tp.exact_knn_twophase(X, Y, k),
+             ("twophase_emit", "twophase_rescan"))):
+        ex.reset_launch_counts()
+        s_qps, (eids, edd) = pipelined(
+            lambda: sh.search_exact_sharded(X, Y, k, mesh=mesh, **kw), 10)
+        counts = read_counts(f"sharded exact {label} (1 rank)", need)
+        c_qps, (c_ids, c_d) = pipelined(single, 10)
+        tie = _tie_recall(X64, Y64, eids, true_s[1], k)
+        agree, tied = ids_agree(eids, ref_ids, ref_d)
+        if tie != 1.0 or not agree:
+            raise AssertionError(f"search_exact_sharded {label}: recall up to ties {tie}, "
+                                 f"ids equal to exact_search's outside near-ties: {agree}")
+        same = torch.equal(eids, c_ids) and torch.equal(edd, c_d)
+        phase("sharded", f"search_exact_sharded {label} n={N} m={M} k={k}: {s_qps:.1f} QPS, "
+                         f"single-card {c_qps:.1f} QPS; recall@10 up to ties 1.0, ids equal "
+                         f"to exact_search's outside near-ties ({tied} near-tie rows), equal "
+                         f"to the single-card call's: {same}; launches "
+                         f"{ {n: c for n, c in counts.items() if c} } [{smi}]")
+
+
+def sharded_packed(mesh, srv, Yc, seed: int, smi, read_counts) -> None:
+    """Phase ``sharded`` (a), packed-1M: ``build_sharded`` + ``packed_sharded``
+    (bf16 rows, window 96) on one NCCL rank give the packed ``Server``'s
+    view, and ``search_packed_fused_sharded`` (probe kernel, 18 probes)
+    equals the single-card ``search_packed_fused`` on it."""
+    Xc, pv, k = srv.points, srv.packed, 10
+    ex.reset_launch_counts()
+    t0 = time.perf_counter()
+    sidx = sh.build_sharded(Xc, k, mesh=mesh, tries=10, capacity="auto", seed=seed)
+    spk = sh.packed_sharded(sidx, Xc, mesh=mesh, window=PACKED_WINDOW, dtype=torch.bfloat16)
+    fence()
+    build_s = time.perf_counter() - t0
+    if not (torch.equal(sidx.tables, srv.index.tables) and torch.equal(sidx.graph, srv.index.graph)
+            and torch.equal(spk.point_rows, pv.point_rows) and torch.equal(spk.ids, pv.ids)
+            and torch.equal(spk.starts, pv.starts)):
+        raise AssertionError("build_sharded + packed_sharded on one rank differ from the "
+                             "packed Server's index and view")
+    read_counts("sharded packed build (1 rank)", ("exact_knn",))
+    ex.reset_launch_counts()
+    s_qps, (fids, fdd) = pipelined(lambda: sh.search_packed_fused_sharded(
+        sidx, spk, Xc, Yc, mesh=mesh, n_probes=PACKED_PROBES), 20)
+    counts = read_counts("sharded fused packed search (1 rank)", ("probe_topk",))
+    c_qps, (c_ids, c_d) = pipelined(lambda: ann.search_packed_fused(
+        pv, queries=Yc, n_probes=PACKED_PROBES), 20)
+    if not (torch.equal(fids, c_ids) and torch.equal(fdd, c_d)):
+        raise AssertionError("search_packed_fused_sharded on one rank differs from "
+                             "search_packed_fused")
+    phase("sharded", f"packed-1M build_sharded + packed_sharded bf16 w={PACKED_WINDOW} on 1 "
+                     f"{dist.get_backend()} rank: {build_s:.2f} s, tables, graph and packed view equal to the "
+                     f"Server's; search_packed_fused_sharded P={PACKED_PROBES} m={M}: "
+                     f"{s_qps:.1f} QPS, single-card {c_qps:.1f} QPS, ids and distances "
+                     f"equal; probe_topk launches {counts['probe_topk']} [{smi}]")
+
+
+def sharded_two_ranks(seed: int, smi, read_counts) -> None:
+    """Phase ``sharded`` (b): :func:`sharded_rank` in two gloo processes on
+    the one card (NCCL refuses two ranks on one GPU), started by the
+    package's launcher; their gates run in the ranks, their counts and
+    numbers come back as each rank's last line."""
+    t0 = time.perf_counter()
+    outs = dryrun.launch([sys.executable, os.path.abspath(__file__), "--seed", str(seed)],
+                         SHARDED_RANKS, timeout=SHARDED_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    res = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+    launches = {name: sum(r["launches"][name] for r in res) for name in ex.launches}
+    read_counts(f"sharded {SHARDED_RANKS} gloo ranks", (
+        "exact_knn", "twophase_emit", "twophase_rescan", "probe_topk"), launches)
+    r0 = res[0]
+    phase("sharded", f"{SHARDED_RANKS} gloo ranks on one card (collectives "
+                     f"{'through host memory' if r0['host_staged'] else 'on the card'}), "
+                     f"n={SHARDED_N2} (n_local {r0['n_local']}, one pad row) d=128 k=10, "
+                     f"whole run {wall_s:.1f} s: hash-graph build_sharded tries=10 "
+                     f"{r0['build_s']:.2f} s; QPS with both ranks on the card: fused packed "
+                     f"bf16 w={PACKED_WINDOW} P={PACKED_PROBES} {r0['qps_fused']:.1f}, "
+                     f"exact rank kernel {r0['qps_exact']:.1f}, twophase=True "
+                     f"{r0['qps_twophase']:.1f}, single-card exact_search "
+                     f"{r0['qps_single']:.1f} [{smi}]")
+    phase("sharded", f"{SHARDED_RANKS} ranks: exact and twophase ids equal to the global "
+                     f"exact_search's outside near-ties ({r0['tied_exact']}, "
+                     f"{r0['tied_twophase']} near-tie rows); no id >= n or pad row; card "
+                     f"vs the same {SHARDED_RANKS}-rank search on the CPU on "
+                     f"{CPU_CHECK_QUERIES} queries, the index carried by to_numpy/from_numpy: "
+                     f"fused {r0['cpu_rows']} rows compared, ids equal outside near-ties "
+                     f"({r0['cpu_tied']} near-tie rows), distances rtol 1e-5; exact ids equal "
+                     f"outside near-ties ({r0['cpu_exact_tied']} near-tie rows)")
+
+
+def sharded_rank(args) -> None:
+    """One rank of the sharded phase's run (b): a gloo group over the
+    launcher's file store, this rank's shard on the card.  The hash-graph
+    build at n = 200,001 (a pad row on the last shard), the fused packed
+    search, the exact search through the rank kernel and with
+    ``twophase=True``; gates: the exact searches equal the global
+    ``exact_search``, no id >= n, and the card equals the same two-rank
+    search on the CPU on 50 queries, the index carried across by
+    ``to_numpy`` / ``from_numpy``.  Prints one JSON line last."""
+    dryrun.join(args, timeout=SHARDED_TIMEOUT)
+    try:
+        mesh = sh.make_mesh()
+        torch.cuda.set_device(mesh.device)
+        res = _two_rank_paths(mesh, args.seed)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(res))
+
+
+def _two_rank_paths(mesh, seed: int) -> dict:
+    n, k, sub = SHARDED_N2, 10, slice(0, CPU_CHECK_QUERIES)
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, 128), dtype=np.float32)
+    Y = rng.standard_normal((M, 128), dtype=np.float32)
+    Xd, Yd = torch.from_numpy(X).to(mesh.device), torch.from_numpy(Y).to(mesh.device)
+    ex.reset_launch_counts()
+    t0 = time.perf_counter()
+    sidx = sh.build_sharded(Xd, k, mesh=mesh, tries=10, capacity="auto", seed=seed,
+                            graph_mode="hash", store_points=True)
+    fence()
+    build_s = time.perf_counter() - t0
+    spk = sh.packed_sharded(sidx, mesh=mesh, window=PACKED_WINDOW, dtype=torch.bfloat16)
+    q_fused, (fids, fdd) = pipelined(lambda: sh.search_packed_fused_sharded(
+        sidx, spk, None, Yd, mesh=mesh, n_probes=PACKED_PROBES), 5)
+    q_exact, (eids, edd) = pipelined(lambda: sh.search_exact_sharded(Xd, Yd, k, mesh=mesh), 5)
+    q_two, (tids, tdd) = pipelined(lambda: sh.search_exact_sharded(
+        Xd, Yd, k, mesh=mesh, twophase=True), 5)
+    launches = dict(ex.launches)
+    for name in ("exact_knn", "twophase_emit", "twophase_rescan", "probe_topk"):
+        if launches[name] < 1:
+            raise AssertionError(f"rank {mesh.rank}: kernel {name} was not launched")
+    for label, ids in (("fused", fids), ("exact", eids), ("twophase", tids)):
+        if ids.shape != (M, k) or int(ids.max()) >= n:
+            raise AssertionError(f"rank {mesh.rank}: {label} returned an id >= n or pad row")
+    q_single, (g_ids, g_d) = pipelined(lambda: ann.exact_search(Xd, Yd, k), 5)
+    tied = {}
+    for label, ids in (("exact", eids), ("twophase", tids)):
+        agree, tied[label] = ids_agree(ids, g_ids, g_d)
+        if not agree:
+            raise AssertionError(f"rank {mesh.rank}: {label} differs from the global "
+                                 "exact_search outside near-ties")
+    # the same two-rank searches on the CPU, the card-built index carried across
+    arrays = sidx.to_numpy(mesh)
+    cpu = sh.make_mesh(device="cpu")
+    csidx = sh.ShardedIndex.from_numpy(arrays, cpu)
+    cspk = sh.packed_sharded(csidx, mesh=cpu, window=PACKED_WINDOW, dtype=torch.bfloat16)
+    c_ids, c_d = sh.search_packed_fused_sharded(csidx, cspk, None, Y[sub], mesh=cpu,
+                                                n_probes=PACKED_PROBES)
+    cpu_rows, cpu_tied = compare_with_cpu("two-rank fused search", sidx, Yd[sub], fids[sub],
+                                          fdd[sub], c_ids, c_d)
+    ce_ids, ce_d = sh.search_exact_sharded(X, Y[sub], k, mesh=cpu)
+    agree, cpu_exact_tied = ids_agree(eids[sub].cpu(), ce_ids, ce_d)
+    if not agree:
+        raise AssertionError(f"rank {mesh.rank}: exact ids differ card vs CPU")
+    return dict(rank=mesh.rank, launches=launches, host_staged=mesh.host_staged,
+                n_local=sidx.n_local, build_s=build_s, qps_fused=q_fused, qps_exact=q_exact,
+                qps_twophase=q_two, qps_single=q_single, tied_exact=tied["exact"],
+                tied_twophase=tied["twophase"], cpu_rows=cpu_rows, cpu_tied=cpu_tied,
+                cpu_exact_tied=cpu_exact_tied)
 
 
 def crossover(X, Xb, Y, k: int, seed: int, dev) -> None:
