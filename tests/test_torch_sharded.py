@@ -197,13 +197,15 @@ def test_search_exact_sharded_matches_jax(ref, port, dtype):
                       *ref[f"exact_{dtype}"])
 
 
-@pytest.mark.parametrize("case", ["n_true", "near_origin", "f64"])
+@pytest.mark.parametrize("case", ["n_true", "near_origin", "f64", "f16"])
 def test_search_exact_sharded_equals_brute_force(ref, port, case):
     """Global brute force (float64), pad rows never returned: a corpus the
     caller padded already (``n_true``), near-origin queries (closest to the
-    zero pad row), a float64 corpus (held to float64 ids exactly)."""
+    zero pad row), a float64 corpus (held to float64 ids exactly), an f16
+    stored corpus (held to the brute force over its stored values)."""
     Y = ref["Y0"] if case == "near_origin" else ref["Y"]
-    true_ids, true_d = brute(ref["X"], Y, K)
+    X = ref["X"].astype(np.float16) if case == "f16" else ref["X"]
+    true_ids, true_d = brute(X, Y, K)
     for out in port:
         ok(out, f"exact.exact_{case}")
         ids, dd = out[f"exact.exact_{case}_ids"], out[f"exact.exact_{case}_dd"]

@@ -172,6 +172,7 @@ def _exact(mesh, I):
     Xt = torch.from_numpy(X)
     out = {}
     for name, pts, kw in (("f32", X, {}), ("bf16", Xt.to(torch.bfloat16), {}),
+                          ("f16", Xt.to(torch.float16), {}),
                           ("int8", I["Xq"], {"scale": float(I["scale"])}),
                           ("n_true", np.concatenate([X, np.zeros((1, X.shape[1]), np.float32)]),
                            {"n_true": X.shape[0]}),
