@@ -1,4 +1,4 @@
-"""The port's sharded build, table search and exact search
+"""The port's sharded build, table search and angular metric
 (``approximatenn_tpu_torch/parallel/sharded.py``) against the JAX package's
 (``approximatenn_tpu/parallel/sharded.py``) on the CPU.
 
@@ -23,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-import approximatenn_tpu as jann
 from approximatenn_tpu.engine.build import resolve_capacity as j_resolve_capacity
 from approximatenn_tpu.ops.hash import query_codes as j_query_codes
 from approximatenn_tpu.parallel import sharded as jsh
@@ -48,18 +47,15 @@ def data():
                            graph_mode="hash")
     ja = jsh.build_sharded(X, K, mesh=mesh, tries=TRIES, seed=0, metric="angular",
                            graph_mode="exact")
-    Xq, scale = jann.quantize_corpus(jnp.asarray(X))
-    return dict(X=X, Y=Y, Y0=Y0, Xs=Xs, jh=jh, ja=ja, mesh=mesh, Xq=np.asarray(Xq),
-                scale=np.asarray(scale))
+    return dict(X=X, Y=Y, Y0=Y0, Xs=Xs, jh=jh, ja=ja, mesh=mesh)
 
 
 @pytest.fixture(scope="module")
 def ranks(data, tmp_path_factory):
     # the first shard's rows all one point: the ranks' bucket maxima differ
     Xskew = np.concatenate([np.repeat(data["X"][:1], N // 2 + 1, 0), data["X"][N // 2 + 1:]])
-    inputs = dict(X=data["X"], Y=data["Y"], Y0=data["Y0"], Xs=data["Xs"], Xq=data["Xq"],
-                  Xskew=Xskew,
-                  scale=data["scale"], bases=np.asarray(data["jh"].bases),
+    inputs = dict(X=data["X"], Y=data["Y"], Y0=data["Y0"], Xs=data["Xs"], Xskew=Xskew,
+                  bases=np.asarray(data["jh"].bases),
                   **jax_arrays(data["jh"], "jh_"), **jax_arrays(data["ja"], "ja_"))
     return start_suite("build", inputs, tmp_path_factory.mktemp("build"))
 
@@ -70,10 +66,6 @@ def ref(data, ranks):
     r = dict(data)
     r["search"] = jsh.search_sharded(jh, X, Y, mesh=mesh, rerank_width=8,
                                      supercharge_rounds=2)
-    r["exact_f32"] = jsh.search_exact_sharded(X, Y, K, mesh=mesh)
-    r["exact_bf16"] = jsh.search_exact_sharded(jnp.asarray(X, jnp.bfloat16), Y, K, mesh=mesh)
-    r["exact_int8"] = jsh.search_exact_sharded(data["Xq"], Y, K, mesh=mesh,
-                                               scale=data["scale"])
     r["angular"] = jsh.search_sharded(data["ja"], None, Y, mesh=mesh)
     return r
 
@@ -186,42 +178,6 @@ def test_index_carries_across_both_ways(port):
         assert out["own_roundtrip.same"]
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
-def test_search_exact_sharded_matches_jax(ref, port, dtype):
-    """Stored f32, bf16 (ranked in float32 from the stored values) and int8
-    (one global scale, the JAX quantization's) against the JAX sharded
-    exact search."""
-    for out in port:
-        ok(out, f"exact.exact_{dtype}")
-        assert_parity(out[f"exact.exact_{dtype}_ids"], out[f"exact.exact_{dtype}_dd"],
-                      *ref[f"exact_{dtype}"])
-
-
-@pytest.mark.parametrize("case", ["n_true", "near_origin", "f64", "f16"])
-def test_search_exact_sharded_equals_brute_force(ref, port, case):
-    """Global brute force (float64), pad rows never returned: a corpus the
-    caller padded already (``n_true``), near-origin queries (closest to the
-    zero pad row), a float64 corpus (held to float64 ids exactly), an f16
-    stored corpus (held to the brute force over its stored values)."""
-    Y = ref["Y0"] if case == "near_origin" else ref["Y"]
-    X = ref["X"].astype(np.float16) if case == "f16" else ref["X"]
-    true_ids, true_d = brute(X, Y, K)
-    for out in port:
-        ok(out, f"exact.exact_{case}")
-        ids, dd = out[f"exact.exact_{case}_ids"], out[f"exact.exact_{case}_dd"]
-        assert (ids < N).all()
-        if case == "f64":
-            np.testing.assert_array_equal(ids, true_ids)
-            np.testing.assert_allclose(dd, true_d, rtol=1e-12)
-        else:
-            assert_parity(ids, dd, true_ids, true_d)
-
-
-def test_search_exact_sharded_int8_needs_scale(port):
-    for out in port:
-        assert "scale" in str(out["exact.int8_no_scale"])
-
-
 @pytest.mark.parametrize("path", ["table", "packed", "fused"])
 def test_pad_rows_cannot_occupy_topk_slots(ref, port, path):
     """A corpus shifted off the origin (19 rows, one pad row), near-origin
@@ -274,11 +230,3 @@ def test_make_mesh_checks_its_arguments(port):
 def test_make_mesh_needs_a_process_group():
     with pytest.raises(RuntimeError, match="multihost.initialize"):
         sh.make_mesh(device="cpu")
-
-
-def test_tpu_knobs_raise_before_any_work():
-    one = sh.Mesh(group=None, rank=0, size=1, device=torch.device("cpu"))
-    X = np.zeros((4, 2), np.float32)
-    for kw in ({"interpret": True}, {"query_block": 32}):
-        with pytest.raises(ValueError, match="TPU"):
-            sh.search_exact_sharded(X, X, 1, mesh=one, **kw)

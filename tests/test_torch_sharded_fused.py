@@ -1,7 +1,6 @@
-"""The port's sharded searches that reach kernels (the fused packed search
-through the probe kernel's plain version, the exact search through the
-two-phase engine's) and the per-shard exact graph, against the JAX
-package on the CPU.
+"""The port's sharded fused packed search (through the probe kernel's plain
+version) and the per-shard exact graph (the rank kernel's), against the
+JAX package on the CPU.
 
 The JAX side runs on a 2-device CPU mesh (n = 64 * 2 + 1, d = 16, 8
 queries, k = 4, 2 tables, capacity 16) with its Pallas kernels in interpret
@@ -51,9 +50,7 @@ def ref(data, ranks):
     spk = jsh.packed_sharded(jx, X, mesh=mesh)
     return dict(
         data,
-        fused=jsh.search_packed_fused_sharded(jx, spk, X, Y, mesh=mesh, window=spk.window),
-        twophase=jsh.search_exact_sharded(X, Y, K, mesh=mesh, twophase=True,
-                                          interpret=True))
+        fused=jsh.search_packed_fused_sharded(jx, spk, X, Y, mesh=mesh, window=spk.window))
 
 
 @pytest.fixture(scope="module")
@@ -118,18 +115,6 @@ def test_fused_int8_view_rescores_true_distances(ref, port):
         want = ((Y[:, None] - X[ids]) ** 2).sum(-1)
         np.testing.assert_allclose(dd, want, rtol=1e-5)
         assert recall_at_k(true, ids, K) >= recall_at_k(true, out["fused.fused_ids"], K) - 0.1
-
-
-def test_search_exact_sharded_twophase_matches_jax(ref, port):
-    """``twophase=True``: per rank the two-phase engine's plain version
-    (emit, pick, rescan) against JAX ``exact_knn_twophase`` in interpret
-    mode; the rank route (``twophase`` None or False on the CPU) gives the
-    same neighbours."""
-    for out in port:
-        assert_parity(out["fused.twophase_ids"], out["fused.twophase_dd"], *ref["twophase"])
-        for route in ("auto", "rank"):
-            assert_parity(out[f"fused.{route}_ids"], out[f"fused.{route}_dd"],
-                          *ref["twophase"])
 
 
 def test_fused_rejects_tpu_knobs():

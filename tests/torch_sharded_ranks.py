@@ -262,8 +262,13 @@ def _fused(mesh, I):
     spk8 = sh.packed_sharded(s, X, mesh=mesh, dtype=torch.int8)
     ids, dd = sh.search_packed_fused_sharded(s, spk8, X, Y, mesh=mesh, window=spk8.window)
     out["fused8_ids"], out["fused8_dd"] = ids.numpy(), dd.numpy()
+    return out
+
+
+def _twophase(mesh, I):
+    out = {}
     for name, tp in (("twophase", True), ("auto", None), ("rank", False)):
-        ids, dd = sh.search_exact_sharded(X, Y, K, mesh=mesh, twophase=tp)
+        ids, dd = sh.search_exact_sharded(I["X"], I["Y"], K, mesh=mesh, twophase=tp)
         out[f"{name}_ids"], out[f"{name}_dd"] = ids.numpy(), dd.numpy()
     return out
 
@@ -294,7 +299,8 @@ def _multihost(mesh, I):
 
 
 SUITES = {
-    "build": (_build, _carried, _own_roundtrip, _exact, _pads, _mesh_errors, _angular),
+    "build": (_build, _carried, _own_roundtrip, _pads, _mesh_errors, _angular),
+    "exact": (_exact, _twophase),
     "packed": (_packed,),
     "fused": (_fused,),
     "multihost": (_multihost,),
