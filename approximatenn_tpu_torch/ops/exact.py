@@ -688,6 +688,15 @@ def exact_knn_self(points: torch.Tensor, k: int, **kw):
     return exact_knn(points, q, k, exclude=excl, **kw)
 
 
+def abs_max(points: torch.Tensor, chunk_rows: int = 1 << 20) -> torch.Tensor:
+    """max|x| over ``points`` as a () float32 tensor on their device, in
+    row chunks so no corpus-sized float32 transient is made."""
+    mx = torch.zeros((), dtype=torch.float32, device=points.device)
+    for lo in range(0, points.shape[0], chunk_rows):
+        mx = torch.maximum(mx, points[lo: lo + chunk_rows].float().abs().max())
+    return mx
+
+
 def quantize_corpus(points: torch.Tensor, scale=None,
                     chunk_rows: int = 1 << 20):
     """Symmetric int8 quantization for the exact engine's int8 tier:
@@ -696,10 +705,7 @@ def quantize_corpus(points: torch.Tensor, scale=None,
     row chunks so no corpus-sized float32 transient is made."""
     n = points.shape[0]
     if scale is None:
-        mx = torch.zeros((), dtype=torch.float32, device=points.device)
-        for lo in range(0, n, chunk_rows):
-            mx = torch.maximum(mx, points[lo: lo + chunk_rows].float().abs().max())
-        scale = mx / 127.0
+        scale = abs_max(points, chunk_rows) / 127.0
     scale = torch.as_tensor(scale, dtype=torch.float32, device=points.device)
     out = torch.empty(points.shape, dtype=torch.int8, device=points.device)
     for lo in range(0, n, chunk_rows):

@@ -3,7 +3,8 @@ port's counterpart of ``__graft_entry__.py:dryrun_multichip``'s first four
 steps), and the launcher that joins such processes.
 
     python -c "from approximatenn_tpu_torch.parallel.dryrun import \\
-        dryrun_multichip; dryrun_multichip(2)"
+        dryrun_multichip; dryrun_multichip(2)"            # on the card
+    ... dryrun_multichip(2, device="cpu")                  # on the CPU
 
 :func:`launch` starts ``n`` processes of one command, each with ``--rank
 r --world n --store <file>`` appended, joined by one file store; every
@@ -139,13 +140,16 @@ def dryrun_steps(mesh) -> None:
                                        window=8)[0], n)
 
 
-def dryrun_multichip(n_devices: int, device: str = "cpu", timeout: float = 600.0) -> None:
+def dryrun_multichip(n_devices: int, device: str | None = None, timeout: float = 600.0) -> None:
     """Start ``n_devices`` gloo ranks on one file store and run
-    :func:`dryrun_steps` on their mesh, on ``device`` ("cpu", or "cuda":
-    every rank on the card ``rank % device_count``).  Raises if a rank
-    fails."""
+    :func:`dryrun_steps` on their mesh: every rank on the card ``rank %
+    device_count`` by default, on the CPU when ``device="cpu"``.  Without a
+    card and without that request this raises, as ``make_mesh`` does;
+    it raises too if a rank fails."""
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device='cpu' to run the dry run on the CPU")
     launch([sys.executable, "-m", "approximatenn_tpu_torch.parallel.dryrun"], n_devices,
-           ["--device", device], timeout=timeout)
+           [] if device is None else ["--device", device], timeout=timeout)
 
 
 def main(argv=None) -> None:
@@ -154,7 +158,7 @@ def main(argv=None) -> None:
     from .sharded import make_mesh
 
     ap = rank_parser(description="one rank of dryrun_multichip")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default=None, help="cpu, or the card (the default)")
     args = ap.parse_args(argv)
     join(args)
     try:

@@ -386,14 +386,18 @@ def _to_global(ids_l, dists, n_local: int, n: int, offset: int):
 
 def _merge(mesh: Mesh, ids_l, dists, n_local: int, n: int, k: int):
     """Every rank's local top lists -> the global top-k, on every rank:
-    global ids, one all-gather, the lists side by side in rank order
-    ((m, S * width), as the JAX ``moveaxis`` + ``reshape``), top-k.  Ties
-    go to the lower shard."""
+    global ids, one all-gather of the distances and ids side by side (the
+    distances' bits viewed as an integer type of their width, at least 32
+    bits), the lists in rank order ((m, S * width), as the JAX ``moveaxis``
+    + ``reshape``), top-k.  Ties go to the lower shard."""
     gids, dd = _to_global(ids_l, dists, n_local, n, mesh.rank * n_local)
     m = gids.shape[0]
-    all_ids = _all_gather_stacked(mesh, gids).transpose(0, 1).reshape(m, -1)
-    all_dd = _all_gather_stacked(mesh, dd).transpose(0, 1).reshape(m, -1)
-    return topk_no_dedup(all_dd, all_ids, k)
+    wide = dd if dd.element_size() >= 4 else dd.float()
+    bits = {4: torch.int32, 8: torch.int64}[wide.element_size()]
+    both = torch.stack([wide.contiguous().view(bits), gids.to(bits)], dim=-1)
+    both = _all_gather_stacked(mesh, both).transpose(0, 1).reshape(m, -1, 2)
+    all_dd = both[..., 0].contiguous().view(wide.dtype).to(dd.dtype)
+    return topk_no_dedup(all_dd, both[..., 1].to(gids.dtype), k)
 
 
 def _resolve_corpus(sidx: ShardedIndex, points, mesh: Mesh) -> torch.Tensor:
@@ -488,6 +492,7 @@ def packed_sharded(sidx: ShardedIndex, points=None, *, mesh: Mesh, window: int |
     ``tmax``."""
     from ..index import _quantize_points, hash_codes
     from ..ops.buckets import pack_tables
+    from ..ops.exact import abs_max
 
     w = max(1, int(super_width))
     n_local, tries = sidx.n_local, sidx.tries
@@ -505,7 +510,7 @@ def packed_sharded(sidx: ShardedIndex, points=None, *, mesh: Mesh, window: int |
         ids = torch.where(ids >= valid, n_local, ids)
     scale = None
     if quantize:
-        scale = _all_reduce_max(mesh, local.float().abs().max()) / 127.0
+        scale = _all_reduce_max(mesh, abs_max(local)) / 127.0
         pts_s, scale = _quantize_points(local, scale)
     else:
         pts_s = _storage_points(local, dtype)
@@ -583,11 +588,12 @@ def search_exact_sharded(points, queries, k: int, *, mesh: Mesh,
 
     A bf16/f16 corpus is searched at its stored width and an int8 one
     (``quantize_corpus``; pass its ``scale``) in the quantized domain, the
-    one scale making distances comparable across shards; float64 runs the
-    float64 oracle on the CPU.  Zero pad rows may sit on the last shard,
-    so the local k widens by the pad count, ``kk = min(k + n_local * S -
-    n, n_local)``; ``n_true`` is the real row count of a corpus the caller
-    padded already.  Per rank: ``exact_knn_twophase`` (emit and rescan
+    one scale making distances comparable across shards.  A float64 corpus
+    runs the float64 oracle on a CPU mesh; on a card mesh it is ranked by
+    the float32 kernels, as the JAX package ranks it on the TPU.  Zero pad
+    rows may sit on the last shard, so the local k widens by the pad
+    count, ``kk = min(k + n_local * S - n, n_local)``; ``n_true`` is the
+    real row count of a corpus the caller padded already.  Per rank: ``exact_knn_twophase`` (emit and rescan
     kernels) when ``twophase`` is set, or when it is None on a card at
     ``n_local >= TWOPHASE_MIN_N`` with kk + 2 <= 128; ``exact_search``
     (the rank kernel up to k = 128) otherwise.  ``interpret`` and

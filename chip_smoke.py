@@ -77,7 +77,9 @@ Phases, one line each, and a non-zero exit on the first failure:
    the CPU on 50 queries; the sharded layer on that corpus (one NCCL
    rank: ``build_sharded`` + ``packed_sharded`` bf16 equal to the packed
    ``Server``'s index and view, ``search_packed_fused_sharded`` equal to
-   ``search_packed_fused``) and on two gloo ranks sharing the card
+   ``search_packed_fused`` and timed in turns with it, then the all-gather
+   merge alone: its host time, its parts, and its profile) and on two gloo
+   ranks sharing the card
    (n = 200,001, a pad row on the last shard, hash graph; the fused packed
    search and ``search_exact_sharded`` with and without ``twophase``; gates:
    the exact searches equal the global ``exact_search``, no id >= n, the
@@ -120,6 +122,7 @@ import json
 import os
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -136,6 +139,7 @@ from approximatenn_tpu_torch.ops import probe as pr
 from approximatenn_tpu_torch.ops import twophase as tp
 from approximatenn_tpu_torch.ops.distance import brute_force_knn
 from approximatenn_tpu_torch.ops.hash import query_codes
+from approximatenn_tpu_torch.ops.topk import topk_no_dedup
 from approximatenn_tpu_torch.parallel import dryrun, multihost
 from approximatenn_tpu_torch.parallel import sharded as sh
 from approximatenn_tpu_torch.utils.profiling import fence
@@ -1225,20 +1229,61 @@ def sharded_packed(mesh, srv, Yc, seed: int, smi, read_counts) -> None:
         raise AssertionError("build_sharded + packed_sharded on one rank differ from the "
                              "packed Server's index and view")
     read_counts("sharded packed build (1 rank)", ("exact_knn",))
+    calls = {
+        "single-card": lambda: ann.search_packed_fused(pv, queries=Yc, n_probes=PACKED_PROBES),
+        "sharded": lambda: sh.search_packed_fused_sharded(sidx, spk, Xc, Yc, mesh=mesh,
+                                                          n_probes=PACKED_PROBES),
+    }
     ex.reset_launch_counts()
-    s_qps, (fids, fdd) = pipelined(lambda: sh.search_packed_fused_sharded(
-        sidx, spk, Xc, Yc, mesh=mesh, n_probes=PACKED_PROBES), 20)
+    fids, fdd = calls["sharded"]()
     counts = read_counts("sharded fused packed search (1 rank)", ("probe_topk",))
-    c_qps, (c_ids, c_d) = pipelined(lambda: ann.search_packed_fused(
-        pv, queries=Yc, n_probes=PACKED_PROBES), 20)
+    c_ids, c_d = calls["single-card"]()
     if not (torch.equal(fids, c_ids) and torch.equal(fdd, c_d)):
         raise AssertionError("search_packed_fused_sharded on one rank differs from "
                              "search_packed_fused")
+    # host-bound: timed in turns, so a drift of the host's speed shows
+    turns = [(name, pipelined(calls[name], 20)[0])
+             for name in ("single-card", "sharded", "sharded", "single-card")]
     phase("sharded", f"packed-1M build_sharded + packed_sharded bf16 w={PACKED_WINDOW} on 1 "
-                     f"{dist.get_backend()} rank: {build_s:.2f} s, tables, graph and packed view equal to the "
-                     f"Server's; search_packed_fused_sharded P={PACKED_PROBES} m={M}: "
-                     f"{s_qps:.1f} QPS, single-card {c_qps:.1f} QPS, ids and distances "
-                     f"equal; probe_topk launches {counts['probe_topk']} [{smi}]")
+                     f"{dist.get_backend()} rank: {build_s:.2f} s, tables, graph and packed "
+                     f"view equal to the Server's; search_packed_fused_sharded "
+                     f"P={PACKED_PROBES} m={M} equal to search_packed_fused (ids and "
+                     f"distances); QPS in turns: "
+                     f"{', '.join(f'{n} {q:.1f}' for n, q in turns)}; probe_topk launches "
+                     f"{counts['probe_topk']} [{smi}]")
+    merge_cost(mesh, sidx, c_ids, c_d, Yc, smi)
+
+
+def merge_cost(mesh, sidx, ids, dists, Yc, smi) -> None:
+    """The all-gather merge alone at one fused call's shape (M queries,
+    k = 10, one rank's top lists): host milliseconds a call over 200
+    pipelined calls, and its parts (the all-gather of the distances and
+    ids side by side, the final top-k) beside the two all-gathers, ids then
+    distances, that a merge gathering them apart would make; then the
+    merge under ``torch.profiler``."""
+    gids, gdd = sh._to_global(ids, dists, sidx.n_local, sidx.n, 0)
+    both = torch.stack([gdd.view(torch.int32), gids], dim=-1)
+    parts = {
+        "merge (to_global, 1 all-gather, top-k)": lambda: sh._merge(
+            mesh, ids, dists, sidx.n_local, sidx.n, sidx.k),
+        "the all-gather": lambda: sh._all_gather_stacked(mesh, both),
+        "two all-gathers, ids then distances": lambda: (
+            sh._all_gather_stacked(mesh, gids), sh._all_gather_stacked(mesh, gdd)),
+        "the final top-k": lambda: topk_no_dedup(gdd, gids, sidx.k),
+    }
+    for name, fn in parts.items():
+        fn()
+        fence()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        fence()
+        ms = 1e3 * (time.perf_counter() - t0) / 200
+        phase("sharded", f"{name}, m={ids.shape[0]} k={sidx.k}, 1 "
+                         f"{dist.get_backend()} rank: {ms:.4f} ms of host time a call [{smi}]")
+    merge = parts["merge (to_global, 1 all-gather, top-k)"]
+    profile_serving("sharded merge alone", types.SimpleNamespace(search=lambda _: merge()), Yc,
+                    reps=50)
 
 
 def sharded_two_ranks(seed: int, smi, read_counts) -> None:

@@ -127,7 +127,15 @@ def test_initialize_without_a_card_needs_the_cpu_asked_for(no_cluster_env):
 
 
 def test_dryrun_multichip():
-    dryrun.dryrun_multichip(2, timeout=240)
+    dryrun.dryrun_multichip(2, device="cpu", timeout=240)
+
+
+def test_dryrun_multichip_defaults_to_the_card(monkeypatch):
+    # no card and no device="cpu": it raises before it starts a rank
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun, "launch", lambda *a, **kw: pytest.fail("ranks started"))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        dryrun.dryrun_multichip(2)
 
 
 def test_launch_names_the_failing_rank_and_stops_the_others():
