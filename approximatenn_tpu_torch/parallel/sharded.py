@@ -88,23 +88,22 @@ def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
 
 # -- the collectives (every rank calls each one, in the same order) ----------
 
-def _staged(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """A copy of ``t`` where the collective runs: host memory when
-    ``mesh.host_staged``, else ``t``'s device."""
-    return t.detach().to("cpu" if mesh.host_staged else t.device, copy=True).contiguous()
-
-
 def _all_gather_stacked(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """Every rank's ``t`` (same shape and type on all), stacked in rank
-    order: (S, *t.shape) on ``t``'s device."""
-    src = _staged(mesh, t)
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src, group=mesh.group)
-    return torch.stack(parts).to(t.device)
+    order: (S, *t.shape) on ``t``'s device.  One flat buffer, gathered in
+    place (host memory when ``mesh.host_staged``)."""
+    src = t.detach().reshape(-1)
+    if mesh.host_staged:
+        src = src.cpu()
+    out = src.new_empty(mesh.size * src.numel())
+    dist.all_gather_into_tensor(out, src.contiguous(), group=mesh.group)
+    return out.view(mesh.size, *t.shape).to(t.device)
 
 
 def _all_reduce(mesh: Mesh, t: torch.Tensor, op) -> torch.Tensor:
-    buf = _staged(mesh, t)
+    """The reduction of every rank's ``t``, in a copy (host memory when
+    ``mesh.host_staged``) so that ``t`` is left as it was."""
+    buf = t.detach().to("cpu" if mesh.host_staged else t.device, copy=True).contiguous()
     dist.all_reduce(buf, op=op, group=mesh.group)
     return buf.to(t.device)
 
