@@ -78,8 +78,8 @@ Phases, one line each, and a non-zero exit on the first failure:
    rank: ``build_sharded`` + ``packed_sharded`` bf16 equal to the packed
    ``Server``'s index and view, ``search_packed_fused_sharded`` equal to
    ``search_packed_fused`` and timed in turns with it, then the all-gather
-   merge alone: its host time, its parts, and its profile) and on two gloo
-   ranks sharing the card
+   merge alone beside a merge that gathers ids and distances apart: host
+   times, parts, profile) and on two gloo ranks sharing the card
    (n = 200,001, a pad row on the last shard, hash graph; the fused packed
    search and ``search_exact_sharded`` with and without ``twophase``; gates:
    the exact searches equal the global ``exact_search``, no id >= n, the
@@ -1256,31 +1256,48 @@ def sharded_packed(mesh, srv, Yc, seed: int, smi, read_counts) -> None:
 
 def merge_cost(mesh, sidx, ids, dists, Yc, smi) -> None:
     """The all-gather merge alone at one fused call's shape (M queries,
-    k = 10, one rank's top lists): host milliseconds a call over 200
-    pipelined calls, and its parts (the all-gather of the distances and
-    ids side by side, the final top-k) beside the two all-gathers, ids then
-    distances, that a merge gathering them apart would make; then the
-    merge under ``torch.profiler``."""
+    k = 10, one rank's top lists) beside a merge that gathers the ids and
+    the distances apart (two all-gathers, as the JAX package does), and
+    their parts: the one all-gather of both, the two, the final top-k.
+    Host milliseconds a call over 200 pipelined calls, taken in 7 rounds
+    that alternate them (the host's speed drifts), median and least; then
+    the merge under ``torch.profiler``."""
     gids, gdd = sh._to_global(ids, dists, sidx.n_local, sidx.n, 0)
     both = torch.stack([gdd.view(torch.int32), gids], dim=-1)
+    m, k = ids.shape[0], sidx.k
+
+    def merge_apart():
+        g, d = sh._to_global(ids, dists, sidx.n_local, sidx.n, 0)
+        all_ids = sh._all_gather_stacked(mesh, g).transpose(0, 1).reshape(m, -1)
+        all_dd = sh._all_gather_stacked(mesh, d).transpose(0, 1).reshape(m, -1)
+        return topk_no_dedup(all_dd, all_ids, k)
+
     parts = {
         "merge (to_global, 1 all-gather, top-k)": lambda: sh._merge(
-            mesh, ids, dists, sidx.n_local, sidx.n, sidx.k),
-        "the all-gather": lambda: sh._all_gather_stacked(mesh, both),
+            mesh, ids, dists, sidx.n_local, sidx.n, k),
+        "merge gathering apart (to_global, 2 all-gathers, top-k)": merge_apart,
+        "the all-gather of both": lambda: sh._all_gather_stacked(mesh, both),
         "two all-gathers, ids then distances": lambda: (
             sh._all_gather_stacked(mesh, gids), sh._all_gather_stacked(mesh, gdd)),
-        "the final top-k": lambda: topk_no_dedup(gdd, gids, sidx.k),
+        "the final top-k": lambda: topk_no_dedup(gdd, gids, k),
     }
-    for name, fn in parts.items():
-        fn()
-        fence()
-        t0 = time.perf_counter()
-        for _ in range(200):
+    a, b = parts["merge (to_global, 1 all-gather, top-k)"](), merge_apart()
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise AssertionError("the merge differs from the merge gathering apart")
+    times = {name: [] for name in parts}
+    for _ in range(7):
+        for name, fn in parts.items():
             fn()
-        fence()
-        ms = 1e3 * (time.perf_counter() - t0) / 200
-        phase("sharded", f"{name}, m={ids.shape[0]} k={sidx.k}, 1 "
-                         f"{dist.get_backend()} rank: {ms:.4f} ms of host time a call [{smi}]")
+            fence()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            fence()
+            times[name].append(1e3 * (time.perf_counter() - t0) / 200)
+    for name, ms in times.items():
+        phase("sharded", f"{name}, m={m} k={k}, 1 {dist.get_backend()} rank: median "
+                         f"{sorted(ms)[3]:.4f} ms of host time a call, least {min(ms):.4f} "
+                         f"(7 rounds) [{smi}]")
     merge = parts["merge (to_global, 1 all-gather, top-k)"]
     profile_serving("sharded merge alone", types.SimpleNamespace(search=lambda _: merge()), Yc,
                     reps=50)
