@@ -7,6 +7,10 @@ the CPU.
 - :mod:`.sharded`: the row-sharded index (``build_sharded``), its
   searches over the padded tables, the packed view and the exact engine,
   each merged with one all-gather top-k;
+- :mod:`.serving`: ``ShardedServer`` (the per-shard engine, storage tier
+  and two-phase routing over the mesh) and ``tune_sharded``;
+- :mod:`.checkpoint`: the index's and the packed view's checkpoints in the
+  JAX package's npz layout;
 - :mod:`.dryrun`: ``dryrun_multichip``, the layer end to end in a few
   gloo processes on one machine.
 """

@@ -1,6 +1,6 @@
 """The sharded layer end to end in a few processes on one machine (the
-port's counterpart of ``__graft_entry__.py:dryrun_multichip``'s first four
-steps), and the launcher that joins such processes.
+port's counterpart of ``__graft_entry__.py:dryrun_multichip``), and the
+launcher that joins such processes.
 
     python -c "from approximatenn_tpu_torch.parallel.dryrun import \\
         dryrun_multichip; dryrun_multichip(2)"            # on the card
@@ -106,12 +106,21 @@ def _check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+DRYRUN_STEPS = ("hash-graph build and search", "exact-graph build and search",
+                "packed search", "exact search", "fused packed search",
+                "ShardedServer exact two-phase", "ShardedServer hash packed")
+
+
 def dryrun_steps(mesh) -> None:
-    """One distributed step of each kind on tiny shapes, with the JAX dry
-    run's checks: the hash-graph build with a pad row and chunks of 24
-    rows, its search with rerank 8 and 2 supercharge rounds; the exact-graph
-    build and its search; the packed view and its search; the exact search;
-    the fused packed search at window 8."""
+    """One distributed step of each kind (``DRYRUN_STEPS``) on tiny shapes,
+    with the JAX dry run's checks: the hash-graph build with a pad row and
+    chunks of 24 rows, its search with rerank 8 and 2 supercharge rounds;
+    the exact-graph build and its search; the packed view and its search;
+    the exact search; the fused packed search at window 8; a
+    ``ShardedServer`` exact with ``twophase_min_n=1`` (staged for the
+    two-phase engine, which a card mesh runs) serving ids < n, and one in
+    hash mode serving through the packed layout."""
+    from .serving import ShardedServer
     from .sharded import (build_sharded, packed_sharded, search_exact_sharded,
                           search_packed_fused_sharded, search_packed_sharded, search_sharded)
 
@@ -138,18 +147,26 @@ def dryrun_steps(mesh) -> None:
     ok_ids(search_exact_sharded(points, queries, 4, mesh=mesh)[0], n - 1)
     ok_ids(search_packed_fused_sharded(sidx, spk, points, queries, mesh=mesh,
                                        window=8)[0], n)
+    ssrv = ShardedServer.build(points, 4, mesh=mesh, mode="exact", twophase_min_n=1)
+    _check(ssrv._twophase, "ShardedServer with twophase_min_n=1 is not staged for two-phase")
+    ok_ids(ssrv.search(queries)[0], n - 1)
+    hsrv = ShardedServer.build(points, 4, mesh=mesh, mode="hash", tries=2, capacity=16, seed=0)
+    ok_ids(hsrv.search(queries)[0], n)
+    _check(hsrv.describe()["layout"] == "packed", "ShardedServer hash is not packed")
 
 
-def dryrun_multichip(n_devices: int, device: str | None = None, timeout: float = 600.0) -> None:
+def dryrun_multichip(n_devices: int, device: str | None = None,
+                     timeout: float = 600.0) -> list[str]:
     """Start ``n_devices`` gloo ranks on one file store and run
     :func:`dryrun_steps` on their mesh: every rank on the card ``rank %
     device_count`` by default, on the CPU when ``device="cpu"``.  Without a
     card and without that request this raises, as ``make_mesh`` does;
-    it raises too if a rank fails."""
+    it raises too if a rank fails.  Returns each rank's standard output,
+    whose last line names the steps it ran."""
     if device is None and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: pass device='cpu' to run the dry run on the CPU")
-    launch([sys.executable, "-m", "approximatenn_tpu_torch.parallel.dryrun"], n_devices,
-           [] if device is None else ["--device", device], timeout=timeout)
+    return launch([sys.executable, "-m", "approximatenn_tpu_torch.parallel.dryrun"], n_devices,
+                  [] if device is None else ["--device", device], timeout=timeout)
 
 
 def main(argv=None) -> None:
@@ -165,7 +182,7 @@ def main(argv=None) -> None:
         dryrun_steps(make_mesh(device=None if args.device == "cuda" else args.device))
     finally:
         dist.destroy_process_group()
-    print(f"rank {args.rank}: ok")
+    print(f"rank {args.rank}: ok ({', '.join(DRYRUN_STEPS)})")
 
 
 if __name__ == "__main__":

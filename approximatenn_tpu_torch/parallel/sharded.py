@@ -100,6 +100,37 @@ def _all_gather_stacked(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return out.view(mesh.size, *t.shape).to(t.device)
 
 
+def _gather_stacked(mesh: Mesh, t: torch.Tensor, rank0_only: bool = False):
+    """Every rank's ``t`` (same shape and type on all) stacked in rank
+    order, on the host; gathered as bytes, so that any type travels.
+    ``rank0_only``: rank 0 alone gets them (None on the others), each rank
+    sending its shard and rank 0 taking one at a time, so that its device
+    holds one more shard and the other ranks nothing more (a save)."""
+    t = t.detach().contiguous()
+    if mesh.size == 1:
+        return t[None].cpu()
+    raw = t.reshape(-1).view(torch.uint8)
+    if not rank0_only:
+        out = _all_gather_stacked(mesh, raw).cpu()
+    else:
+        if mesh.host_staged:
+            raw = raw.cpu()
+
+        def peer(r):  # send/recv take global ranks
+            return r if mesh.group is None else dist.get_global_rank(mesh.group, r)
+
+        if mesh.rank != 0:
+            dist.send(raw, dst=peer(0), group=mesh.group)
+            return None
+        out = torch.empty((mesh.size, raw.numel()), dtype=torch.uint8)
+        out[0] = raw.cpu()
+        buf = torch.empty_like(raw)
+        for r in range(1, mesh.size):
+            dist.recv(buf, src=peer(r), group=mesh.group)
+            out[r] = buf.cpu()
+    return out.view(t.dtype).view(mesh.size, *t.shape)
+
+
 def _all_reduce(mesh: Mesh, t: torch.Tensor, op) -> torch.Tensor:
     """The reduction of every rank's ``t``, in a copy (host memory when
     ``mesh.host_staged``) so that ``t`` is left as it was."""
@@ -169,24 +200,27 @@ class ShardedIndex:
     def n_padded(self) -> int:
         return self.n_local * self.n_shards
 
-    def to_numpy(self, mesh: Mesh | None = None) -> dict:
+    def to_numpy(self, mesh: Mesh | None = None, rank0_only: bool = False) -> dict | None:
         """The whole index as the JAX ``ShardedIndex``'s stacked arrays:
         ``tables (S, tries, 2^d_short, tmax)``, ``counts``, ``graph (S,
         n_local, k)``, ``points (S * n_local, d)`` when stored, the
         replicated ``row_means`` and ``bases``, ``meta`` = [n, n_local, k,
         d, d_short, tries, tmax, n_shards] and ``metric``.  A collective
-        past one shard: every rank calls it with the index's ``mesh``."""
+        past one shard: every rank calls it with the index's ``mesh``.
+        ``rank0_only``: rank 0 alone gathers them, the other ranks get
+        None (:func:`_gather_stacked`)."""
         if mesh is None and self.n_shards > 1:
             raise ValueError("to_numpy of a sharded index gathers every rank's shard: "
                              "pass the mesh, on every rank")
-
-        def stacked(t):
-            return (t[None] if self.n_shards == 1 else _all_gather_stacked(mesh, t)).cpu()
-
+        fields = ("tables", "counts", "graph") + (("points",) if self.points is not None else ())
+        parts = {f: getattr(self, f).detach()[None].cpu() if self.n_shards == 1
+                 else _gather_stacked(mesh, getattr(self, f), rank0_only) for f in fields}
+        if parts["tables"] is None:
+            return None
         arrays = dict(
-            tables=stacked(self.tables).numpy(),
-            counts=stacked(self.counts).numpy(),
-            graph=stacked(self.graph).numpy(),
+            tables=parts["tables"].numpy(),
+            counts=parts["counts"].numpy(),
+            graph=parts["graph"].numpy(),
             meta=np.array([self.n, self.n_local, self.k, self.d, self.d_short, self.tries,
                            self.tmax, self.n_shards]),
             metric=np.array(self.metric),
@@ -194,7 +228,7 @@ class ShardedIndex:
         _stash(arrays, "row_means", self.row_means)
         _stash(arrays, "bases", self.bases)
         if self.points is not None:
-            _stash(arrays, "points", stacked(self.points).reshape(-1, self.d))
+            _stash(arrays, "points", parts["points"].reshape(-1, self.d))
         return arrays
 
     @classmethod
@@ -580,6 +614,7 @@ def search_packed_fused_sharded(sidx: ShardedIndex, spk: ShardedPacked, points=N
 def search_exact_sharded(points, queries, k: int, *, mesh: Mesh,
                          scale=None, matmul_precision: str = "highest",
                          twophase: bool | None = None, n_true: int | None = None,
+                         seg: int | None = None, pad_segments: int = 2, rescan: str = "dma",
                          interpret=None, query_block=None):
     """Distributed exact kNN: every rank's exact top-kk over its slice,
     then the all-gather merge.  Equal to global brute force: each shard's
@@ -592,10 +627,15 @@ def search_exact_sharded(points, queries, k: int, *, mesh: Mesh,
     the float32 kernels, as the JAX package ranks it on the TPU.  Zero pad
     rows may sit on the last shard, so the local k widens by the pad
     count, ``kk = min(k + n_local * S - n, n_local)``; ``n_true`` is the
-    real row count of a corpus the caller padded already.  Per rank: ``exact_knn_twophase`` (emit and rescan
-    kernels) when ``twophase`` is set, or when it is None on a card at
+    real row count of a corpus the caller padded already.  Per rank:
+    ``exact_knn_twophase`` (emit and rescan kernels) when ``twophase`` is
+    set, or when it is None on a card at
     ``n_local >= TWOPHASE_MIN_N`` with kk + 2 <= 128; ``exact_search``
-    (the rank kernel up to k = 128) otherwise.  ``interpret`` and
+    (the rank kernel up to k = 128) otherwise.  ``seg``, ``pad_segments``
+    and ``rescan`` reach ``exact_knn_twophase`` on the two-phase route and
+    are ignored on the rank route (the JAX ``ShardedServer.search``
+    forwards them to a function without them, its
+    ``parallel/serving.py:225-235``; here they are taken).  ``interpret`` and
     ``query_block`` raise ``ValueError``.  The JAX package's ``block`` (its
     CPU oracle's query block) is not taken: the port's oracle sizes its
     own."""
@@ -620,7 +660,8 @@ def search_exact_sharded(points, queries, k: int, *, mesh: Mesh,
                     and kk + 2 <= KMAX)
     sc = scale if quant else None
     if twophase and not f64:
-        ids_l, dd = exact_knn_twophase(local, q.contiguous(), kk, scale=sc,
+        ids_l, dd = exact_knn_twophase(local, q.contiguous(), kk, scale=sc, seg=seg,
+                                       pad_segments=pad_segments, rescan=rescan,
                                        matmul_precision=matmul_precision)
     else:
         ids_l, dd = exact_search(local, q, kk, scale=sc, matmul_precision=matmul_precision,

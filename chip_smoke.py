@@ -65,7 +65,13 @@ Phases, one line each, and a non-zero exit on the first failure:
    ``search_exact_sharded`` through the rank kernel and with
    ``twophase=True`` (recall@10 1.0 up to ties, ids of ``exact_search``
    outside near-ties), each sharded call's QPS beside the single-card
-   call's;
+   call's; then the serving surface on it (phase ``sharded_server``):
+   the JAX TPU gate ``sharded_server_1chip`` (``ShardedServer`` exact with
+   ``twophase_min_n`` = 10,000: engine "twophase", recall@10 1.0 on 200
+   queries), that server, ``ShardedServer`` auto and the int8 tier against
+   their single-card ``Server`` (ids equal outside near-ties, the int8
+   scale equal, QPS beside the server's and the raw
+   ``search_exact_sharded``'s), the int8 server saved and loaded;
 4. packed hash serving at the SIFT-1M stand-in's full width: a clustered
    1M x 128 float32 corpus (``data/synthetic.clustered_gaussian``, 10,000
    clusters) with queries drawn as the JAX package's stand-ins draw them;
@@ -79,12 +85,18 @@ Phases, one line each, and a non-zero exit on the first failure:
    ``Server``'s index and view, ``search_packed_fused_sharded`` equal to
    ``search_packed_fused`` and timed in turns with it, then the all-gather
    merge alone beside a merge that gathers ids and distances apart: host
-   times, parts, profile) and on two gloo ranks sharing the card
+   times, parts, profile; ``ShardedServer`` hash packed at the packed
+   ``Server``'s settings, equal to it, saved and loaded; ``tune_sharded``
+   on the corpus, every trial timed, with the card's memory at each
+   build: the exact tiers freed before the hash build) and on two gloo
+   ranks sharing the card
    (n = 200,001, a pad row on the last shard, hash graph; the fused packed
    search and ``search_exact_sharded`` with and without ``twophase``; gates:
    the exact searches equal the global ``exact_search``, no id >= n, the
    card equals the same two-rank search on the CPU on 50 queries with the
-   index carried by ``to_numpy``/``from_numpy``); then ``tune`` on that
+   index carried by ``to_numpy``/``from_numpy``; ``ShardedServer`` exact
+   with ``twophase_min_n`` = 1 and hash packed equal to those raw
+   searches, each saved and loaded on the two ranks); then ``tune`` on that
    corpus and those queries (k = 10, tries = 10, target recall 0.9, every
    trial timed, batch 1000, bf16 packed rows, 2 probe counts x 2 windows x
    2 rerank widths and the f32 and bf16 exact tiers: every trial and the
@@ -121,8 +133,10 @@ import io
 import json
 import os
 import sys
+import tempfile
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -141,6 +155,7 @@ from approximatenn_tpu_torch.ops.distance import brute_force_knn
 from approximatenn_tpu_torch.ops.hash import query_codes
 from approximatenn_tpu_torch.ops.topk import topk_no_dedup
 from approximatenn_tpu_torch.parallel import dryrun, multihost
+from approximatenn_tpu_torch.parallel import serving as sv
 from approximatenn_tpu_torch.parallel import sharded as sh
 from approximatenn_tpu_torch.utils.profiling import fence
 from approximatenn_tpu_torch.utils.runtime import card_name_and_limit
@@ -194,6 +209,14 @@ PARITY_BAND = "0.0005"
 # the sharded phase's two gloo ranks on the one card: n not a multiple of 2,
 # so the last shard holds a zero pad row
 SHARDED_N2, SHARDED_RANKS, SHARDED_TIMEOUT = 200_001, 2, 600
+# the JAX package's TPU gate sharded_server_1chip (harness/tpu_smoke.py:194-213):
+# ShardedServer on one chip with this two-phase threshold, recall@10 1.0 on
+# this many queries
+SERVER_TWOPHASE_MIN_N, SERVER_GATE_QUERIES = 10_000, 200
+# tune_sharded on packed-1M: the exact f32 and bf16 tiers, 18 probes, 2 windows
+# x 2 rerank widths
+SHARDED_TUNE_GRID = dict(probe_grid=(PACKED_PROBES,), window_grid=(PACKED_WINDOW, 192),
+                         rerank_grid=(None, RERANK), exact_tiers=(None, "bf16"))
 # add_points' exact rows after the removals: k + 1 (the self-match) + the
 # tombstones, through the two-phase engine's emit-all rescan
 ADD_K = 10 + 1 + N_REMOVE
@@ -614,6 +637,7 @@ def main() -> None:
     for flag in ("--rank", "--world"):
         ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
     ap.add_argument("--store", help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt", help=argparse.SUPPRESS)  # the two ranks' checkpoint directory
     args = ap.parse_args()
     if args.rank is not None:
         sharded_rank(args)
@@ -1038,6 +1062,7 @@ def main() -> None:
     mesh = sh.make_mesh()
     sharded_exact(mesh, index, X, Y, X64, Y64, true_s, smi, read_counts)
     del index, graph, gd
+    sharded_server_exact(mesh, X, Y, true_s, smi, read_counts)
 
     # path 2: the two-phase engine through its entry points
     ex.reset_launch_counts()
@@ -1114,6 +1139,8 @@ def main() -> None:
     timing["probe_topk"] = packed_timing
     bounds["probe_topk"] = packed_bound
     sharded_packed(mesh, srv_packed, Yc, args.seed, smi, read_counts)
+    sharded_server_packed(mesh, srv_packed, Yc, args.seed, smi, read_counts)
+    sharded_tune(mesh, srv_packed.points, Yc, args.seed, smi, read_counts)
     dist.destroy_process_group()
     sharded_two_ranks(args.seed, smi, read_counts)
     tune_phase(srv_packed.points, Yc, args.seed, read_counts)
@@ -1254,6 +1281,190 @@ def sharded_packed(mesh, srv, Yc, seed: int, smi, read_counts) -> None:
     merge_cost(mesh, sidx, c_ids, c_d, Yc, smi)
 
 
+def save_and_load(srv, mesh, queries, ids, dists, where: str) -> tuple[float, float]:
+    """``srv.save`` into ``where``, ``ShardedServer.load`` onto the same
+    mesh: (save s, load s); the loaded server's search must equal ``(ids,
+    dists)`` bit for bit and its ``describe()`` the saved one's."""
+    t0 = time.perf_counter()
+    srv.save(where)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = sv.ShardedServer.load(where, mesh=mesh)
+    fence()
+    load_s = time.perf_counter() - t0
+    b_ids, b_d = back.search(queries)
+    if not (torch.equal(b_ids, ids) and torch.equal(b_d, dists)
+            and back.describe() == srv.describe()):
+        raise AssertionError(f"ShardedServer {srv.mode}: the loaded server serves other "
+                             "results than the saved one")
+    return save_s, load_s
+
+
+def sharded_server_exact(mesh, X, Y, true_s, smi, read_counts) -> None:
+    """Phase ``sharded_server`` (a), exact-1M on one NCCL rank: the JAX TPU
+    gate ``sharded_server_1chip`` (``ShardedServer.build(mode="exact",
+    twophase_min_n=10_000)``: engine "twophase", recall@10 1.0 on 200
+    queries against the float64 oracle); then that server, ``ShardedServer``
+    auto (rank kernel) and the int8 tier (the single-card scale) on all
+    1000 queries, each with ids equal to its single-card ``Server``'s
+    outside near-ties, QPS beside the single-card server's and the raw
+    ``search_exact_sharded``'s; then (c) the int8 server saved and loaded."""
+    k, sub = 10, slice(0, SERVER_GATE_QUERIES)
+    ex.reset_launch_counts()
+    gate = sv.ShardedServer.build(X, k, mesh=mesh, mode="exact",
+                                  twophase_min_n=SERVER_TWOPHASE_MIN_N)
+    g_ids, _ = gate.search(Y[sub])
+    fence()
+    engine = gate.describe()["exact_engine"]
+    rec = recall_at_k(true_s[0][sub].cpu().numpy(), g_ids.cpu().numpy(), k)
+    counts = read_counts("sharded_server_1chip gate (1 rank)",
+                         ("twophase_emit", "twophase_rescan"))
+    if engine != "twophase" or rec != 1.0:
+        raise AssertionError(f"sharded_server_1chip: engine {engine}, recall@10 {rec}")
+    phase("sharded_server", f"sharded_server_1chip: ShardedServer.build n={N} d=128 k={k} "
+                            f"mode=exact twophase_min_n={SERVER_TWOPHASE_MIN_N} on 1 "
+                            f"{dist.get_backend()} rank: engine {engine}, recall@10 {rec:.4f} "
+                            f"on {SERVER_GATE_QUERIES} queries vs the f64 oracle; launches "
+                            f"{ {n: c for n, c in counts.items() if c} } [{smi}]")
+    int8 = sv.ShardedServer.build(X, k, mesh=mesh, storage_dtype=torch.int8)
+    cases = (
+        ("exact twophase_min_n=10000", gate,
+         ann.Server.build(X, k, twophase_min_n=SERVER_TWOPHASE_MIN_N),
+         lambda: sh.search_exact_sharded(X, Y, k, mesh=mesh, twophase=True),
+         ("twophase_emit", "twophase_rescan")),
+        ("auto (rank kernel)", sv.ShardedServer.build(X, k, mesh=mesh), ann.Server.build(X, k),
+         lambda: sh.search_exact_sharded(X, Y, k, mesh=mesh), ("exact_knn",)),
+        ("int8", int8, ann.Server.build(X, k, storage_dtype=torch.int8),
+         lambda: sh.search_exact_sharded(int8.points, Y, k, mesh=mesh, scale=int8.scale),
+         ("exact_knn",)),
+    )
+    for label, s_srv, c_srv, raw, need in cases:
+        if label == "int8" and float(s_srv.scale) != c_srv.scale:
+            raise AssertionError(f"ShardedServer int8 scale {float(s_srv.scale)} differs from "
+                                 f"quantize_corpus's {c_srv.scale}")
+        ex.reset_launch_counts()
+        s_qps, (s_ids, s_d) = pipelined(lambda: s_srv.search(Y), 10)
+        counts = read_counts(f"ShardedServer {label} (1 rank)", need)
+        c_qps, (c_ids, c_d) = pipelined(lambda: c_srv.search(Y), 10)
+        r_qps, _ = pipelined(raw, 10)
+        agree, tied = ids_agree(s_ids, c_ids, c_d)
+        if not agree:
+            raise AssertionError(f"ShardedServer {label}: ids differ from the single-card "
+                                 "Server's outside near-ties")
+        phase("sharded_server", f"ShardedServer {label} n={N} m={M} k={k} on 1 rank "
+                                f"({s_srv.describe()['exact_engine']}): {s_qps:.1f} QPS, "
+                                f"single-card Server {c_qps:.1f} QPS, raw "
+                                f"search_exact_sharded {r_qps:.1f} QPS; ids equal to the "
+                                f"Server's outside near-ties ({tied} near-tie rows), equal "
+                                f"throughout: {torch.equal(s_ids, c_ids)}; launches "
+                                f"{ {n: c for n, c in counts.items() if c} } [{smi}]")
+        if label == "int8":
+            ex.reset_launch_counts()
+            with tempfile.TemporaryDirectory(prefix="ann_ckpt_") as tmp:
+                save_s, load_s = save_and_load(s_srv, mesh, Y, s_ids, s_d, f"{tmp}/int8")
+            phase("sharded_server", f"save/load ShardedServer int8 n={N} (1 rank): save "
+                                    f"{save_s:.2f} s, load {load_s:.2f} s; the loaded "
+                                    f"server's search equal bit for bit [{smi}]")
+            read_counts("ShardedServer int8 save/load (1 rank)", ("exact_knn",))
+
+
+def sharded_server_packed(mesh, srv, Yc, seed: int, smi, read_counts) -> None:
+    """Phase ``sharded_server`` (b), packed-1M on one NCCL rank:
+    ``ShardedServer.build(mode="hash", layout="packed")`` at the packed
+    ``Server``'s settings serves its ids and distances (probe kernel),
+    QPS in turns beside it and the raw ``search_packed_fused_sharded``;
+    then (c) saved and loaded."""
+    k = 10
+    ex.reset_launch_counts()
+    t0 = time.perf_counter()
+    hsrv = sv.ShardedServer.build(srv.points, k, mesh=mesh, mode="hash", layout="packed",
+                                  window=PACKED_WINDOW, packed_dtype=torch.bfloat16,
+                                  n_probes=PACKED_PROBES, tries=10, capacity="auto", seed=seed)
+    fence()
+    build_s = time.perf_counter() - t0
+    read_counts("ShardedServer hash packed build (1 rank)", ("exact_knn",))
+    ex.reset_launch_counts()
+    s_ids, s_d = hsrv.search(Yc)
+    counts = read_counts("ShardedServer hash packed search (1 rank)", ("probe_topk",))
+    c_ids, c_d = srv.search(Yc)
+    if not (torch.equal(s_ids, c_ids) and torch.equal(s_d, c_d)):
+        raise AssertionError("ShardedServer hash packed differs from the packed Server")
+    calls = {"Server": lambda: srv.search(Yc), "ShardedServer": lambda: hsrv.search(Yc),
+             "raw search_packed_fused_sharded": lambda: sh.search_packed_fused_sharded(
+                 hsrv.sidx, hsrv.spk, None, Yc, mesh=mesh, n_probes=PACKED_PROBES)}
+    # host-bound: timed in turns, so a drift of the host's speed shows
+    turns = [(name, pipelined(calls[name], 20)[0]) for name in (*calls, *reversed(calls))]
+    desc = hsrv.describe()
+    phase("sharded_server", f"ShardedServer hash packed bf16 w={PACKED_WINDOW} "
+                            f"P={PACKED_PROBES} n={N} m={M} on 1 {dist.get_backend()} rank: "
+                            f"build {build_s:.2f} s, layout {desc['layout']}, index_mb "
+                            f"{desc['index_mb']}; ids and distances equal to the packed "
+                            f"Server's; QPS in turns: "
+                            f"{', '.join(f'{n} {q:.1f}' for n, q in turns)}; probe_topk "
+                            f"launches {counts['probe_topk']} [{smi}]")
+    ex.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="ann_ckpt_") as tmp:
+        save_s, load_s = save_and_load(hsrv, mesh, Yc, s_ids, s_d, f"{tmp}/hash")
+    read_counts("ShardedServer hash save/load (1 rank)", ("probe_topk",))
+    phase("sharded_server", f"save/load ShardedServer hash packed n={N} (1 rank): save "
+                            f"{save_s:.2f} s, load {load_s:.2f} s; the loaded server's search "
+                            f"equal bit for bit [{smi}]")
+
+
+def sharded_tune(mesh, Xc, Yc, seed: int, smi, read_counts) -> None:
+    """Phase ``sharded_server`` (d): ``tune_sharded`` on packed-1M, one
+    NCCL rank, every trial timed (batch 1000, bf16 packed rows, the
+    ``SHARDED_TUNE_GRID``): every trial and the winner; the packed trials
+    on the probe kernel ("fused"); ``report.server()`` serving the winner's
+    recall within ``TUNE_SERVER_TOL``; card memory read at each exact tier's
+    build and at the hash build, which must find the exact tiers freed."""
+    cls, raw = sv.ShardedServer, sv.ShardedServer.__dict__["build"]
+    mem = []
+
+    def build(*a, **kw):
+        mem.append((kw.get("mode"), kw.get("storage_dtype"), torch.cuda.memory_allocated()))
+        return raw.__get__(None, cls)(*a, **kw)
+
+    ex.reset_launch_counts()
+    cls.build = build
+    try:
+        t0 = time.perf_counter()
+        rep = sv.tune_sharded(Xc, 10, mesh=mesh, queries=Yc, batch=M, target_recall=TUNE_TARGET,
+                              measure=True, measure_all=True, tries=10, capacity="auto",
+                              seed=seed, packed_dtype=torch.bfloat16, **SHARDED_TUNE_GRID)
+        fence()
+        tune_s = time.perf_counter() - t0
+    finally:
+        cls.build = raw
+    for t in rep.trials:
+        phase("sharded_server", f"tune_sharded trial {json.dumps(t.as_dict())}")
+    phase("sharded_server", f"tune_sharded winner {json.dumps(rep.best.as_dict())}; n={N} "
+                            f"m={M} k=10 tries=10 target {TUNE_TARGET}, measured "
+                            f"{rep.measured}, {len(rep.trials)} trials in {tune_s:.2f} s; card "
+                            f"memory allocated at each build: "
+                            f"{', '.join(f'{m} {dt} {b / 2**20:.1f} MiB' for m, dt, b in mem)} "
+                            f"[{smi}]")
+    exact_mem = [b for m, _, b in mem if m == "exact"]
+    hash_mem = [b for m, _, b in mem if m == "hash"]
+    if len(exact_mem) != 2 or hash_mem[0] > exact_mem[0] + (32 << 20):
+        raise AssertionError("tune_sharded: an exact tier's corpus is still resident at the "
+                             "hash build")
+    packed = [t for t in rep.trials if t.engine == "packed"]
+    if rep.best.qps is None or any(t.knobs["path"] != "fused" for t in packed):
+        raise AssertionError("tune_sharded did not time its trials on the probe kernel")
+    truth = ann.exact_search(Xc, Yc, 10)[0].cpu().numpy()
+    srv = rep.server()
+    ids, _ = srv.search(Yc)
+    rec = recall_at_k(truth, ids.cpu().numpy(), 10)
+    phase("sharded_server", f"tune_sharded report.server(): {srv.describe()}; recall@10 "
+                            f"{rec:.4f} against the trial's {rep.best.recall:.4f}")
+    if abs(rec - rep.best.recall) > TUNE_SERVER_TOL:
+        raise AssertionError(f"report.server() serves recall {rec} against the winner's "
+                             f"{rep.best.recall}")
+    del srv, rep
+    read_counts("tune_sharded (1 rank)", ("exact_knn", "probe_topk"))
+
+
 def merge_cost(mesh, sidx, ids, dists, Yc, smi) -> None:
     """The all-gather merge alone at one fused call's shape (M queries,
     k = 10, one rank's top lists) beside a merge that gathers the ids and
@@ -1309,19 +1520,24 @@ def sharded_two_ranks(seed: int, smi, read_counts) -> None:
     package's launcher; their gates run in the ranks, their counts and
     numbers come back as each rank's last line."""
     t0 = time.perf_counter()
-    outs = dryrun.launch([sys.executable, os.path.abspath(__file__), "--seed", str(seed)],
-                         SHARDED_RANKS, timeout=SHARDED_TIMEOUT)
+    with tempfile.TemporaryDirectory(prefix="ann_ckpt_") as ckpt:
+        outs = dryrun.launch([sys.executable, os.path.abspath(__file__), "--seed", str(seed)],
+                             SHARDED_RANKS, ["--ckpt", ckpt], timeout=SHARDED_TIMEOUT)
     wall_s = time.perf_counter() - t0
     res = [json.loads(out.strip().splitlines()[-1]) for out in outs]
     launches = {name: sum(r["launches"][name] for r in res) for name in ex.launches}
     read_counts(f"sharded {SHARDED_RANKS} gloo ranks", (
         "exact_knn", "twophase_emit", "twophase_rescan", "probe_topk"), launches)
+    launches = {name: sum(r["server_launches"][name] for r in res) for name in ex.launches}
+    read_counts(f"ShardedServer {SHARDED_RANKS} gloo ranks", (
+        "twophase_emit", "twophase_rescan", "probe_topk"), launches)
     r0 = res[0]
     phase("sharded", f"{SHARDED_RANKS} gloo ranks on one card (collectives "
                      f"{'through host memory' if r0['host_staged'] else 'on the card'}), "
                      f"n={SHARDED_N2} (n_local {r0['n_local']}, one pad row) d=128 k=10, "
                      f"whole run {wall_s:.1f} s: hash-graph build_sharded tries=10 "
-                     f"{r0['build_s']:.2f} s; QPS with both ranks on the card: fused packed "
+                     f"{r0['build_s']:.2f} s, bf16 pack {r0['pack_s']:.2f} s; "
+                     f"QPS with both ranks on the card: fused packed "
                      f"bf16 w={PACKED_WINDOW} P={PACKED_PROBES} {r0['qps_fused']:.1f}, "
                      f"exact rank kernel {r0['qps_exact']:.1f}, twophase=True "
                      f"{r0['qps_twophase']:.1f}, single-card exact_search "
@@ -1334,6 +1550,19 @@ def sharded_two_ranks(seed: int, smi, read_counts) -> None:
                      f"fused {r0['cpu_rows']} rows compared, ids equal outside near-ties "
                      f"({r0['cpu_tied']} near-tie rows), distances rtol 1e-5; exact ids equal "
                      f"outside near-ties ({r0['cpu_exact_tied']} near-tie rows)")
+    phase("sharded_server", f"{SHARDED_RANKS} gloo ranks on one card, n={SHARDED_N2} k=10: "
+                            f"ShardedServer exact twophase_min_n=1 (engine twophase on both "
+                            f"ranks) {r0['qps_server_exact']:.1f} QPS, ids and distances "
+                            f"equal to search_exact_sharded(twophase=True)'s; ShardedServer "
+                            f"hash packed bf16 w={PACKED_WINDOW} P={PACKED_PROBES} (build "
+                            f"and pack {r0['server_build_s']:.2f} s) "
+                            f"{r0['qps_server_hash']:.1f} QPS, equal to "
+                            f"search_packed_fused_sharded's on its state; save/load on "
+                            f"{SHARDED_RANKS} "
+                            f"ranks, searches equal bit for bit: exact save "
+                            f"{r0['save_s']['exact']:.2f} s load {r0['load_s']['exact']:.2f} s, "
+                            f"hash save {r0['save_s']['hash']:.2f} s load "
+                            f"{r0['load_s']['hash']:.2f} s [{smi}]")
 
 
 def sharded_rank(args) -> None:
@@ -1349,13 +1578,13 @@ def sharded_rank(args) -> None:
     try:
         mesh = sh.make_mesh()
         torch.cuda.set_device(mesh.device)
-        res = _two_rank_paths(mesh, args.seed)
+        res = _two_rank_paths(mesh, args.seed, Path(args.ckpt))
     finally:
         dist.destroy_process_group()
     print(json.dumps(res))
 
 
-def _two_rank_paths(mesh, seed: int) -> dict:
+def _two_rank_paths(mesh, seed: int, ckpt: Path) -> dict:
     n, k, sub = SHARDED_N2, 10, slice(0, CPU_CHECK_QUERIES)
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((n, 128), dtype=np.float32)
@@ -1367,7 +1596,10 @@ def _two_rank_paths(mesh, seed: int) -> dict:
                             graph_mode="hash", store_points=True)
     fence()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     spk = sh.packed_sharded(sidx, mesh=mesh, window=PACKED_WINDOW, dtype=torch.bfloat16)
+    fence()
+    pack_s = time.perf_counter() - t0
     q_fused, (fids, fdd) = pipelined(lambda: sh.search_packed_fused_sharded(
         sidx, spk, None, Yd, mesh=mesh, n_probes=PACKED_PROBES), 5)
     q_exact, (eids, edd) = pipelined(lambda: sh.search_exact_sharded(Xd, Yd, k, mesh=mesh), 5)
@@ -1400,11 +1632,40 @@ def _two_rank_paths(mesh, seed: int) -> dict:
     agree, cpu_exact_tied = ids_agree(eids[sub].cpu(), ce_ids, ce_d)
     if not agree:
         raise AssertionError(f"rank {mesh.rank}: exact ids differ card vs CPU")
+    # ShardedServer over the same corpus: exact staged for two-phase on both
+    # ranks, hash packed built as above; each equal to the raw call on its
+    # own state, then saved and loaded on these ranks
+    t0 = time.perf_counter()
+    hsrv = sv.ShardedServer.build(Xd, k, mesh=mesh, mode="hash", layout="packed",
+                                  window=PACKED_WINDOW, packed_dtype=torch.bfloat16,
+                                  n_probes=PACKED_PROBES, tries=10, capacity="auto", seed=seed,
+                                  graph_mode="hash")
+    fence()
+    server_build_s = time.perf_counter() - t0
+    raw_hash = sh.search_packed_fused_sharded(hsrv.sidx, hsrv.spk, None, Yd, mesh=mesh,
+                                              n_probes=PACKED_PROBES)
+    ex.reset_launch_counts()
+    exs = sv.ShardedServer.build(Xd, k, mesh=mesh, mode="exact", twophase_min_n=1)
+    if exs.describe()["exact_engine"] != "twophase":
+        raise AssertionError(f"rank {mesh.rank}: ShardedServer exact is not two-phase")
+    q_srv_exact, (x_ids, x_d) = pipelined(lambda: exs.search(Yd), 5)
+    q_srv_hash, (h_ids, h_d) = pipelined(lambda: hsrv.search(Yd), 5)
+    for label, a, b in (("exact", (x_ids, x_d), (tids, tdd)), ("hash", (h_ids, h_d), raw_hash)):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"rank {mesh.rank}: ShardedServer {label} differs from the "
+                                 "raw sharded search")
+    save_s, load_s = {}, {}
+    for label, srv, ids, dd in (("exact", exs, x_ids, x_d), ("hash", hsrv, h_ids, h_d)):
+        save_s[label], load_s[label] = save_and_load(srv, mesh, Yd, ids, dd, ckpt / label)
+    server_launches = dict(ex.launches)
     return dict(rank=mesh.rank, launches=launches, host_staged=mesh.host_staged,
-                n_local=sidx.n_local, build_s=build_s, qps_fused=q_fused, qps_exact=q_exact,
+                n_local=sidx.n_local, build_s=build_s, pack_s=pack_s,
+                server_build_s=server_build_s, qps_fused=q_fused, qps_exact=q_exact,
                 qps_twophase=q_two, qps_single=q_single, tied_exact=tied["exact"],
                 tied_twophase=tied["twophase"], cpu_rows=cpu_rows, cpu_tied=cpu_tied,
-                cpu_exact_tied=cpu_exact_tied)
+                cpu_exact_tied=cpu_exact_tied, server_launches=server_launches,
+                qps_server_exact=q_srv_exact, qps_server_hash=q_srv_hash, save_s=save_s,
+                load_s=load_s)
 
 
 def crossover(X, Xb, Y, k: int, seed: int, dev) -> None:

@@ -127,7 +127,15 @@ def test_initialize_without_a_card_needs_the_cpu_asked_for(no_cluster_env):
 
 
 def test_dryrun_multichip():
-    dryrun.dryrun_multichip(2, device="cpu", timeout=240)
+    """Every step of the dry run, the ShardedServer ones included, ran on
+    both ranks (each rank's last line names the steps it passed)."""
+    outs = dryrun.dryrun_multichip(2, device="cpu", timeout=240)
+    for r, out in enumerate(outs):
+        last = out.strip().splitlines()[-1]
+        assert last.startswith(f"rank {r}: ok")
+        for step in dryrun.DRYRUN_STEPS:
+            assert step in last
+        assert "ShardedServer exact two-phase" in last and "ShardedServer hash packed" in last
 
 
 def test_dryrun_multichip_defaults_to_the_card(monkeypatch):

@@ -15,8 +15,10 @@ that raises records its traceback under ``<case>.error``.
 from __future__ import annotations
 
 import dataclasses
+import json
 import sys
 import traceback
+import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
@@ -25,7 +27,9 @@ import torch
 
 from approximatenn_tpu_torch.harness.compare_results import ulp_units
 from approximatenn_tpu_torch.harness.scoring import ids_agree
+from approximatenn_tpu_torch.parallel import checkpoint as ck
 from approximatenn_tpu_torch.parallel import dryrun, multihost
+from approximatenn_tpu_torch.parallel import serving as sv
 from approximatenn_tpu_torch.parallel import sharded as sh
 
 WORKER = Path(__file__).resolve()
@@ -298,12 +302,202 @@ def _multihost(mesh, I):
                 edd=edd.numpy(), n_local=np.array(s.n_local))
 
 
+def _result(out: dict, name: str, res) -> None:
+    """A search's (ids, distances) under ``name``, distances in float32."""
+    out[f"{name}_ids"], out[f"{name}_dd"] = res[0].numpy(), res[1].float().numpy()
+
+
+def _described(srv) -> np.ndarray:
+    return np.array(json.dumps(srv.describe()))
+
+
+def _server_exact(mesh, I):
+    """ShardedServer's exact mode: auto, two-phase staging (and its knobs),
+    the storage tiers and the angular metric."""
+    X, Y = I["X"], I["Y"]
+    out = {}
+    for name, kw in (("auto", {}), ("tp", {"twophase_min_n": 16}),
+                     ("int8", {"storage_dtype": torch.int8}),
+                     ("bf16", {"storage_dtype": torch.bfloat16}),
+                     ("angular", {"mode": "exact", "metric": "angular"})):
+        srv = sv.ShardedServer.build(X, K, mesh=mesh, **kw)
+        _result(out, name, srv.search(Y))
+        out[f"{name}_desc"] = _described(srv)
+        if name == "int8":
+            out["int8_scale"] = np.float32(srv.scale)
+    return out
+
+
+def _server_twophase(mesh, I):
+    """The two-phase staging: the knobs stripped on the rank route, and
+    forwarded (C-A7-1) with the route forced on a CPU mesh."""
+    X, Y = I["X"], I["Y"]
+    srv = sv.ShardedServer.build(X, K, mesh=mesh, twophase_min_n=16)
+    out = {"staged": np.array([srv._twophase, srv.points.shape[0], srv.points.shape[1]])}
+    _result(out, "stripped", srv.search(Y, no_twophase=True, seg=16))
+    _result(out, "stripped_tp", srv.search(Y, seg=16, pad_segments=3, rescan="xla"))
+    # a seg that only the two-phase engine refuses (not a power of two)
+    _result(out, "stripped_bad", srv.search(Y, seg=15))
+    srv._route_twophase = lambda *a, **kw: True
+    _result(out, "forced", srv.search(Y, seg=16, pad_segments=3, rescan="xla"))
+    try:
+        srv.search(Y, seg=15)
+        out["forced_bad"] = np.array("no error")
+    except ValueError as e:
+        out["forced_bad"] = np.array(f"ValueError: {e}")
+    return out
+
+
+def _server_pads(mesh, I):
+    """n = 75 on 2 ranks: a zero pad row on the last, near-origin queries."""
+    srv = sv.ShardedServer.build(I["X75"], 5, mesh=mesh, mode="exact")
+    out = {"rows": np.array(srv.points.shape[0])}
+    _result(out, "pad", srv.search(I["Y0"]))
+    return out
+
+
+def _server_hash(mesh, I):
+    """Hash mode over the JAX bases: the packed and table layouts, and auto
+    resolving to hash under a small ``exact_max_n``."""
+    X, Y = I["X"], I["Y"]
+    kw = dict(tries=TRIES, seed=0, capacity=CAP, bases=I["bases"])
+    out = {}
+    for name, extra in (("packed", {"mode": "hash"}),
+                        ("table", {"mode": "hash", "layout": "table"}),
+                        ("auto", {"exact_max_n": 32})):
+        srv = sv.ShardedServer.build(X, K, mesh=mesh, **extra, **kw)
+        _result(out, name, srv.search(Y))
+        out[f"{name}_desc"] = _described(srv)
+    out["bases"] = srv.sidx.bases.numpy()
+    return out
+
+
+def _server_big_k(mesh, I):
+    """k = 200 in auto mode stays exact where n_local >= 8 * (k + 2)."""
+    X, Y = I["Xbig"], I["Ybig"]
+    srv = sv.ShardedServer.build(X, 200, mesh=mesh)
+    out = {"desc": _described(srv)}
+    _result(out, "server", srv.search(Y))
+    _result(out, "raw", sh.search_exact_sharded(X, Y, 200, mesh=mesh))
+    return out
+
+
+def _ckpt_own(mesh, I):
+    """The port's checkpoints saved and loaded on 2 ranks: the index, the
+    packed view (bf16 and int8), the exact int8 two-phase and hash servers."""
+    X, Y, root = I["X"], I["Y"], Path(str(I["out_dir"]))
+    s = sh.build_sharded(X, K, mesh=mesh, tries=TRIES, capacity=CAP, seed=0,
+                         store_points=True)
+    ck.save_sharded_index(s, root / "index", mesh)
+    t = ck.load_sharded_index(root / "index", mesh)
+    out = {f"index_{key}": v for key, v in s.to_numpy(mesh).items()}
+    ints = ("n", "n_local", "k", "d", "d_short", "tries", "tmax", "n_shards", "rank", "metric")
+    out["index_same"] = np.array(
+        all(torch.equal(getattr(s, f), getattr(t, f)) for f in
+            ("row_means", "bases", "tables", "counts", "graph", "points"))
+        and all(getattr(s, f) == getattr(t, f) for f in ints))
+    for name, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        spk = sh.packed_sharded(s, mesh=mesh, dtype=dt)
+        ck.save_sharded_packed(spk, root / f"packed_{name}", mesh)
+        q = ck.load_sharded_packed(root / f"packed_{name}", mesh, d=X.shape[1])
+        same = all(torch.equal(getattr(spk, f), getattr(q, f))
+                   for f in ("point_rows", "ids", "starts"))
+        same &= (spk.n_pad_l, spk.window, spk.super_width) == (q.n_pad_l, q.window,
+                                                               q.super_width)
+        same &= (spk.scale is None) == (q.scale is None)
+        same &= spk.scale is None or torch.equal(spk.scale, q.scale)
+        a = sh.search_packed_sharded(s, spk, None, Y, mesh=mesh)
+        b = sh.search_packed_sharded(s, q, None, Y, mesh=mesh)
+        out[f"packed_{name}_same"] = np.array(same and torch.equal(a[0], b[0])
+                                              and torch.equal(a[1], b[1]))
+        out[f"packed_{name}_rows"] = (spk.point_rows.float() if dt == torch.bfloat16
+                                      else spk.point_rows).numpy()
+    for name, kw in (("exact", {"storage_dtype": torch.int8, "twophase_min_n": 16}),
+                     ("hash", {"mode": "hash", "tries": 3, "seed": 2, "capacity": 48})):
+        srv = sv.ShardedServer.build(X, K, mesh=mesh, **kw)
+        srv.save(root / f"srv_{name}")
+        back = sv.ShardedServer.load(root / f"srv_{name}", mesh=mesh)
+        a, b = srv.search(Y), back.search(Y)
+        out[f"srv_{name}_same"] = np.array(
+            srv.describe() == back.describe() and back._twophase == srv._twophase
+            and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+        out[f"srv_{name}_dtype"] = np.array(str(back.points.dtype if back.points is not None
+                                                else back.spk.point_rows.dtype))
+    return out
+
+
+def _ckpt_jax(mesh, I):
+    """Checkpoints the JAX package wrote (npz, orbax hidden), served here."""
+    Y, root, d = I["Y"], Path(str(I["jax_dir"])), I["X"].shape[1]
+    s = ck.load_sharded_index(root / "index", mesh)
+    p = ck.load_sharded_packed(root / "packed", mesh, d=d)
+    out = {"packed_width": np.array(p.point_rows.shape[1])}
+    _result(out, "index", sh.search_sharded(s, None, Y, mesh=mesh))
+    _result(out, "packed", sh.search_packed_sharded(s, p, None, Y, mesh=mesh))
+    for name in ("exact", "hash"):
+        srv = sv.ShardedServer.load(root / f"srv_{name}", mesh=mesh)
+        _result(out, f"srv_{name}", srv.search(Y))
+        out[f"srv_{name}_desc"] = _described(srv)
+    return out
+
+
+def _tune(mesh, I):
+    """tune_sharded on a CPU mesh, with every ShardedServer.search call's
+    batch and, at each exact build, the exact servers still alive."""
+    X = I["Xtune"]
+    cls = sv.ShardedServer
+    raw_build, raw_search = cls.__dict__["build"], cls.search
+    batches, alive_at_build, refs = [], [], []
+
+    def build(*a, **kw):
+        if kw.get("mode") == "exact":
+            alive_at_build.append(sum(r() is not None for r in refs))
+        srv = raw_build.__get__(None, cls)(*a, **kw)
+        if srv.mode == "exact":
+            refs.append(weakref.ref(srv))
+        return srv
+
+    def search(self, queries, *a, **kw):
+        batches.append(int(queries.shape[0]))
+        return raw_search(self, queries, *a, **kw)
+
+    cls.build, cls.search = build, search
+    try:
+        rep = sv.tune_sharded(X, 5, mesh=mesh, n_queries=32, batch=12, target_recall=0.9,
+                              probe_grid=(None,), window_grid=(16,), rerank_grid=(None,),
+                              exact_tiers=(None, "bf16"), tries=3, capacity=32, seed=1)
+        in_tune = list(batches)
+        srv = rep.server()
+        ids, _ = srv.search(X[:8])
+    finally:
+        cls.build, cls.search = raw_build, raw_search
+    return dict(report=np.array(json.dumps(rep.as_dict())), batches=np.array(in_tune),
+                alive_at_build=np.array(alive_at_build), server_ids=ids.numpy(),
+                server_mode=np.array(srv.mode))
+
+
+def _tune_parity(mesh, I):
+    """tune_sharded over the JAX bases, every query scored in one batch:
+    each trial's engine, knobs, raw recall and cost, and the winner's place."""
+    rep = sv.tune_sharded(I["X"], 5, mesh=mesh, queries=I["Y"], batch=None, seed=3,
+                          probe_grid=(None, 18), window_grid=(16,), rerank_grid=(None,),
+                          exact_tiers=(None, "bf16"), tries=3, capacity=32, bases=I["bases"])
+    return dict(report=np.array(json.dumps(rep.as_dict())),
+                recalls=np.array([t.recall for t in rep.trials]),
+                costs=np.array([t.cost for t in rep.trials]),
+                best=np.array(next(i for i, t in enumerate(rep.trials) if t is rep.best)),
+                bases=rep._srv_hash.sidx.bases.numpy())
+
+
 SUITES = {
     "build": (_build, _carried, _own_roundtrip, _pads, _mesh_errors, _angular),
     "exact": (_exact, _twophase),
     "packed": (_packed,),
     "fused": (_fused,),
     "multihost": (_multihost,),
+    "serving": (_server_exact, _server_twophase, _server_pads, _server_hash, _server_big_k),
+    "checkpoint": (_ckpt_own, _ckpt_jax, _tune),
+    "tune": (_tune_parity,),
 }
 
 
