@@ -38,10 +38,12 @@
 // added at emit; ties order by (score, id), so the result does not depend
 // on the split or on the order in which candidates arrive.
 //
-// Precision: every tier ("highest", "split3", "default") computes what
-// "highest" computes.  float32 dots are 3xTF32 with fp32 accumulation
-// (knn_mma.cuh), within fp32 summation error of the IEEE dot product, so
-// they rank as IEEE fp32 does; bf16 / f16 corpora multiply at storage width
+// Precision: a float32 stream takes the JAX package's matmul_precision
+// tiers (knn_mma.cuh), each a kernel of its own: "highest" is 3xTF32 with
+// fp32 accumulation, within fp32 summation error of the IEEE dot product,
+// so it ranks as IEEE fp32 does; "split3" the three bf16 passes of the JAX
+// package's _dot_split3 (hi*hi + hi*lo + lo*hi); "default" one bf16 pass of
+// the rounded factors, as Precision.DEFAULT on the TPU.  bf16 / f16 corpora multiply at storage width
 // with queries rounded to the corpus's type first, as the TPU kernel feeds
 // its MXU (exact products, fp32 accumulation); int8 corpora multiply
 // int8-quantised queries in int32 (exact).  Norms are fp32 sums of the
@@ -133,12 +135,12 @@ struct RankSelect {
   }
 };
 
-template <typename T>
+template <typename T, int TIER = TIER_HIGHEST>
 int launch(const void* pts, const float* q, const int* excl, const float* qn, int n, int d,
            int m, int k, int splits, float* part_d, int* part_i, float* out_d, int* out_i,
            float scale2, cudaStream_t stream) {
   tile::TiledArgs a{pts, q, nullptr, nullptr, excl, n, d, m, k, 0, 0, 0, part_d, part_i};
-  cudaError_t err = tile::launch_tiled<T, RankSelect<T>>(a, splits, 1, stream);
+  cudaError_t err = tile::launch_tiled<T, RankSelect<T>, TIER>(a, splits, 1, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_split_merge(part_d, part_i, qn, n, m, k, splits, scale2, out_d, out_i,
                                  stream);
@@ -149,22 +151,27 @@ int launch(const void* pts, const float* q, const int* excl, const float* qn, in
 extern "C" {
 
 // device: the CUDA ordinal of every pointer.  dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers,
-// pts 16-byte aligned; excl may be null.  part_d/part_i hold m * splits * k
-// entries, out_d/out_i m * k.  Returns the CUDA error code (0 = launched).
-int exact_knn_launch(int device, const void* pts, int dtype, const float* q,
+// 1 = bfloat16, 2 = float16, 3 = int8.  tier: 0 = "highest", 1 = "split3",
+// 2 = "default" (float32 only; other types take 0).  All pointers are
+// device pointers, pts 16-byte aligned; excl may be null.  part_d/part_i
+// hold m * splits * k entries, out_d/out_i m * k.  Returns the CUDA error
+// code (0 = launched).
+int exact_knn_launch(int device, const void* pts, int dtype, int tier, const float* q,
                      const int* excl, const float* qn, int n, int d, int m, int k,
                      int splits, float* part_d, int* part_i, float* out_d,
                      int* out_i, float scale2, void* stream) {
   if (k < 1 || k > knn::KMAX || splits < 1 || splits > MAX_SPLITS || n < 1 || d < 1 || m < 1 ||
-      reinterpret_cast<uintptr_t>(pts) % 16)
+      reinterpret_cast<uintptr_t>(pts) % 16 || !knn::tier_ok(dtype, tier))
     return (int)cudaErrorInvalidValue;
   // this library carries its own CUDA runtime: select the caller's device
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(pts, q, excl, qn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);
+    case 0:
+      return knn::with_tier(tier, [&](auto t) {
+        return launch<float, decltype(t)::value>(pts, q, excl, qn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);
+      });
     case 1: return launch<__nv_bfloat16>(pts, q, excl, qn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);
     case 2: return launch<__half>(pts, q, excl, qn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);
     case 3: return launch<int8_t>(pts, q, excl, qn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);

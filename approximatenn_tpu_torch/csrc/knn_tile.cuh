@@ -13,8 +13,12 @@
 //     a tile's copies stalls on the memory system about as long as they
 //     take, see stream_knn.cu);
 //   * each multiplying warp takes 16 of the tile's rows against the
-//     block's QB queries through tile_mma<T, QB / 8>: every corpus value's
-//     split into TF32 halves (float32) feeds QB / 8 x 3 MMAs;
+//     block's QB queries through tile_mma<T, QB / 8, TIER>: for float32 at
+//     "highest" every corpus value's split into TF32 halves feeds QB / 8 x
+//     3 MMAs, at "split3" a pair of K steps' bf16 halves feed QB / 8 x 3
+//     m16n8k16 MMAs, at "default" their bf16 values QB / 8 (knn_mma.cuh);
+//     TIER is a compile-time parameter beside T, so each tier is a kernel
+//     of its own and "highest" is the code it always was;
 //   * the C fragments go, turned into scores, to a padded array S
 //     [QB][TN + 4] (conflict-free stores), where the selection step reads
 //     them: the rank kernel one query's 128 scores per warp and pass, the
@@ -189,20 +193,20 @@ __device__ __forceinline__ void add_squares(uint32_t w, typename Tr<T>::S& acc) 
 
 // Words of shared memory of one ring slot: TN rows of a kc-K-step chunk at
 // the padded stride, then (feature chunks only) the chunk's query fragments.
-template <typename T>
+template <typename T, int TIER>
 __host__ __device__ inline int tiled_slot_words(int kc, bool chunked) {
-  return TN * (KSTEP_WORDS * kc + 4) + (chunked ? fragment_words<T>(NQ, kc) : 0);
+  return TN * (KSTEP_WORDS * kc + 4) + (chunked ? fragment_words<T, TIER>(NQ, kc) : 0);
 }
 
 // Bytes of dynamic shared memory of the tile loop: the ring (and a norm
 // slice a slot where the kernel takes its norms in, K::PN), the query
 // fragments held for the whole call (one chunk only), the two S, and the
 // selection's own state (K::state_bytes).
-template <typename T, class K>
+template <typename T, class K, int TIER>
 size_t tiled_smem(int ksteps, int kc, int n_buf, int k) {
   const bool chunked = kc < ksteps;
-  return 4 * ((size_t)n_buf * (tiled_slot_words<T>(kc, chunked) + (K::PN ? TN : 0)) +
-              (chunked ? 0 : fragment_words<T>(NQ, ksteps)) + (size_t)2 * QB * SS) +
+  return 4 * ((size_t)n_buf * (tiled_slot_words<T, TIER>(kc, chunked) + (K::PN ? TN : 0)) +
+              (chunked ? 0 : fragment_words<T, TIER>(NQ, ksteps)) + (size_t)2 * QB * SS) +
          K::state_bytes(k);
 }
 
@@ -222,7 +226,8 @@ struct TiledArgs {
   int seg;           // emit: rows per segment
 };
 
-// The tile loop (see the top of this file).  K is the selection step:
+// The tile loop (see the top of this file) at precision tier TIER (float32
+// only; knn_mma.cuh).  K is the selection step:
 //   K::PN                  copy pn's slice of each tile into the ring
 //   K::state_bytes(k)      its shared memory after S
 //   K(args, state, q0)     per-thread set-up (state zeroed or filled there)
@@ -230,7 +235,7 @@ struct TiledArgs {
 //                          from the dot product and the row's streamed norm or pn
 //   k.select(S, t0, hi)    after a tile's S is written: whole multiplying warp
 //   k.finish(split, splits) write this warp's queries' partial lists
-template <typename T, class K>
+template <typename T, class K, int TIER>
 __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
   using S_t = typename Tr<T>::S;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -239,12 +244,13 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
   const int nc = (ksteps + kc - 1) / kc;  // chunks per tile
   const bool chunked = nc > 1;
   const int stride = KSTEP_WORDS * kc + 4;
-  const int slot_words = tiled_slot_words<T>(kc, chunked);
+  const int slot_words = tiled_slot_words<T, TIER>(kc, chunked);
   const int n_buf = a.n_buf;
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);                            // [n_buf][slot]
   float* pn_ring = reinterpret_cast<float*>(ring + n_buf * slot_words);          // [n_buf][TN]
   uint32_t* qf_all = reinterpret_cast<uint32_t*>(pn_ring + (K::PN ? n_buf * TN : 0));
-  float* Sm = reinterpret_cast<float*>(qf_all + (chunked ? 0 : fragment_words<T>(NQ, ksteps)));
+  float* Sm =
+      reinterpret_cast<float*>(qf_all + (chunked ? 0 : fragment_words<T, TIER>(NQ, ksteps)));
   unsigned char* state = reinterpret_cast<unsigned char*>(Sm + 2 * QB * SS);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -284,8 +290,8 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
       if (K::PN && last && ctid < rows)
         cp_async4(pn_ring + (i % n_buf) * TN + ctid, a.pn + r0 + ctid);
       if (chunked)
-        stage_query_fragments<T, NQ>(a.q, q0, a.m, a.d, c * kc, last ? kc_last : kc,
-                                     slot + TN * stride, ctid, NPT);
+        stage_query_fragments<T, NQ, TIER>(a.q, q0, a.m, a.d, c * kc, last ? kc_last : kc,
+                                           slot + TN * stride, ctid, NPT);
     }
     cp_async_commit();
   };
@@ -294,7 +300,8 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
   // whole rows: the bytes past a row's end are zeroed once, in every slot
   if (!chunked)
     zero_row_ends(ring, n_buf * TN, stride, row_bytes, 4 * KSTEP_WORDS * ksteps, tid, NTS);
-  if (!chunked) stage_query_fragments<T, NQ>(a.q, q0, a.m, a.d, 0, ksteps, qf_all, tid, NTS);
+  if (!chunked)
+    stage_query_fragments<T, NQ, TIER>(a.q, q0, a.m, a.d, 0, ksteps, qf_all, tid, NTS);
   K sel(a, state, q0);
   cp_async_wait_pending(n_buf - 2);  // a copier's copies of item 0 landed
   __syncthreads();                   // and every copier's; the set-up is done
@@ -317,8 +324,8 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
       const uint32_t* slot = ring + (i % n_buf) * slot_words;
       const int kcs = c == nc - 1 ? kc_last : kc;
       S_t dot[NQ][4];
-      tile_mma<T, NQ>(slot + wrow * stride, stride, kcs, chunked ? slot + TN * stride : qf_all,
-                      lane, dot);
+      tile_mma<T, NQ, TIER>(slot + wrow * stride, stride, kcs,
+                            chunked ? slot + TN * stride : qf_all, lane, dot);
 #pragma unroll
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
@@ -370,40 +377,40 @@ __global__ void __launch_bounds__(NTS, 1) tiled_kernel(const TiledArgs a) {
 // chunks (of equal K steps, the last maybe shorter) for which two do; then
 // the deepest ring (no deeper than the items of a split) that fits.
 // Returns false where not even two one-step slots fit.
-template <typename T, class K>
+template <typename T, class K, int TIER>
 bool tiled_plan(int d, int k, int tiles_per_split, int& kc, int& n_buf) {
   const int ksteps = row_words(d, sizeof(T)) / KSTEP_WORDS;
   kc = 0;
   for (int nc = 1; nc <= ksteps; ++nc) {
     const int c = (ksteps + nc - 1) / nc;
-    if (tiled_smem<T, K>(ksteps, c, 2, k) <= (size_t)SMEM_MAX) { kc = c; break; }
+    if (tiled_smem<T, K, TIER>(ksteps, c, 2, k) <= (size_t)SMEM_MAX) { kc = c; break; }
   }
   if (kc == 0) return false;
   const int items = tiles_per_split * ((ksteps + kc - 1) / kc);
   n_buf = 2;
   while (n_buf < MAX_BUF && n_buf < items &&
-         tiled_smem<T, K>(ksteps, kc, n_buf + 1, k) <= (size_t)SMEM_MAX)
+         tiled_smem<T, K, TIER>(ksteps, kc, n_buf + 1, k) <= (size_t)SMEM_MAX)
     ++n_buf;
   return true;
 }
 
-// Launch tiled_kernel<T, K> over (ceil(m / QB), splits) blocks.  A split
+// Launch tiled_kernel<T, K, TIER> over (ceil(m / QB), splits) blocks.  A split
 // covers a multiple of split_tiles tiles (emit: a segment's, so that no
 // segment is cut between two blocks); a split past the corpus's end has no
 // tiles.
-template <typename T, class K>
+template <typename T, class K, int TIER>
 cudaError_t launch_tiled(TiledArgs a, int splits, int split_tiles, cudaStream_t stream) {
   const int n_tiles = (a.n + TN - 1) / TN;
   a.tiles_per_split =
       ((n_tiles + splits - 1) / splits + split_tiles - 1) / split_tiles * split_tiles;
   const int ksteps = row_words(a.d, sizeof(T)) / KSTEP_WORDS;
-  if (!tiled_plan<T, K>(a.d, a.k, a.tiles_per_split, a.kc, a.n_buf))
+  if (!tiled_plan<T, K, TIER>(a.d, a.k, a.tiles_per_split, a.kc, a.n_buf))
     return cudaErrorInvalidValue;
-  const size_t smem = tiled_smem<T, K>(ksteps, a.kc, a.n_buf, a.k);
-  cudaError_t err = cudaFuncSetAttribute(tiled_kernel<T, K>,
+  const size_t smem = tiled_smem<T, K, TIER>(ksteps, a.kc, a.n_buf, a.k);
+  cudaError_t err = cudaFuncSetAttribute(tiled_kernel<T, K, TIER>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  tiled_kernel<T, K><<<dim3((a.m + QB - 1) / QB, splits), NTS, smem, stream>>>(a);
+  tiled_kernel<T, K, TIER><<<dim3((a.m + QB - 1) / QB, splits), NTS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -33,10 +33,10 @@
 // running worst with one warp reduction, and runs the replace-the-worst
 // rounds itself.
 //
-// Precision: every tier computes what "highest" computes: float32 dots in
-// three TF32 passes with fp32 accumulation (ranks as IEEE fp32 does),
-// bf16 / f16 at storage width with queries rounded to the corpus's type,
-// int8 in int32 (exact); see exact_knn.cu.
+// Precision: the rank kernel's (exact_knn.cu): a float32 stream at the
+// tier asked for ("highest": three TF32 passes, ranks as IEEE fp32 does;
+// "split3": three bf16 passes; "default": one), bf16 / f16 at storage
+// width with queries rounded to the corpus's type, int8 in int32 (exact).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
@@ -131,12 +131,12 @@ struct RescanSelect {
   }
 };
 
-template <typename T>
+template <typename T, int TIER = TIER_HIGHEST>
 int launch(const void* pts, const float* q, const int* excl, const float* qn, const float* pn,
            int n, int d, int m, int k, int splits, float* part_d, int* part_i,
            float* out_d, int* out_i, float scale2, cudaStream_t stream) {
   tile::TiledArgs a{pts, q, qn, pn, excl, n, d, m, k, 0, 0, 0, part_d, part_i};
-  cudaError_t err = tile::launch_tiled<T, RescanSelect<T>>(a, splits, 1, stream);
+  cudaError_t err = tile::launch_tiled<T, RescanSelect<T>, TIER>(a, splits, 1, stream);
   if (err != cudaSuccess) return (int)err;
   // the lists hold distances already: no |q|^2 to add
   return (int)launch_split_merge(part_d, part_i, nullptr, n, m, k, splits, scale2, out_d,
@@ -148,23 +148,28 @@ int launch(const void* pts, const float* q, const int* excl, const float* qn, co
 extern "C" {
 
 // device: the CUDA ordinal of every pointer.  dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers,
-// pts and pn 16-byte aligned; excl may be null.  qn (m,) and pn (n,) are float32; part_d/part_i hold
-// m * splits * k entries, out_d/out_i m * k.  Returns the CUDA error code
-// (0 = launched).
-int exact_knn_rescan_launch(int device, const void* pts, int dtype, const float* q,
+// 1 = bfloat16, 2 = float16, 3 = int8.  tier: 0 = "highest", 1 = "split3",
+// 2 = "default" (float32 only; other types take 0).  All pointers are
+// device pointers, pts and pn 16-byte aligned; excl may be null.  qn (m,)
+// and pn (n,) are float32; part_d/part_i hold m * splits * k entries,
+// out_d/out_i m * k.  Returns the CUDA error code (0 = launched).
+int exact_knn_rescan_launch(int device, const void* pts, int dtype, int tier, const float* q,
                             const int* excl, const float* qn, const float* pn, int n, int d,
                             int m, int k, int splits, float* part_d, int* part_i,
                             float* out_d, int* out_i, float scale2, void* stream) {
   if (k < 1 || k > knn::KMAX || splits < 1 || splits > MAX_SPLITS || n < 1 || d < 1 || m < 1 ||
-      reinterpret_cast<uintptr_t>(pts) % 16 || reinterpret_cast<uintptr_t>(pn) % 16)
+      reinterpret_cast<uintptr_t>(pts) % 16 || reinterpret_cast<uintptr_t>(pn) % 16 ||
+      !knn::tier_ok(dtype, tier))
     return (int)cudaErrorInvalidValue;
   // this library carries its own CUDA runtime: select the caller's device
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(pts, q, excl, qn, pn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);
+    case 0:
+      return knn::with_tier(tier, [&](auto t) {
+        return launch<float, decltype(t)::value>(pts, q, excl, qn, pn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);
+      });
     case 1: return launch<__nv_bfloat16>(pts, q, excl, qn, pn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);
     case 2: return launch<__half>(pts, q, excl, qn, pn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);
     case 3: return launch<int8_t>(pts, q, excl, qn, pn, n, d, m, k, splits, part_d, part_i, out_d, out_i, scale2, s);

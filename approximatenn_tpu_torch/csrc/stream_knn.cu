@@ -59,8 +59,9 @@
 // rank kernel and the rescan merge share (knn_tile.cuh: TileCopy); each
 // row's bytes up to its last whole K step are zeroed once, at the start.
 //
-// Precision: float32 dots are 3xTF32 with fp32 accumulation (see
-// knn_mma.cuh), within fp32 summation error of the IEEE dot product; bf16 /
+// Precision: a float32 stream at the tier asked for (knn_mma.cuh):
+// "highest" is 3xTF32 with fp32 accumulation, within fp32 summation error
+// of the IEEE dot product; "split3" three bf16 passes; "default" one; bf16 /
 // f16 multiply queries rounded to the corpus's type, exact products, fp32
 // accumulation; int8 in int32, exact.
 //
@@ -82,8 +83,8 @@ constexpr int MAX_BUF = 8;                // deepest ring
 static_assert(QBW == NW, "a multiplying warp merges one query");
 
 // tr: corpus rows per ring slot (128, 64, 32 or 16).  Warps 0..NW-1 multiply
-// and merge; warps NW..NW+NP-1 copy.
-template <typename T>
+// and merge; warps NW..NW+NP-1 copy.  TIER: the precision tier (float32).
+template <typename T, int TIER>
 __global__ void __launch_bounds__(NTS)
 stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
               const float* __restrict__ qn, const float* __restrict__ pn,
@@ -96,7 +97,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);                    // [n_buf][tr][stride]
   float* pn_ring = reinterpret_cast<float*>(ring + n_buf * slot_words);  // [n_buf][tr]
   uint32_t* qf = reinterpret_cast<uint32_t*>(pn_ring + n_buf * tr);      // query fragments
-  float* Sm = reinterpret_cast<float*>(qf + fragment_words<T>(1, ksteps));  // [2][QBW][SS]
+  float* Sm = reinterpret_cast<float*>(qf + fragment_words<T, TIER>(1, ksteps));  // [2][QBW][SS]
   float* rd = Sm + 2 * QBW * SS;                                         // [QBW][k]
   int* ri = reinterpret_cast<int*>(rd + QBW * k);                        // [QBW][k]
 
@@ -129,7 +130,7 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   // bytes from a row's end to its last whole K step are zero in every slot;
   // no copy writes them
   zero_row_ends(ring, n_buf * tr, stride, row_bytes, 4 * KSTEP_WORDS * ksteps, tid, NTS);
-  stage_query_fragments<T, 1>(q, q0, m, d, 0, ksteps, qf, tid, NTS);
+  stage_query_fragments<T, 1, TIER>(q, q0, m, d, 0, ksteps, qf, tid, NTS);
   for (int e = tid; e < QBW * k; e += NTS) { rd[e] = pos_inf(); ri[e] = ID_NONE; }
   // a multiplying warp merges query q0 + warp
   const int qi = q0 + warp;
@@ -155,7 +156,8 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
       cp_async_wait_pending(n_buf - 2);  // this thread's copies of tile t + 1 landed
     } else if (wrow < rows) {
       typename Tr<T>::S dot[1][4];
-      tile_mma<T, 1>(ring + slot * slot_words + wrow * stride, stride, ksteps, qf, lane, dot);
+      tile_mma<T, 1, TIER>(ring + slot * slot_words + wrow * stride, stride, ksteps, qf, lane,
+                           dot);
       const float* pnt = pn_ring + slot * tr + wrow + g;
       const float p0 = pnt[0], p1 = pnt[8];
       float* s = St + (2 * tq) * SS + wrow + g;
@@ -193,32 +195,32 @@ stream_kernel(const T* __restrict__ pts, const float* __restrict__ q,
                    out_i + (long long)qi * k, scale2, n);
 }
 
-template <typename T>
+template <typename T, int TIER>
 size_t stream_smem(int d, int k, int n_buf, int tr) {
   const int ksteps = row_words(d, sizeof(T)) / KSTEP_WORDS;
   return (size_t)n_buf * tr * (padded_stride(d, sizeof(T)) + 1) * 4 +
-         4 * (size_t)fragment_words<T>(1, ksteps) + sizeof(float) * 2 * QBW * SS +
+         4 * (size_t)fragment_words<T, TIER>(1, ksteps) + sizeof(float) * 2 * QBW * SS +
          (sizeof(float) + sizeof(int)) * (size_t)QBW * k;
 }
 
-template <typename T>
+template <typename T, int TIER = TIER_HIGHEST>
 int launch(const void* pts, const float* q, const int* excl, const float* qn, const float* pn,
            int n, int d, int m, int k, float scale2, float* out_d, int* out_i,
            cudaStream_t stream) {
   // the most rows per slot for which two slots fit, then the deepest ring
   // (no deeper than the tiles there are) that fits
   int tr = TN;
-  while (tr > MMA_ROWS && stream_smem<T>(d, k, 2, tr) > (size_t)SMEM_MAX) tr /= 2;
+  while (tr > MMA_ROWS && stream_smem<T, TIER>(d, k, 2, tr) > (size_t)SMEM_MAX) tr /= 2;
   const int n_tiles = (n + tr - 1) / tr;
   int n_buf = n_tiles < 2 ? 2 : (n_tiles < MAX_BUF ? n_tiles : MAX_BUF);
-  while (n_buf > 2 && stream_smem<T>(d, k, n_buf, tr) > (size_t)SMEM_MAX) --n_buf;
-  const size_t smem = stream_smem<T>(d, k, n_buf, tr);
+  while (n_buf > 2 && stream_smem<T, TIER>(d, k, n_buf, tr) > (size_t)SMEM_MAX) --n_buf;
+  const size_t smem = stream_smem<T, TIER>(d, k, n_buf, tr);
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(stream_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(stream_kernel<T, TIER>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  stream_kernel<T><<<(m + QBW - 1) / QBW, NTS, smem, stream>>>(
+  stream_kernel<T, TIER><<<(m + QBW - 1) / QBW, NTS, smem, stream>>>(
       static_cast<const T*>(pts), q, qn, pn, excl, n, d, m, k, n_buf, tr, scale2, out_d,
       out_i);
   return (int)cudaGetLastError();
@@ -229,23 +231,28 @@ int launch(const void* pts, const float* q, const int* excl, const float* qn, co
 extern "C" {
 
 // device: the CUDA ordinal of every pointer.  dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers,
-// pts and pn 16-byte aligned; excl may be null.  qn (m,) and pn (n,) are
-// float32; out_d/out_i hold m * k entries.  Returns the CUDA error code
-// (0 = launched); cudaErrorInvalidValue also when two 16-row corpus tiles
-// of d values do not fit in a block's shared memory.
-int exact_knn_stream_launch(int device, const void* pts, int dtype, const float* q,
+// 1 = bfloat16, 2 = float16, 3 = int8.  tier: 0 = "highest", 1 = "split3",
+// 2 = "default" (float32 only; other types take 0).  All pointers are
+// device pointers, pts and pn 16-byte aligned; excl may be null.  qn (m,)
+// and pn (n,) are float32; out_d/out_i hold m * k entries.  Returns the
+// CUDA error code (0 = launched); cudaErrorInvalidValue also when two
+// 16-row corpus tiles of d values do not fit in a block's shared memory.
+int exact_knn_stream_launch(int device, const void* pts, int dtype, int tier, const float* q,
                             const int* excl, const float* qn, const float* pn, int n, int d,
                             int m, int k, float* out_d, int* out_i, float scale2, void* stream) {
   if (k < 1 || k > knn::KMAX || n < 1 || d < 1 || m < 1 ||
-      reinterpret_cast<uintptr_t>(pts) % 16 || reinterpret_cast<uintptr_t>(pn) % 16)
+      reinterpret_cast<uintptr_t>(pts) % 16 || reinterpret_cast<uintptr_t>(pn) % 16 ||
+      !knn::tier_ok(dtype, tier))
     return (int)cudaErrorInvalidValue;
   // this library carries its own CUDA runtime: select the caller's device
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(pts, q, excl, qn, pn, n, d, m, k, scale2, out_d, out_i, s);
+    case 0:
+      return knn::with_tier(tier, [&](auto t) {
+        return launch<float, decltype(t)::value>(pts, q, excl, qn, pn, n, d, m, k, scale2, out_d, out_i, s);
+      });
     case 1: return launch<__nv_bfloat16>(pts, q, excl, qn, pn, n, d, m, k, scale2, out_d, out_i, s);
     case 2: return launch<__half>(pts, q, excl, qn, pn, n, d, m, k, scale2, out_d, out_i, s);
     case 3: return launch<int8_t>(pts, q, excl, qn, pn, n, d, m, k, scale2, out_d, out_i, s);

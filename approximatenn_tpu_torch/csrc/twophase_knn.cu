@@ -60,13 +60,15 @@
 //     of all P * seg distances is kept: at seg = 512, k = 126 that would
 //     be 65,536 candidates a query.
 //
-// Precision: emit computes what the rank kernel computes for every tier
-// ("highest", "split3", "default"): float32 dots in three TF32 passes with
-// fp32 accumulation (ranks as IEEE fp32 does), bf16 / f16 at storage width
-// with queries rounded to the corpus's type, int8 in int32 with quantised
-// queries (exact); norms are the streamed values' squares summed in fp32
-// (int32 for int8); see exact_knn.cu.  Rescan widens every element to fp32;
-// int8 queries arrive quantised.
+// Precision: emit computes what the rank kernel computes at each tier: a
+// float32 stream at "highest" (three TF32 passes with fp32 accumulation,
+// ranks as IEEE fp32 does), "split3" (three bf16 passes) or "default" (one
+// bf16 pass), bf16 / f16 at storage width with queries rounded to the
+// corpus's type, int8 in int32 with quantised queries (exact); norms are
+// the streamed values' squares summed in fp32 (int32 for int8); see
+// exact_knn.cu.  Rescan has no tier: it widens every element to fp32 and
+// sums differences (the JAX _kernel_rescan's exact f32); int8 queries
+// arrive quantised.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (plain C interface, loaded through ctypes).
@@ -281,12 +283,13 @@ rescan_kernel(const T* __restrict__ pts, const float* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, int TIER = TIER_HIGHEST>
 int emit(const void* pts, const float* q, const int* excl, int n, int d, int m, int seg,
          int splits, float* seg_d, int* seg_i, cudaStream_t stream) {
   tile::TiledArgs a{pts, q, nullptr, nullptr, excl, n, d, m, 0, 0, 0, 0, seg_d, seg_i, seg};
   // a split takes whole segments
-  return (int)tile::launch_tiled<T, EmitSelect<T>>(a, splits, seg > TN ? seg / TN : 1, stream);
+  return (int)tile::launch_tiled<T, EmitSelect<T>, TIER>(a, splits, seg > TN ? seg / TN : 1,
+                                                         stream);
 }
 
 template <typename T>
@@ -355,21 +358,27 @@ bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 extern "C" {
 
 // device: the CUDA ordinal of every pointer.  dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16, 3 = int8.  All pointers are device pointers,
-// pts 16-byte aligned; excl may be null.  seg (a power of two) rows a
-// segment; seg_d/seg_i hold m * n_seg entries, n_seg = ceil(n / seg);
-// splits (<= 32) corpus ranges.  Returns the CUDA error code (0 = launched).
-int twophase_emit_launch(int device, const void* pts, int dtype, const float* q,
+// 1 = bfloat16, 2 = float16, 3 = int8.  tier: 0 = "highest", 1 = "split3",
+// 2 = "default" (float32 only; other types take 0).  All pointers are
+// device pointers, pts 16-byte aligned; excl may be null.  seg (a power of
+// two) rows a segment; seg_d/seg_i hold m * n_seg entries, n_seg =
+// ceil(n / seg); splits (<= 32) corpus ranges.  Returns the CUDA error code
+// (0 = launched).
+int twophase_emit_launch(int device, const void* pts, int dtype, int tier, const float* q,
                          const int* excl, int n, int d, int m, int seg, int n_seg,
                          int splits, float* seg_d, int* seg_i, void* stream) {
   if (!pow2(seg) || n < 1 || d < 1 || m < 1 || splits < 1 || splits > MAX_SPLITS ||
-      n_seg != (int)(((long long)n + seg - 1) / seg) || reinterpret_cast<uintptr_t>(pts) % 16)
+      n_seg != (int)(((long long)n + seg - 1) / seg) || reinterpret_cast<uintptr_t>(pts) % 16 ||
+      !knn::tier_ok(dtype, tier))
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return emit<float>(pts, q, excl, n, d, m, seg, splits, seg_d, seg_i, s);
+    case 0:
+      return knn::with_tier(tier, [&](auto t) {
+        return emit<float, decltype(t)::value>(pts, q, excl, n, d, m, seg, splits, seg_d, seg_i, s);
+      });
     case 1: return emit<__nv_bfloat16>(pts, q, excl, n, d, m, seg, splits, seg_d, seg_i, s);
     case 2: return emit<__half>(pts, q, excl, n, d, m, seg, splits, seg_d, seg_i, s);
     case 3: return emit<int8_t>(pts, q, excl, n, d, m, seg, splits, seg_d, seg_i, s);

@@ -25,6 +25,15 @@ to its dtype; an int8 corpus multiplies queries quantised with its own
 scale (``round(q / scale)`` clipped to [-127, 127]) and distances come back
 times scale^2.  ``|q|^2`` always comes from the unrounded float32 queries.
 
+Precision tiers (``matmul_precision``, the JAX package's ``_dist_dot``): a
+float32 stream computes its dot products at "highest" (IEEE float32 in the
+plain versions, three TF32 passes on the card, which rank alike), "split3"
+(:func:`dot_split3`: each factor split into bf16 ``hi`` and ``lo``, the
+products ``hi*hi + hi*lo + lo*hi`` in float32; three bf16 passes on the
+card) or "default" (one pass of the factors rounded to bf16, as
+``Precision.DEFAULT`` on the TPU); bf16, f16 and int8 streams ignore the
+tier (:func:`stream_tier`).  Norms are float32 at every tier.
+
 ``exact_knn`` runs the kernel for a CUDA tensor and the plain version for
 a CPU tensor, never anything else: no fallback, no silent device move.
 """
@@ -46,7 +55,9 @@ from ..config import default_device, itype
 KMAX = 128
 _MAX_SPLITS = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
-_PRECISIONS = ("highest", "split3", "default")
+# matmul_precision -> the tier code the kernels take (csrc/knn_mma.cuh)
+TIER_CODE = {"highest": 0, "split3": 1, "default": 2}
+_PRECISIONS = tuple(TIER_CODE)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _CUDA_INVALID_VALUE = 1  # cudaErrorInvalidValue
 PLAIN_TILE = 4096  # corpus rows per tile of the rescan-merge/stream plain versions
@@ -66,12 +77,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: name -> argtypes (all return a CUDA error code)
 _ENTRY_POINTS = {
-    "exact_knn": {"exact_knn_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _ci, _ci, _ci,
+    "exact_knn": {"exact_knn_launch": [_ci, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _ci, _ci,
                                        _ci, _ci, _vp, _vp, _vp, _vp, ctypes.c_float,
                                        _vp],
                   "exact_knn_query_block": [], "exact_knn_tile_rows": []},
     "twophase_knn": {
-        "twophase_emit_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
+        "twophase_emit_launch": [_ci, _vp, _ci, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                  _ci, _vp, _vp, _vp],
         "twophase_rescan_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                    _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
@@ -80,20 +91,25 @@ _ENTRY_POINTS = {
     },
     "probe_knn": {"probe_topk_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                         _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp]},
-    "rescan_merge_knn": {"exact_knn_rescan_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _vp, _ci,
-                                                     _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
-                                                     ctypes.c_float, _vp],
+    "rescan_merge_knn": {"exact_knn_rescan_launch": [_ci, _vp, _ci, _ci, _vp, _vp, _vp, _vp,
+                                                     _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp,
+                                                     _vp, ctypes.c_float, _vp],
                          "rescan_merge_knn_query_block": [], "rescan_merge_knn_tile_rows": []},
-    "stream_knn": {"exact_knn_stream_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _vp, _ci, _ci,
-                                               _ci, _ci, _vp, _vp, ctypes.c_float, _vp]},
+    "stream_knn": {"exact_knn_stream_launch": [_ci, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _ci,
+                                               _ci, _ci, _ci, _vp, _vp, ctypes.c_float, _vp]},
 }
 
 # kernel launches through the wrappers, plain counts a run reads to show
 # that its main path went through the kernels (the two-phase rescan counts
-# its selecting launches, k <= 128, apart from its emit-all ones)
+# its selecting launches, k <= 128, apart from its emit-all ones).  The four
+# tensor-core kernels also count their launches at the bf16 tiers of a
+# float32 stream under "<kernel>:split3" and "<kernel>:default" (the kernel's
+# own key counts every launch).
+TIERED = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_emit")
 launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0,
             "twophase_rescan_all": 0, "probe_topk": 0, "exact_knn_rescan": 0,
-            "exact_knn_stream": 0}
+            "exact_knn_stream": 0,
+            **{f"{name}:{tier}": 0 for name in TIERED for tier in ("split3", "default")}}
 _libs: dict = {}
 
 
@@ -173,6 +189,13 @@ def _library(name: str):
 def launch_error(lib, what: str, err: int) -> RuntimeError:
     return RuntimeError(f"{what} kernel launch failed: "
                         + lib.error_string(err).decode())
+
+
+def count_launch(key: str, tier: str) -> None:
+    """One launch of kernel ``key`` at ``tier`` (:func:`stream_tier`)."""
+    launches[key] += 1
+    if tier != "highest":
+        launches[f"{key}:{tier}"] += 1
 
 
 def device_index(dev: torch.device) -> int:
@@ -261,6 +284,48 @@ def stream_dtype(dtype: torch.dtype, compute_dtype=None) -> torch.dtype:
     if compute_dtype is not None:
         return compute_dtype
     return dtype if dtype in _DTYPE_CODE else torch.float32
+
+
+def stream_tier(dtype: torch.dtype, matmul_precision: str) -> str:
+    """The tier the kernels compute for a corpus streamed at ``dtype``
+    (:func:`stream_dtype`): ``matmul_precision`` for float32, "highest" (no
+    tier: one pass at storage width, int8 in int32) for the other types, as
+    the JAX package decides it (``pallas_exact.py``'s ``f32_path``)."""
+    _check_precision(matmul_precision)
+    return matmul_precision if dtype == torch.float32 else "highest"
+
+
+def split_bf16(x: torch.Tensor):
+    """(hi, lo) bf16 with ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, each
+    rounded to nearest even (``.to(torch.bfloat16)``, as the JAX package's
+    ``astype`` and the kernels' ``cvt.rn.bf16x2.f32``); ``x - hi`` is exact
+    in float32.  The factors of :func:`dot_split3`."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def dot_split3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` ((m, d) x (n, d) -> (m, n) float32) at the "split3" tier,
+    the JAX package's ``_dot_split3``: ``hi*hi + hi*lo + lo*hi`` of the
+    :func:`split_bf16` factors, each product of two bf16 values exact in
+    float32 and summed in float32 (``lo*lo``, 2^-16 of a product, dropped).
+    Only the order of the sums differs from JAX's."""
+    (ah, al), (bh, bl) = split_bf16(a), split_bf16(b)
+    ah, al, bh, bl = ah.float(), al.float(), bh.float(), bl.float()
+    return (ah @ bh.T + ah @ bl.T) + al @ bh.T
+
+
+def dist_dot(q: torch.Tensor, x: torch.Tensor, tier: str) -> torch.Tensor:
+    """The distance cross-term ``q @ x.T`` (float32 factors) at ``tier``
+    (:func:`stream_tier`), the JAX package's ``_dist_dot``: IEEE float32
+    ("highest"), :func:`dot_split3` ("split3"), or one product of the factors
+    rounded to bf16, summed in float32 ("default")."""
+    if tier == "split3":
+        return dot_split3(q, x)
+    if tier == "default":
+        return q.to(torch.bfloat16).float() @ x.to(torch.bfloat16).float().T
+    return q @ x.T
 
 
 def compute_corpus(points: torch.Tensor, compute_dtype=None) -> torch.Tensor:
@@ -359,11 +424,12 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     rescan-merge kernel (``merge="rescan"``) or the streaming kernel
     (``stream=True``, which takes precedence over ``merge``).  Returns
     (ids (m, k) int32, squared distances (m, k) float32).
-    ``matmul_precision`` is validated; every tier computes what "highest"
-    computes: in all three kernels and the two-phase emit, on the tensor
-    cores, three TF32 passes with fp32 accumulation for a float32 stream
-    (which ranks as IEEE fp32 does), one pass at storage width for bf16
-    and f16 (queries rounded to it), int8 in int32 (see the kernel
+    ``matmul_precision`` is the tier of a float32 stream (see the module
+    docstring): on the tensor cores "highest" is three TF32 passes with
+    fp32 accumulation (which ranks as IEEE fp32 does), "split3" three bf16
+    passes, "default" one, in all three kernels and the two-phase emit;
+    bf16 and f16 streams multiply in one pass at storage width (queries
+    rounded to it) and int8 in int32, whatever the tier (see the kernel
     sources).  ``compute_dtype`` (torch.float32, bfloat16
     or float16) is the width the corpus streams at; see the module
     docstring for the norms each kernel takes.  The JAX kernels' TPU knobs
@@ -398,14 +464,15 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
         exclude = exclude.contiguous()
     if kernel == "stream":
         return stream_cuda(points, queries, k, exclude=exclude, scale=scale,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, matmul_precision=matmul_precision)
     if kernel == "rescan":
         pts, q, qn, pn, scale2 = _replace_worst_inputs(points, queries, scale, compute_dtype)
         return _split_launch("rescan_merge_knn", "exact_knn_rescan", pts, q, qn, pn, k,
-                             exclude, scale2)
+                             exclude, scale2, stream_tier(pts.dtype, matmul_precision))
     pts = compute_corpus(points, compute_dtype)
     q, qn, scale2 = _prepare(pts, queries, scale)
-    return _split_launch("exact_knn", "exact_knn", pts, q, qn, None, k, exclude, scale2)
+    return _split_launch("exact_knn", "exact_knn", pts, q, qn, None, k, exclude, scale2,
+                         stream_tier(pts.dtype, matmul_precision))
 
 
 def _empty(k: int, dev):
@@ -413,12 +480,13 @@ def _empty(k: int, dev):
             torch.empty((0, k), dtype=torch.float32, device=dev))
 
 
-def _split_launch(name: str, key: str, pts, q, qn, pn, k: int, exclude, scale2):
+def _split_launch(name: str, key: str, pts, q, qn, pn, k: int, exclude, scale2, tier: str):
     """Launch the corpus-split kernel of library ``name``: the rank kernel
     (``"exact_knn"``, ``pn`` None) or the rescan merge
     (``"rescan_merge_knn"``, which takes the point norms ``pn`` after
-    ``qn``); per (query block, corpus split) a running top-k, then a merge
-    of the splits' ascending lists."""
+    ``qn``), at precision ``tier`` (:func:`stream_tier`); per (query block,
+    corpus split) a running top-k, then a merge of the splits' ascending
+    lists."""
     n, d = pts.shape
     m = q.shape[0]
     dev = pts.device
@@ -434,8 +502,8 @@ def _split_launch(name: str, key: str, pts, q, qn, pn, k: int, exclude, scale2):
     part_i = torch.empty((m, s, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((m, k), dtype=itype, device=dev)
-    head = (device_index(dev), pts.data_ptr(), _DTYPE_CODE[pts.dtype], q.data_ptr(),
-            exclude.data_ptr() if exclude is not None else None, qn.data_ptr())
+    head = (device_index(dev), pts.data_ptr(), _DTYPE_CODE[pts.dtype], TIER_CODE[tier],
+            q.data_ptr(), exclude.data_ptr() if exclude is not None else None, qn.data_ptr())
     tail = (n, d, m, k, s, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), scale2, torch.cuda.current_stream(dev).cuda_stream)
     if pn is None:
@@ -444,7 +512,7 @@ def _split_launch(name: str, key: str, pts, q, qn, pn, k: int, exclude, scale2):
         err = lib.exact_knn_rescan_launch(*head, pn.data_ptr(), *tail)
     if err != 0:
         raise launch_error(lib, key, err)
-    launches[key] += 1
+    count_launch(key, tier)
     return out_i, out_d
 
 
@@ -457,13 +525,16 @@ def _replace_worst_inputs(points, queries, scale, compute_dtype):
     return pts, q, qn, point_norms(points), scale2
 
 
-def stream_cuda(points, queries, k: int, *, exclude=None, scale=None, compute_dtype=None):
+def stream_cuda(points, queries, k: int, *, exclude=None, scale=None, compute_dtype=None,
+                matmul_precision: str = "highest"):
     """The streaming kernel (``csrc/stream_knn.cu``) on checked CUDA
     inputs: one block per 8 queries walks the whole corpus through a ring
-    of shared-memory tiles and multiplies on the tensor cores (float32 in
-    three TF32 passes, see :func:`split_tf32`; bf16, f16 and int8 at
-    storage width)."""
+    of shared-memory tiles and multiplies on the tensor cores (float32 at
+    "highest" in three TF32 passes, see :func:`split_tf32`, at "split3" and
+    "default" in three or one bf16 passes; bf16, f16 and int8 at storage
+    width)."""
     pts, q, qn, pn, scale2 = _replace_worst_inputs(points, queries, scale, compute_dtype)
+    tier = stream_tier(pts.dtype, matmul_precision)
     n, d = pts.shape
     m = q.shape[0]
     dev = pts.device
@@ -476,8 +547,9 @@ def stream_cuda(points, queries, k: int, *, exclude=None, scale=None, compute_dt
     out_i = torch.empty((m, k), dtype=itype, device=dev)
     lib = _library("stream_knn")
     err = lib.exact_knn_stream_launch(
-        device_index(dev), pts.data_ptr(), _DTYPE_CODE[pts.dtype], q.data_ptr(),
-        exclude.data_ptr() if exclude is not None else None, qn.data_ptr(), pn.data_ptr(),
+        device_index(dev), pts.data_ptr(), _DTYPE_CODE[pts.dtype], TIER_CODE[tier],
+        q.data_ptr(), exclude.data_ptr() if exclude is not None else None, qn.data_ptr(),
+        pn.data_ptr(),
         n, d, m, k, out_d.data_ptr(), out_i.data_ptr(), scale2,
         torch.cuda.current_stream(dev).cuda_stream)
     if err == _CUDA_INVALID_VALUE:
@@ -486,7 +558,7 @@ def stream_cuda(points, queries, k: int, *, exclude=None, scale=None, compute_dt
                          f"value with k = {k} does not fit")
     if err != 0:
         raise launch_error(lib, "exact_knn_stream", err)
-    launches["exact_knn_stream"] += 1
+    count_launch("exact_knn_stream", tier)
     return out_i, out_d
 
 
@@ -494,12 +566,14 @@ def exact_knn_plain(points: torch.Tensor, queries: torch.Tensor, k: int, *,
                     exclude: torch.Tensor | None = None, scale=None,
                     matmul_precision: str = "highest", compute_dtype=None):
     """Plain PyTorch version of the rank kernel, same contract and score
-    domain: a float32 matmul per query block, a stable sort (ties to the
-    smaller id), |q|^2 added to the winners; the norms are those of the
-    corpus as streamed (rounded to ``compute_dtype``).  Takes any k (a check
-    may ask for k + 1 to see the boundary)."""
+    domain: a float32 matmul per query block at the tier (:func:`dist_dot`),
+    a stable sort (ties to the smaller id), |q|^2 added to the winners; the
+    norms are those of the corpus as streamed (rounded to
+    ``compute_dtype``).  Takes any k (a check may ask for k + 1 to see the
+    boundary)."""
     _check(points, queries, k, exclude, matmul_precision)
     points = compute_corpus(points, compute_dtype)
+    tier = stream_tier(points.dtype, matmul_precision)
     n = points.shape[0]
     m = queries.shape[0]
     q, qn, scale2 = _prepare(points, queries, scale)
@@ -510,7 +584,7 @@ def exact_knn_plain(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     block = max(1, min(m, (64 << 20) // n))  # (block, n) score rows ~256 MB
     vals, ids = [], []
     for lo in range(0, m, block):
-        s = pn[None, :] - 2.0 * (q[lo: lo + block] @ x.T)
+        s = pn[None, :] - 2.0 * dist_dot(q[lo: lo + block], x, tier)
         if exclude is not None:
             e = exclude[lo: lo + block].long()
             rows = torch.nonzero((e >= 0) & (e < n)).squeeze(1)
@@ -536,15 +610,17 @@ def _replace_worst_plain(points, queries, k, *, exclude, scale, matmul_precision
     """The rescan-merge (``stream=False``) or streaming kernel's algorithm in
     plain PyTorch, the TPU kernels' own loop: per ``tile``-row corpus tile
     the distances (``(qn + pn) - 2 q.x``, or ``qn - s`` with ``s = 2 q.x -
-    pn`` for the stream), a skip test against each query's running worst,
-    then at most k rounds in which the tile's smallest (distance, id)
-    replaces the worst running slot (ties to the smallest slot) while it
-    beats it; at the end the unsorted running k in ascending order."""
+    pn`` for the stream; ``q.x`` at the tier, :func:`dist_dot`), a skip
+    test against each query's running worst, then at most k rounds in
+    which the tile's smallest (distance, id) replaces the worst running
+    slot (ties to the smallest slot) while it beats it; at the end the
+    unsorted running k in ascending order."""
     _check(points, queries, k, exclude, matmul_precision)
     if tile < 1:
         raise ValueError(f"tile must be >= 1, got {tile}")
     pts, q, qn, pn, scale2 = _replace_worst_inputs(points, queries, scale, compute_dtype)
     q = _round_queries(pts, q)
+    tier = stream_tier(pts.dtype, matmul_precision)
     n = pts.shape[0]
     m = q.shape[0]
     dev = pts.device
@@ -563,7 +639,7 @@ def _replace_worst_plain(points, queries, k, *, exclude, scale, matmul_precision
         for t0 in range(0, n, tile):
             x = pts[t0: t0 + tile].float()
             gids = torch.arange(t0, t0 + x.shape[0], device=dev)
-            dots = qb @ x.T
+            dots = dist_dot(qb, x, tier)
             pnt = pn[t0: t0 + tile]
             masked = (gids[None, :] == ex[lo:hi, None]) if ex is not None else None
             worst = rd.max(1).values

@@ -31,8 +31,9 @@ import math
 import torch
 
 from ..config import itype
-from .exact import (_DTYPE_CODE, KMAX, _check, _prepare, device_index, gather_geometry,
-                    launch_error, launches, place, splits, tile_geometry, _library)
+from .exact import (_DTYPE_CODE, KMAX, TIER_CODE, _check, _prepare, count_launch, device_index,
+                    dist_dot, gather_geometry, launch_error, launches, place, splits,
+                    stream_tier, tile_geometry, _library)
 
 # At and above this corpus size exact serving takes the two-phase engine:
 # the smallest n from which two-phase / rank <= 1 in float32 there and at
@@ -113,7 +114,8 @@ def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
     """Phase 1: per query and ``seg``-row segment, the least score
     ``|x|^2 - 2 q.x`` and its id, as (minima (m, ceil(n/seg)) float32, ids
     int32); rows past n and the excluded id score +inf, ties go to the
-    smaller id.  The emit kernel on a CUDA tensor,
+    smaller id; ``q.x`` at ``matmul_precision``'s tier for a float32 corpus
+    (:func:`~.exact.stream_tier`).  The emit kernel on a CUDA tensor,
     :func:`segment_minima_plain` on a CPU tensor."""
     _check(points, queries, 1, exclude, matmul_precision)
     _check_seg(seg)
@@ -139,17 +141,19 @@ def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
     if points.data_ptr() % 16:
         points = points.clone()
     lib = _library("twophase_knn")
+    tier = stream_tier(points.dtype, matmul_precision)
     # the rank kernel's grid; the kernel rounds a split up to whole segments
     s = splits(m, n, torch.cuda.get_device_properties(dev).multi_processor_count,
                *tile_geometry("twophase_knn"))
     err = lib.twophase_emit_launch(
-        device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
+        device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], TIER_CODE[tier],
+        q.data_ptr(),
         exclude.data_ptr() if exclude is not None else None, n, d, m, seg, n_seg, s,
         seg_d.data_ptr(), seg_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise launch_error(lib, "twophase_emit", err)
-    launches["twophase_emit"] += 1
+    count_launch("twophase_emit", tier)
     return seg_d, seg_i
 
 
@@ -157,10 +161,12 @@ def segment_minima_plain(points: torch.Tensor, queries: torch.Tensor, seg: int, 
                          exclude: torch.Tensor | None = None, scale=None,
                          matmul_precision: str = "highest"):
     """Plain PyTorch version of the emit kernel: per query block the score
-    rows ``pn - 2 q @ x.T``, padded to whole segments with +inf, then the
-    minimum and its first index per segment."""
+    rows ``pn - 2 q @ x.T`` (the product at the tier, :func:`~.exact.dist_dot`),
+    padded to whole segments with +inf, then the minimum and its first
+    index per segment."""
     _check(points, queries, 1, exclude, matmul_precision)
     _check_seg(seg)
+    tier = stream_tier(points.dtype, matmul_precision)
     n = points.shape[0]
     m = queries.shape[0]
     q, _, _ = _prepare(points, queries, scale)
@@ -175,7 +181,7 @@ def segment_minima_plain(points: torch.Tensor, queries: torch.Tensor, seg: int, 
     for lo in range(0, m, block):
         s = torch.full((min(block, m - lo), n_seg * seg), float("inf"),
                        device=x.device)
-        s[:, :n] = pn[None, :] - 2.0 * (q[lo: lo + block] @ x.T)
+        s[:, :n] = pn[None, :] - 2.0 * dist_dot(q[lo: lo + block], x, tier)
         if exclude is not None:
             e = exclude[lo: lo + block].long()
             rows = torch.nonzero((e >= 0) & (e < n)).squeeze(1)

@@ -44,11 +44,23 @@ Phases, one line each, and a non-zero exit on the first failure:
    oracle at the serving shape (recall@10 up to ties 1.0 in f32); all
    four: their times beside the library call's (f32 and bf16), the bound
    and their three TF32 passes' tensor-core time, and their effective L2
-   read rates;
+   read rates.  Then the ``matmul_precision`` tiers of a float32 stream
+   (phase ``precision``): the JAX package's TPU-smoke gate (n = 20,000 x
+   128, m = 1000, k = 10 from ``default_rng(0)``: recall@10 against the
+   float64 oracle >= 1.0 / 1.0 / 0.985 at "highest" / "split3" /
+   "default" for the rank kernel, the rescan merge, the stream and
+   ``exact_knn_twophase``); at the serving shape each of the four
+   tensor-core kernels at split3 and default against its plain version at
+   that tier, recall@10 up to ties (split3 1.0), default's ids moved from
+   highest's, every tier's time in one call ("highest" beside the kernel
+   table's) with its bound and a library yardstick of bf16 matmuls; one
+   graph chunk at each tier;
 3. the main path at the SIFT-1M shape (n = 1M x d = 128 float32 from
    ``--seed``, 1000 queries, k = 10, tries = 10), each path with the launch
    counts set to 0 just before it and read just after: ``build`` (exact kNN
-   graph through the rank kernel) -> ``search``; the two-phase engine
+   graph through the rank kernel) -> ``search``; ``build`` with
+   ``graph_precision`` split3 and default (seconds, edges shared with the
+   "highest" graph, launches at the tier); the two-phase engine
    (``exact_knn_twophase`` at k = 10 and 64, ``exact_search`` at k = 256,
    ``Server`` with ``twophase_min_n`` = n in f32 and bf16); ``Server``
    auto (the engine ``TWOPHASE_MIN_N`` picks at n); the two-phase servers with
@@ -56,7 +68,11 @@ Phases, one line each, and a non-zero exit on the first failure:
    ``no_twophase=True``, ``merge="rescan"`` and ``stream=True`` pinned, each
    in f32 and with ``compute_dtype=torch.bfloat16`` (recall gated at 1.0 up
    to ties in f32, ids equal to the rank kernel's outside near-ties,
-   ``describe()`` and the launch counts naming the pinned kernel).  Results
+   ``describe()`` and the launch counts naming the pinned kernel);
+   ``Server`` auto with ``matmul_precision`` highest, split3 and default
+   (QPS in one call), the two-phase server and the pinned rescan merge
+   and stream at split3 and default (the launch counts naming the tier's
+   kernel on every path).  Results
    are checked against a float64 oracle on the card, and the card's hash
    search against the same search on the CPU; then the sharded layer
    (``parallel/``, phase ``sharded``) on a one-rank NCCL group at the same
@@ -229,6 +245,17 @@ PEAK_BYTES = 3.35e12
 # profiler rows with device time that are no kernel: the tracer's mark for
 # a full launch queue (the host waiting to launch)
 NOT_KERNELS = ("Command Buffer Full",)
+# the precision tiers of a float32 stream and the JAX package's TPU-smoke
+# recall@10 floors for them (harness/tpu_smoke.py:72-84), at its shape
+TIER_FLOORS = {"highest": 1.0, "split3": 1.0, "default": 0.985}
+TIER_GATE_SHAPE = (20_000, 128, 1000, 10)  # n, d, m, k
+BF16_PASSES = {"split3": 3, "default": 1}  # bf16 MMA passes a tier makes
+# the tensor-core kernels, which take a tier
+TIER_KERNELS = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_emit")
+# their "highest" ms at the serving shape in PERF.md's kernel table, taken
+# before the tiers existed: the tier work must leave that path in place
+HIGHEST_REFERENCE_MS = {"exact_knn": 8.735, "twophase_emit": 9.511,
+                        "exact_knn_rescan": 8.701, "exact_knn_stream": 15.606}
 
 
 def phase(name: str, msg: str) -> None:
@@ -251,13 +278,15 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def check_case(label, points, queries, k, *, exclude=None, scale=None,
-               rtol=1e-5, atol=1e-4, kernel="rank", compute_dtype=None) -> float:
-    """A kernel of the rank family against its plain version."""
+               rtol=1e-5, atol=1e-4, kernel="rank", compute_dtype=None,
+               matmul_precision="highest") -> float:
+    """A kernel of the rank family against its plain version (at the same
+    precision tier)."""
     kw, plain, _ = VARIANTS[kernel]
     ia, da = ex.exact_knn(points, queries, k, exclude=exclude, scale=scale,
-                          compute_dtype=compute_dtype, **kw)
+                          compute_dtype=compute_dtype, matmul_precision=matmul_precision, **kw)
     ib, db = plain(points, queries, k + 1, exclude=exclude, scale=scale,
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype, matmul_precision=matmul_precision)
     fence()
     if kernel != "rank":
         label = f"{kernel} {label}"
@@ -353,13 +382,26 @@ def check_tile_layout(dev) -> None:
                         "bf16: minima and ids equal to the plain version's (max_abs_err 0)")
 
 
-def near_tie_ok(points, q, ids_a, ids_b, rtol=1e-5) -> bool:
+def near_tie_ok(points, q, ids_a, ids_b, rtol=1e-5, tier="highest") -> bool:
     """Rows (r, id_a, id_b) of a kernel/plain id disagreement are allowed
-    when both ids lie at float64 squared distances within ``rtol``."""
+    when both ids lie at float64 squared distances within ``rtol``; at a
+    bf16 tier, distances |x|^2 + |q|^2 - 2 q.x with q.x summed in float64
+    from the tier's bf16 factors (what the kernel and its plain version
+    both round to float32)."""
     x = points.double()
     qd = q.double()
-    da = (x[ids_a[:, 1].long()] - qd[ids_a[:, 0]]).pow(2).sum(-1)
-    db = (x[ids_b.long()] - qd[ids_a[:, 0]]).pow(2).sum(-1)
+    xa, xb, qr = x[ids_a[:, 1].long()], x[ids_b.long()], qd[ids_a[:, 0]]
+    if tier == "highest":
+        da = (xa - qr).pow(2).sum(-1)
+        db = (xb - qr).pow(2).sum(-1)
+    else:
+        def dist(xr):
+            (qh, ql), (xh, xl) = ex.split_bf16(qr), ex.split_bf16(xr)
+            qh, ql, xh, xl = qh.double(), ql.double(), xh.double(), xl.double()
+            dot = qh * xh if tier == "default" else qh * xh + qh * xl + ql * xh
+            return (xr * xr).sum(-1) + (qr * qr).sum(-1) - 2.0 * dot.sum(-1)
+
+        da, db = dist(xa), dist(xb)
     return bool(((da - db).abs() <= rtol * db.abs()).all())
 
 
@@ -372,12 +414,15 @@ def kernel_queries(points, queries, scale):
     return q
 
 
-def check_emit(label, points, queries, seg, *, exclude=None, scale=None) -> float:
-    """The emit kernel against its plain version: minima at rtol 1e-5 /
-    atol 1e-4 (both widen to fp32; only the summation order differs),
-    argmin ids equal outside near-ties."""
-    va, ia = tp.segment_minima(points, queries, seg, exclude=exclude, scale=scale)
-    vb, ib = tp.segment_minima_plain(points, queries, seg, exclude=exclude, scale=scale)
+def check_emit(label, points, queries, seg, *, exclude=None, scale=None,
+               matmul_precision="highest") -> float:
+    """The emit kernel against its plain version (at the same precision
+    tier): minima at rtol 1e-5 / atol 1e-4 (both widen to fp32; only the
+    summation order differs), argmin ids equal outside near-ties."""
+    va, ia = tp.segment_minima(points, queries, seg, exclude=exclude, scale=scale,
+                               matmul_precision=matmul_precision)
+    vb, ib = tp.segment_minima_plain(points, queries, seg, exclude=exclude, scale=scale,
+                                     matmul_precision=matmul_precision)
     fence()
     n_seg = -(-points.shape[0] // seg)
     if va.shape != (queries.shape[0], n_seg) or ia.dtype != torch.int32:
@@ -392,7 +437,8 @@ def check_emit(label, points, queries, seg, *, exclude=None, scale=None) -> floa
     if bad.numel():
         pairs = torch.stack([bad[:, 0], ia[bad[:, 0], bad[:, 1]]], 1)
         if not near_tie_ok(points.float(), kernel_queries(points, queries, scale), pairs,
-                           ib[bad[:, 0], bad[:, 1]]):
+                           ib[bad[:, 0], bad[:, 1]],
+                           tier=ex.stream_tier(points.dtype, matmul_precision)):
             raise AssertionError(f"{label}: argmin ids differ outside near-ties")
     err = (va[fin] - vb[fin]).abs().max().item() if fin.any() else 0.0
     phase("kernel", f"emit {label}: ok (max_abs_err {err:.3g}, near-tie "
@@ -626,6 +672,190 @@ def check_search_on_cpu(index, points, queries, ids, dists) -> tuple[int, int]:
     cpu_index = ann.ANNIndex.from_numpy(index.to_numpy_dict(), device="cpu")
     c_ids, c_d = ann.search(cpu_index, points.cpu(), queries.cpu())
     return compare_with_cpu("hash search", index, queries, ids, dists, c_ids, c_d)
+
+
+def tier_gate(smi) -> None:
+    """The JAX TPU smoke's exact-kernel gate (``harness/tpu_smoke.py:72-84``)
+    on the card: n = 20,000 x 128 float32, m = 1000, k = 10 drawn from
+    ``default_rng(0)``, recall@10 against the float64 oracle at each tier's
+    floor (:data:`TIER_FLOORS`), for the rank kernel, the rescan merge, the
+    stream and ``exact_knn_twophase`` (emit, then the rescan)."""
+    n, d, m, k = TIER_GATE_SHAPE
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    Y = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).cuda()
+    true_ids = oracle64(X.double(), Y.double(), k)[0].cpu().numpy()
+    calls = {kern: (lambda tier, kw=VARIANTS[kern][0]:
+                    ex.exact_knn(X, Y, k, matmul_precision=tier, **kw)) for kern in VARIANTS}
+    calls["exact_knn_twophase"] = lambda tier: tp.exact_knn_twophase(X, Y, k,
+                                                                     matmul_precision=tier)
+    failed = []
+    for name, fn in calls.items():
+        recs = {tier: recall_at_k(true_ids, fn(tier)[0].cpu().numpy(), k) for tier in TIER_FLOORS}
+        failed += [f"{name} {tier} {r}" for tier, r in recs.items() if r < TIER_FLOORS[tier]]
+        phase("precision", f"gate n={n} d={d} m={m} k={k} {name}: recall@{k} vs f64 oracle "
+                           + ", ".join(f"{t} {r:.5f} (floor {TIER_FLOORS[t]})"
+                                       for t, r in recs.items()) + f"; card [{smi}]")
+    if failed:
+        raise AssertionError(f"tier gate below its floor: {failed}")
+
+
+def tier_kernels(X, Y, X64, Y64, true_s, seg, smi) -> dict:
+    """The four tensor-core kernels at the serving shape (1M x 128 float32,
+    m = 1000, k = 10; emit at ``seg``) at "split3" and "default": each
+    against its plain version at that tier (ids outside near-ties,
+    max_abs_err), recall@10 up to ties against the float64 oracle (split3
+    gated at 1.0; emit through ``exact_knn_twophase``), "default"'s ids (emit:
+    segment argmins) differing from "highest"'s somewhere (the bf16 path
+    ran); CUDA-event ms of every tier in this call, "highest" beside
+    :data:`HIGHEST_REFERENCE_MS`; each tier's bound and library yardstick
+    (the corpus's bf16 halves made once, as a server would keep them; the
+    queries' split in the call).  Returns {kernel: {field: value}} for the
+    kernels line."""
+    bf16 = torch.bfloat16
+    k = 10
+    n_seg = -(-N // seg)
+    calls = {VARIANTS[kern][2]: (lambda tier, kw=VARIANTS[kern][0]:
+                                 ex.exact_knn(X, Y, k, matmul_precision=tier, **kw))
+             for kern in VARIANTS}
+    calls["twophase_emit"] = lambda tier: tp.segment_minima(X, Y, seg, matmul_precision=tier)
+    out = {name: {} for name in TIER_KERNELS}
+    for tier in BF16_PASSES:
+        for kern in VARIANTS:
+            out[VARIANTS[kern][2]][f"max_abs_err_{tier}"] = check_case(
+                f"{tier} main shape n={N} m={M} k={k}", X, Y, k, kernel=kern,
+                matmul_precision=tier)
+        out["twophase_emit"][f"max_abs_err_{tier}"] = check_emit(
+            f"{tier} main shape n={N} m={M} seg={seg}", X, Y, seg, matmul_precision=tier)
+        for name in TIER_KERNELS:
+            if name == "twophase_emit":
+                ids = tp.exact_knn_twophase(X, Y, k, matmul_precision=tier)[0]
+                moved = not torch.equal(calls[name](tier)[1], calls[name]("highest")[1])
+            else:
+                ids = calls[name](tier)[0]
+                moved = not torch.equal(ids, calls[name]("highest")[0])
+            rec, tie = recall_up_to_ties(X64, Y64, ids, true_s, k)
+            phase("precision", f"{name} {tier} n={N} m={M} k={k} vs f64 oracle: recall@{k} "
+                               f"{rec:.4f} (up to ties {tie:.4f}); ids moved from highest's: "
+                               f"{moved}")
+            if tier == "split3" and tie != 1.0:
+                raise AssertionError(f"{name} split3 recall up to ties {tie}, not 1.0")
+            if tier == "default" and not moved:
+                raise AssertionError(f"{name} default: ids equal highest's everywhere; "
+                                     "the bf16 path did not show")
+    # times: every tier of a kernel in turn, then the library's yardsticks
+    ms = {name: {tier: cuda_ms(lambda: fn(tier), reps=10) for tier in TIER_FLOORS}
+          for name, fn in calls.items()}
+    Xb = X.to(bf16)
+    Xh, Xl = ex.split_bf16(X)
+
+    def lib_scores(tier):
+        pn = (X * X).sum(-1)
+        if tier == "default":
+            return pn - 2.0 * (Y.to(bf16) @ Xb.T).float()
+        Yh, Yl = ex.split_bf16(Y)
+        return pn - 2.0 * (((Yh @ Xh.T).float() + (Yh @ Xl.T).float()) + (Yl @ Xh.T).float())
+
+    def seg_min(scores):
+        pad = torch.nn.functional.pad(scores, (0, n_seg * seg - N), value=float("inf"))
+        return pad.view(M, n_seg, seg).min(-1)
+
+    lib = {tier: (cuda_ms(lambda: torch.topk(lib_scores(tier), k, largest=False), reps=5),
+                  cuda_ms(lambda: seg_min(lib_scores(tier)), reps=5)) for tier in BF16_PASSES}
+    del Xb, Xh, Xl
+    for name in TIER_KERNELS:
+        nbytes = 4.0 * (N * 128 + M * 128) + (8.0 * M * n_seg if name == "twophase_emit"
+                                              else 8.0 * M * k)
+        if name in ("exact_knn_rescan", "exact_knn_stream"):
+            nbytes += 4.0 * (N + M)  # pn and |q|^2
+        t = ms[name]
+        ref = HIGHEST_REFERENCE_MS[name]
+        parts = []
+        for tier, passes in BF16_PASSES.items():
+            # operations bound it: 0.259 ms a pass against 0.153 ms of bytes
+            b_ms = 1e3 * max(passes * 2.0 * M * N * 128 / PEAK_BF16, nbytes / PEAK_BYTES)
+            lib_ms = lib[tier][1 if name == "twophase_emit" else 0]
+            out[name].update({f"ms_{tier}": t[tier], f"bound_ms_{tier}": b_ms,
+                              f"library_ms_{tier}": lib_ms})
+            parts.append(f"{tier} {t[tier]:.3f} ms ({t[tier] / t['highest']:.3f} x highest, "
+                         f"{t[tier] / b_ms:.2f} x bound {b_ms:.3f} ms, library "
+                         f"{lib_ms:.3f} ms)")
+        phase("precision", f"time {name} n={N} m={M}: highest {t['highest']:.3f} ms "
+                           f"({t['highest'] / ref:.3f} x the table's {ref:.3f} ms), "
+                           + ", ".join(parts) + f"; card [{smi}]")
+    return out
+
+
+def tier_graph_chunk(X, smi) -> None:
+    """One exact-graph chunk (65,536 corpus rows as queries, ``exclude`` =
+    own id, k = 10) at each tier beside its bound: what ``build``'s
+    ``graph_precision`` buys per chunk."""
+    excl = torch.arange(GRAPH_CHUNK, dtype=torch.int32, device=X.device)
+    parts = []
+    for tier in TIER_FLOORS:
+        ms = cuda_ms(lambda: ex.exact_knn(X, X[:GRAPH_CHUNK], 10, exclude=excl,
+                                          matmul_precision=tier), reps=1)
+        flop = 2.0 * GRAPH_CHUNK * N * 128
+        b_ms = 1e3 * (flop / PEAK_FP32 if tier == "highest"
+                      else BF16_PASSES[tier] * flop / PEAK_BF16)
+        parts.append(f"{tier} {ms:.3f} ms (bound {b_ms:.3f} ms)")
+    phase("precision", f"time graph chunk n={N} m={GRAPH_CHUNK} k=10: " + ", ".join(parts)
+                       + f"; card [{smi}]")
+
+
+def tier_graphs(X, k, tries, graph_hi, build_s, smi, read_counts) -> None:
+    """``build`` with ``graph_precision`` = split3 and default at 1M: build
+    seconds beside the "highest" build's, the share of graph edges also in
+    the "highest" graph (the JAX docstring's 0.99999 for split3 is a TPU
+    figure, reported, not a floor), and the launches at the tier."""
+    for tier in BF16_PASSES:
+        ex.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, graph, _ = ann.build(X, k, tries=tries, seed=0, graph_precision=tier)
+        fence()
+        secs = time.perf_counter() - t0
+        agree = float((graph[:, :, None] == graph_hi[:, None, :]).any(-1).float().mean())
+        counts = read_counts(f"build graph_precision={tier}", (f"exact_knn:{tier}",))
+        if counts[f"exact_knn:{tier}"] != counts["exact_knn"]:
+            raise AssertionError(f"build graph_precision={tier}: a graph chunk ran another tier")
+        phase("precision", f"build n={N} d=128 k={k} tries={tries} graph_precision={tier}: "
+                           f"{secs:.2f} s (highest {build_s:.2f} s), edges also in the highest "
+                           f"graph {agree:.6f}; card [{smi}]")
+        del graph
+
+
+def tier_server(X, k, srv_twophase, serve, results, read_counts, smi) -> None:
+    """``Server`` exact at 1M with ``matmul_precision`` per call: auto (the
+    engine ``TWOPHASE_MIN_N`` picks) at the three tiers, QPS in one call;
+    then split3 and default on the two-phase server (emit) and with the
+    rescan merge and the stream pinned.  Each serve's launch counts name
+    its tier's kernel (none at "highest"); recall@10 up to ties 1.0 at
+    split3 on every path."""
+    auto = ann.Server.build(X, k)
+    engine = auto.describe()["exact_engine"].removeprefix("cuda-")
+    keys = {"rank": "exact_knn", "twophase": "twophase_emit"}
+    paths = [("auto", auto, {}, keys[engine], TIER_FLOORS),
+             ("twophase_min_n=N", srv_twophase, {}, "twophase_emit", BF16_PASSES),
+             ("merge=rescan", srv_twophase, {"merge": "rescan"}, "exact_knn_rescan", BF16_PASSES),
+             ("stream", srv_twophase, {"stream": True}, "exact_knn_stream", BF16_PASSES)]
+    for name, srv, kw, key, tiers in paths:
+        qps = {}
+        for tier in tiers:
+            ex.reset_launch_counts()
+            label = f"exact f32 {name} matmul_precision={tier} (launches {key})"
+            serve(label, srv, name="precision", matmul_precision=tier, **kw)
+            counts = read_counts(f"Server {name} matmul_precision={tier}",
+                                 (key,) if tier == "highest" else (key, f"{key}:{tier}"))
+            stray = [c for c, v in counts.items() if ":" in c and v
+                     and c != f"{key}:{tier}"]
+            if stray:
+                raise AssertionError(f"Server {name} matmul_precision={tier} launched {stray}")
+            if tier == "split3" and results[label][2] != 1.0:
+                raise AssertionError(f"Server {name} split3 recall up to ties is not 1.0")
+            qps[tier] = results[label][0]
+        phase("precision", f"Server {name} n={N} m={M} k={k} QPS by tier: "
+                           + ", ".join(f"{t} {q:.1f}" for t, q in qps.items())
+                           + f"; card [{smi}]")
 
 
 def main() -> None:
@@ -998,6 +1228,10 @@ def main() -> None:
     for name, (b_ms, b_by) in bounds.items():
         phase("kernel", f"bound {name}: {b_ms:.3f} ms ({b_by}); measured "
                         f"{timing[name][0]:.3f} ms")
+    # the precision tiers of the four tensor-core kernels
+    tier_gate(smi)
+    tiers = tier_kernels(X, Y, X64, Y64, true_s, seg, smi)
+    tier_graph_chunk(X, smi)
     if args.kernel_only:
         phase("done", "kernel-only run: main path not driven, no result line")
         return
@@ -1056,6 +1290,7 @@ def main() -> None:
                     f"{CPU_CHECK_QUERIES} queries: {n_cmp} rows compared, ids equal "
                     f"outside near-ties ({n_tied} near-tie rows), distances rtol 1e-5")
     read_counts("build -> search", ("exact_knn",))
+    tier_graphs(X, k, tries, graph, build_s, smi, read_counts)
 
     # the sharded layer on one NCCL rank, held to the single-card calls
     multihost.initialize()
@@ -1131,6 +1366,7 @@ def main() -> None:
         raise AssertionError("f32 rank recall up to ties is not 1.0")
     read_counts("Server no_twophase", ("exact_knn",))
     merge_paths(servers["f32"], serve, results, read_counts, X, Y)
+    tier_server(X, k, servers["f32"], serve, results, read_counts, smi)
 
     # path 4: packed hash serving through the probe kernel, then updates
     srv_packed, Yc, packed_err, packed_timing, packed_bound = packed_serving(
@@ -1161,7 +1397,11 @@ def main() -> None:
         "launches": total[name], "max_abs_err": errs[name],
         "ms": timing[name][0], "plain_ms": timing[name][1],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": timing[name][2]} for name, (src, rep) in KERNELS.items()]}))
+        "library_ms": timing[name][2],
+        **{f"{field}_{tier}": tiers.get(name, {}).get(f"{field}_{tier}")
+           for field in ("ms", "bound_ms", "library_ms", "max_abs_err") for tier in BF16_PASSES},
+        **{f"launches_{tier}": total.get(f"{name}:{tier}") for tier in BF16_PASSES}}
+        for name, (src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -114,8 +114,16 @@ def test_exact_knn_wrapper_on_cpu_uses_plain(rng):
         ex.exact_knn(p, q.double(), 5)
     with pytest.raises(ValueError):
         ex.exact_knn(p.to(torch.int8), q, 5)  # int8 needs its scale
-    for prec in ("highest", "split3", "default"):
-        assert torch.equal(ex.exact_knn(p, q, 5, matmul_precision=prec)[0], a[0])
+    # the tiers: "highest" is the default; split3 ranks as it does outside
+    # near-ties; "default" is its own plain result (one bf16 pass)
+    assert torch.equal(ex.exact_knn(p, q, 5, matmul_precision="highest")[0], a[0])
+    s_ids, s_d = ex.exact_knn(p, q, 5, matmul_precision="split3")
+    _, ref_d = ex.exact_knn_plain(p, q, 6)
+    assert_match(s_ids, s_d, a[0], ref_d)
+    d_ids, d_d = ex.exact_knn(p, q, 5, matmul_precision="default")
+    b_ids, b_d = ex.exact_knn_plain(p, q, 5, matmul_precision="default")
+    assert torch.equal(d_ids, b_ids) and torch.equal(d_d, b_d)
+    assert ex.launches["exact_knn"] == before
 
 
 @pytest.mark.parametrize("dt", ["f32", "int8", "bf16"])
