@@ -15,6 +15,8 @@ blocks, blocked only to bound the candidate-gather transient.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -171,6 +173,7 @@ def build(
     graph_mode: str = "auto",
     graph_precision: str = "highest",
     device=None,
+    stage_times=None,
 ) -> tuple[ANNIndex, torch.Tensor, torch.Tensor]:
     """Build an index over ``points`` (n, d); returns (index, graph, dists).
 
@@ -179,7 +182,10 @@ def build(
     ``seed``.  ``device`` defaults to the points' device for a tensor and
     to the CUDA card otherwise (see :func:`config.default_device`).
     ``graph_mode`` "auto" resolves to "exact" for n <= 16M and k <= 128, as
-    in JAX.
+    in JAX.  ``stage_times``: a :class:`~..utils.profiling.StageTimes` that
+    records the stages "hash" (centre, transforms, codes), "tables" (the
+    per-table bucket sorts; inside "graph" for the hash graph) and "graph"
+    (the kNN graph), each fenced.
     """
     from ..data.preprocess import prepare_points
 
@@ -196,9 +202,16 @@ def build(
     d_short, _ = derive_dims(n, k, d)
     if d_short > 28:
         raise ValueError(f"d_short={d_short} too large (bucket table 2^{d_short})")
-    row_means, bases, codes, counts = hash_stage(
-        points, generator, d_short=d_short, tries=tries, rb=rots_before,
-        rlb=rot_len_before, ra=rots_after, rla=rot_len_after, dtype=dtype)
+
+    def stage(name):
+        return (contextlib.nullcontext([]) if stage_times is None
+                else stage_times.stage(name))
+
+    with stage("hash") as sink:
+        row_means, bases, codes, counts = hash_stage(
+            points, generator, d_short=d_short, tries=tries, rb=rots_before,
+            rlb=rot_len_before, ra=rots_after, rla=rot_len_after, dtype=dtype)
+        sink.append(codes)
     tmax = resolve_capacity(counts, capacity)
     n_per_probe = d_short + 1 if n_probes is None else n_probes
     block_rows = pick_block(n, n_per_probe * tmax, d, points.element_size(),
@@ -208,16 +221,23 @@ def build(
     if graph_mode not in ("exact", "hash"):
         raise ValueError(f"unknown graph_mode {graph_mode!r}")
     if graph_mode == "exact":
-        tables = build_tables(codes, 1 << d_short, tmax, n)
-        graph, gdists = exact_graph_chunked(points, k,
-                                            matmul_precision=graph_precision)
-        graph = graph.to(itype)
-        gdists = gdists.to(dtype)
+        with stage("tables") as sink:
+            tables = build_tables(codes, 1 << d_short, tmax, n)
+            sink.append(tables)
+        with stage("graph") as sink:
+            graph, gdists = exact_graph_chunked(points, k,
+                                                matmul_precision=graph_precision)
+            graph = graph.to(itype)
+            gdists = gdists.to(dtype)
+            sink.append(graph)
     else:
-        tables, graph, gdists = graph_stage(
-            points, codes, counts, k=k, d_short=d_short, tmax=tmax,
-            block_rows=block_rows, n_probes=n_probes, row_means=row_means,
-            bases=bases)
+        # the hash graph builds its tables inside the graph stage
+        with stage("graph") as sink:
+            tables, graph, gdists = graph_stage(
+                points, codes, counts, k=k, d_short=d_short, tmax=tmax,
+                block_rows=block_rows, n_probes=n_probes, row_means=row_means,
+                bases=bases)
+            sink.append(graph)
     del codes
     index = ANNIndex(
         row_means=row_means, bases=bases, tables=tables, counts=counts,

@@ -23,6 +23,7 @@ The JAX package's lane-padded corpus is TPU layout and is not ported.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -99,7 +100,9 @@ class Server:
         :meth:`ANNIndex.packed`).  ``twophase_min_n`` and
         ``fused_min_batch`` override the routing defaults.  ``device``
         defaults to a tensor's own device and to the CUDA card otherwise
-        (see :func:`config.default_device`)."""
+        (see :func:`config.default_device`).  A ``stage_times`` build
+        keyword (:class:`~..utils.profiling.StageTimes`) also records the
+        packed view's stage, "pack"."""
         if layout not in ("table", "packed"):
             raise ValueError(f"unknown layout {layout!r}")
         points = torch.as_tensor(points, device=default_device(points, device))
@@ -148,7 +151,10 @@ class Server:
             srv.index, _, _ = build(points, k, metric=metric, store_points=True,
                                     **build_kw)
             if layout == "packed":
-                srv.packed = srv.index.packed(window=window, dtype=packed_dtype)
+                st = build_kw.get("stage_times")
+                with (contextlib.nullcontext([]) if st is None else st.stage("pack")) as sink:
+                    srv.packed = srv.index.packed(window=window, dtype=packed_dtype)
+                    sink.append(srv.packed.point_rows)
         return srv
 
     def _route_twophase(self, k: int, no_twophase: bool = False,

@@ -14,7 +14,9 @@ the ``dead`` tombstone mask.  Its updates (``add_points``,
 byte, including the ``<key>_dtype`` tags that carry half-precision floats
 as raw uint16 words.  :meth:`ANNIndex.from_numpy` is the weight carrier: it
 takes those arrays as numpy (an ``np.load`` of a JAX-saved index, or the
-JAX index's leaves) and returns the port's index on a given device.
+JAX index's leaves) and returns the port's index on the CUDA card, or on
+the device the caller names (``device="cpu"`` for the CPU), as the JAX
+loaders land their arrays on the accelerator.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .config import itype
+from .config import default_device, itype
 
 _HALF = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 _TORCH_NAME = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
@@ -420,10 +422,10 @@ class ANNIndex:
     def from_numpy(cls, arrays, device=None) -> "ANNIndex":
         """Build the port's index from the JAX index's arrays (the npz keys:
         tables, counts, graph, meta, metric, row_means, bases, optional
-        points and dead, with ``<key>_dtype`` tags for half floats).  A data
-        carrier: the tensors land on ``device``, and with ``device=None``
-        they stay on the CPU where numpy made them; the caller places the
-        index (``device="cuda"`` for the card)."""
+        points and dead, with ``<key>_dtype`` tags for half floats) on
+        ``device``: the CUDA card by default, raising without one unless
+        ``device="cpu"`` is given (:func:`config.default_device`)."""
+        device = default_device(None, device)
         n, k, d, d_short, tries, tmax = (int(v) for v in arrays["meta"])
         return cls(
             row_means=_unstash(arrays, "row_means", device),
@@ -439,8 +441,8 @@ class ANNIndex:
 
     @classmethod
     def load(cls, path: str, device=None) -> "ANNIndex":
-        """Read an npz index (see :meth:`from_numpy`: ``device=None`` leaves
-        it on the CPU)."""
+        """Read an npz index onto ``device`` (see :meth:`from_numpy`: the
+        card by default)."""
         with np.load(path) as z:
             return cls.from_numpy(z, device)
 
@@ -556,9 +558,11 @@ class PackedIndex:
     @classmethod
     def from_numpy(cls, arrays, device=None) -> "PackedIndex":
         """The port's view from a JAX packed view's arrays (the npz keys, or
-        the same built from its leaves).  The TPU layout's pad lanes (rows
-        and a staged corpus wider than d) are sliced off.  A data carrier:
-        tensors land on ``device``, the CPU when it is None."""
+        the same built from its leaves) on ``device``, placed as
+        :meth:`ANNIndex.from_numpy` places an index (the card by default).
+        The TPU layout's pad lanes (rows and a staged corpus wider than d)
+        are sliced off."""
+        device = default_device(None, device)
         meta = [int(v) for v in arrays["meta"]]
         if len(meta) == 8:  # views saved before n_live existed
             meta.append(0)
@@ -588,6 +592,6 @@ class PackedIndex:
 
     @classmethod
     def load(cls, path: str, device=None) -> "PackedIndex":
-        """Read an npz view (see :meth:`from_numpy`)."""
+        """Read an npz view onto ``device`` (see :meth:`from_numpy`)."""
         with np.load(path) as z:
             return cls.from_numpy(z, device)

@@ -5,9 +5,10 @@ PyTorch returns before the card finishes, so a host clock read without a
 fence measures the enqueue.  :func:`fence` is ``torch.cuda.synchronize()``
 on CUDA and does nothing on the CPU, where every op has finished when it
 returns.  :class:`StageTimes` accumulates fenced wall-clock per named
-stage; :func:`trace` records a ``torch.profiler`` trace (Chrome format)
-around a region and :func:`annotate` names a range inside it, as the
-``add_points:`` ranges of ``index.py`` do.
+stage and, when asked, the card's peak memory in each; :func:`trace`
+records a ``torch.profiler`` trace (Chrome format) around a region and
+:func:`annotate` names a range inside it, as the ``add_points:`` ranges of
+``index.py`` do.
 """
 
 from __future__ import annotations
@@ -23,13 +24,17 @@ import torch
 from torch.profiler import record_function
 
 
+def _card_in_use() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_initialized()
+
+
 def fence(device=None) -> None:
     """Wait for all queued work on ``device`` (a CUDA device, a tensor, or
     None for the current CUDA device); no-op on the CPU."""
     if isinstance(device, torch.Tensor):
         device = device.device
     if device is None:
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
+        if _card_in_use():
             torch.cuda.synchronize()
         return
     device = torch.device(device)
@@ -39,30 +44,47 @@ def fence(device=None) -> None:
 
 @dataclass
 class StageTimes:
-    """Accumulated wall-clock per named stage."""
+    """Accumulated wall-clock per named stage.  With ``memory=True`` and a
+    card in use, each stage also resets the card's peak-memory counter
+    (``torch.cuda.reset_peak_memory_stats``) when it starts and keeps
+    ``torch.cuda.max_memory_allocated()`` when it ends: ``peaks[name]``,
+    bytes, the largest over the stage's calls.  The counter is the
+    process's: a stage resets it for every other reader too."""
 
     totals: dict = field(default_factory=lambda: defaultdict(float))
     counts: dict = field(default_factory=lambda: defaultdict(int))
+    memory: bool = False
+    peaks: dict = field(default_factory=lambda: defaultdict(int))
 
     @contextlib.contextmanager
     def stage(self, name: str, out=None):
         """Time a stage; append the stage's output to the yielded list to
-        fence the card before the clock stops."""
+        fence the card before the clock stops (with ``memory``, the card
+        is always fenced)."""
         sink: list = []
+        track = self.memory and _card_in_use()
+        if track:
+            fence()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
             yield sink
         finally:
-            if sink:
+            if sink or track:
                 fence()
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
+            if track:
+                self.peaks[name] = max(self.peaks[name], torch.cuda.max_memory_allocated())
 
     def report(self) -> str:
         lines = []
         for name in sorted(self.totals, key=self.totals.get, reverse=True):
             t, c = self.totals[name], self.counts[name]
-            lines.append(f"{name:28s} {t*1e3:10.2f} ms total  {t/c*1e3:9.2f} ms/call  x{c}")
+            peak = (f"  peak {self.peaks[name] / 2**30:8.2f} GiB" if name in self.peaks
+                    else "")
+            lines.append(f"{name:28s} {t*1e3:10.2f} ms total  {t/c*1e3:9.2f} ms/call  "
+                         f"x{c}{peak}")
         return "\n".join(lines)
 
 
@@ -77,7 +99,7 @@ def trace(logdir: str | None = None):
 
     logdir = logdir or os.path.join(tempfile.gettempdir(), "ann_torch_trace")
     acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    if _card_in_use():
         acts.append(ProfilerActivity.CUDA)
     prof = None
     try:

@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--kernel-only]
+    python3 chip_smoke.py [--seed 0] [--kernel-only | --deep10m-only]
+                          [--deep10m-graph-precision default|split3|highest]
 
 Phases, one line each, and a non-zero exit on the first failure:
 
@@ -131,7 +132,32 @@ Phases, one line each, and a non-zero exit on the first failure:
 6. the rank/two-phase crossover on prefixes of the corpus (250k, 500k,
    1M) and on 2M and 4M corpora drawn on the card (f32 and bf16), with the
    threshold the ``TWOPHASE_MIN_N`` rule takes from it, and
-   ``torch.profiler`` breakdowns of two-phase and packed serving.
+   ``torch.profiler`` breakdowns of two-phase and packed serving;
+7. ``deep10m``, after the earlier phases' tensors are freed: the JAX
+   package's largest one-chip deployment, Deep-10M (the stand-in
+   ``synthesize("deep-10m", 10_000_000, 96, 1000)``, k = 10), where every
+   engine the router picks is one that engages only past 8M rows.  The
+   float64 oracle on the card in chunks and ``ensure_groundtruth``;
+   ``exact_search`` (two-phase) and with ``no_twophase`` (the rank kernel)
+   on the float32 corpus, ``Server`` auto with bf16 and int8 storage
+   (two-phase): routes, launches, recall@10 (f32 1.0 up to ties), QPS at
+   batches of 1000 and 32, peak memory; emit and rescan at ``seg`` 512
+   (f32, bf16, int8) and the rank kernel against their plain versions on
+   100 queries, their times at m = 1000 beside their bounds (library calls
+   at m = 100); one exact-graph chunk at each tier, then ``Server.build``
+   auto on the float32 corpus (hash: tries 6, capacity 48, exact graph at
+   ``DEEP_GRAPH_PRECISION``, int8 packed rows, window 96) with each build
+   stage's seconds and peak memory, the graph against its tier's float64
+   oracle on 1,000 rows; the packed serving points (windows 32 and 96 x 18
+   and 48 probes, and rerank 50) with recall@10, QPS and probe launches
+   (recall >= 0.75 at window 96, 18 probes), the probe against its plain
+   version at 18 and 48 probes, the card against the CPU on 50 queries;
+   then ``Server`` int8 at 32M x 96 drawn on the card (two-phase, recall
+   on 100 queries against the float64 oracle, QPS, peak memory; emit and
+   rescan against their plain versions on 16 queries over the 3.07e9-byte
+   corpus); then the crossover at 8M x 128 and 10M x 96 and the n its rule
+   gives.  ``--deep10m-only`` runs this phase alone after the build, and
+   ``--deep10m-graph-precision`` sets the graph's tier.
 
 Before the last line it prints one JSON object with each kernel's launch
 count on the main path, its error against the plain version, its time, the
@@ -159,6 +185,7 @@ import torch
 import torch.distributed as dist
 
 import approximatenn_tpu_torch as ann
+from approximatenn_tpu_torch.data.datasets import ensure_groundtruth, synthesize
 from approximatenn_tpu_torch.data.synthetic import clustered_gaussian, gaussian
 from approximatenn_tpu_torch.engine.search import probe_starts
 from approximatenn_tpu_torch.harness import ann_bench, compare_results, test_correctness
@@ -173,7 +200,7 @@ from approximatenn_tpu_torch.ops.topk import topk_no_dedup
 from approximatenn_tpu_torch.parallel import dryrun, multihost
 from approximatenn_tpu_torch.parallel import serving as sv
 from approximatenn_tpu_torch.parallel import sharded as sh
-from approximatenn_tpu_torch.utils.profiling import fence
+from approximatenn_tpu_torch.utils.profiling import StageTimes, fence
 from approximatenn_tpu_torch.utils.runtime import card_name_and_limit
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -256,6 +283,24 @@ TIER_KERNELS = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_e
 # before the tiers existed: the tier work must leave that path in place
 HIGHEST_REFERENCE_MS = {"exact_knn": 8.735, "twophase_emit": 9.511,
                         "exact_knn_rescan": 8.701, "exact_knn_stream": 15.606}
+PEAK_INT8 = 1979e12  # tensor cores, dense int8 (TOP/s)
+# the Deep-10M deployment, the JAX package's largest one-chip configuration
+# (baselines/logs_r3_10m_exactgraph.txt): the stand-in's shape, the hash
+# index's settings and its serving points (window, probes, rerank_width)
+DEEP_N, DEEP_D, DEEP_NQ, DEEP_K = 10_000_000, 96, 1000, 10
+DEEP_TRIES, DEEP_CAPACITY = 6, 48
+DEEP_POINTS = ((32, 18, None), (32, 48, None), (96, 18, None), (96, 48, None), (96, 18, 50))
+DEEP_BATCHES = (1000, 32)
+DEEP_CHECK_QUERIES = 100  # kernels against their plain versions, library calls
+DEEP_GRAPH_ROWS = 1000  # exact-graph rows held to the oracle
+# the 10M graph's tier in the whole smoke: at "split3" (the JAX build's
+# advice for huge builds) the build alone takes ~620 s on one H100, which
+# does not fit the smoke's time beside the earlier phases; run it alone
+# with --deep10m-only --deep10m-graph-precision split3
+DEEP_GRAPH_PRECISION = "default"
+# the int8 route's edge: EXACT_MAX_N_DEFAULT x 4 rows; queries for the
+# plain versions (2^31-byte corpora) and for the float64 oracle
+EDGE_N, EDGE_CHECK_QUERIES, EDGE_RECALL_QUERIES = 32_000_000, 16, 100
 
 
 def phase(name: str, msg: str) -> None:
@@ -301,7 +346,10 @@ def check_case(label, points, queries, k, *, exclude=None, scale=None,
     fin = torch.isfinite(db[:, :k])
     if not torch.equal(fin, torch.isfinite(da)):
         raise AssertionError(f"{label}: sentinel pattern differs")
-    if not torch.allclose(da[fin], db[:, :k][fin], rtol=rtol, atol=atol):
+    tol = torch.maximum(atol + rtol * db[:, :k].abs(),
+                        term_floor(ex.compute_corpus(points, compute_dtype), queries,
+                                   ib[:, :k], scale, with_qn=True))
+    if not bool(((da - db[:, :k]).abs() <= tol)[fin].all()):
         err = (da[fin] - db[:, :k][fin]).abs().max().item()
         raise AssertionError(f"{label}: distances differ, max abs {err}")
     n = points.shape[0]
@@ -414,6 +462,26 @@ def kernel_queries(points, queries, scale):
     return q
 
 
+# fp32 ulps of the largest term: the kernel and its plain version both
+# round |x|^2 and 2 q.x (each up to ~|x|^2 + |q||x|) and sum them in other
+# orders, so where those terms are large against the result (scores of
+# rows far from the query, corpora of large norm) their difference is a
+# few ulps of the terms, not of the result
+TERM_ULPS = 16 * 2.0 ** -23
+
+
+def term_floor(points, queries, ids, scale=None, with_qn=False):
+    """Per result element, :data:`TERM_ULPS` of the terms the kernels
+    round: |x|^2 + 2 |q| |x| (+ |q|^2 for a distance, ``with_qn``) of the
+    row ``ids`` and its query, in the kernels' domain (int8: quantised,
+    then times scale^2 for a distance)."""
+    _, qn, scale2 = ex._prepare(points, queries, scale)
+    pn = ex.point_norms(points)[ids.clamp(0, points.shape[0] - 1).long()]
+    qn = qn[:, None]
+    terms = pn + 2.0 * torch.sqrt(pn * qn) + (qn if with_qn else 0.0)
+    return TERM_ULPS * terms * (scale2 if with_qn else 1.0)
+
+
 def check_emit(label, points, queries, seg, *, exclude=None, scale=None,
                matmul_precision="highest") -> float:
     """The emit kernel against its plain version (at the same precision
@@ -430,7 +498,8 @@ def check_emit(label, points, queries, seg, *, exclude=None, scale=None,
     fin = torch.isfinite(vb)
     if not torch.equal(fin, torch.isfinite(va)):
         raise AssertionError(f"{label}: +inf pattern differs")
-    if not torch.allclose(va[fin], vb[fin], rtol=1e-5, atol=1e-4):
+    tol = torch.maximum(1e-4 + 1e-5 * vb.abs(), term_floor(points, queries, ib, scale))
+    if not bool(((va - vb).abs() <= tol)[fin].all()):
         err = (va[fin] - vb[fin]).abs().max().item()
         raise AssertionError(f"{label}: minima differ, max abs {err}")
     bad = torch.nonzero((ia != ib) & fin)
@@ -756,12 +825,9 @@ def tier_kernels(X, Y, X64, Y64, true_s, seg, smi) -> dict:
         Yh, Yl = ex.split_bf16(Y)
         return pn - 2.0 * (((Yh @ Xh.T).float() + (Yh @ Xl.T).float()) + (Yl @ Xh.T).float())
 
-    def seg_min(scores):
-        pad = torch.nn.functional.pad(scores, (0, n_seg * seg - N), value=float("inf"))
-        return pad.view(M, n_seg, seg).min(-1)
-
     lib = {tier: (cuda_ms(lambda: torch.topk(lib_scores(tier), k, largest=False), reps=5),
-                  cuda_ms(lambda: seg_min(lib_scores(tier)), reps=5)) for tier in BF16_PASSES}
+                  cuda_ms(lambda: seg_min_scores(lib_scores(tier), seg), reps=5))
+           for tier in BF16_PASSES}
     del Xb, Xh, Xl
     for name in TIER_KERNELS:
         nbytes = 4.0 * (N * 128 + M * 128) + (8.0 * M * n_seg if name == "twophase_emit"
@@ -863,6 +929,11 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernel-only", action="store_true",
                     help="stop after the kernel-vs-plain phase")
+    ap.add_argument("--deep10m-only", action="store_true",
+                    help="build the kernels, then run the deep10m phase alone")
+    ap.add_argument("--deep10m-graph-precision", default=DEEP_GRAPH_PRECISION,
+                    choices=tuple(TIER_FLOORS),
+                    help="the 10M exact graph's tier (default: %(default)s)")
     # one rank of the sharded phase's two-rank run (dryrun.launch appends these)
     for flag in ("--rank", "--world"):
         ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
@@ -895,6 +966,27 @@ def main() -> None:
         ex._library(name)
     phase("build", f"nvcc sm_90a -> {', '.join(p.name for p in libs.values())} "
                    f"in {time.perf_counter() - t0:.2f} s")
+
+    total = dict.fromkeys(ex.launches, 0)
+
+    def read_counts(path: str, need: tuple, counts: dict | None = None) -> dict:
+        counts = dict(ex.launches) if counts is None else counts
+        for name in need:
+            if counts[name] < 1:
+                raise AssertionError(f"{path}: kernel {name} was not launched")
+        for name, c in counts.items():
+            total[name] += c
+        phase("counts", f"{path}: " + ", ".join(f"{a} {b}" for a, b in counts.items()))
+        return counts
+
+    if args.deep10m_only:
+        Y128 = torch.from_numpy(np.random.default_rng(args.seed).standard_normal(
+            (M, 128), dtype=np.float32)).to(dev)
+        at_scale = deep10m(args.seed, dev, smi, read_counts, Y128, None,
+                           args.deep10m_graph_precision)
+        print(json.dumps({"at_scale": at_scale, "launches": total}))
+        phase("done", "deep10m-only run: the earlier paths not driven, no result line")
+        return
 
     # -- phase 2: kernels against plain versions ----------------------------------
     g = torch.Generator(device="cpu").manual_seed(args.seed)
@@ -1104,14 +1196,11 @@ def main() -> None:
     emit_bf16_ms = cuda_ms(lambda: tp.segment_minima(Xb, Y, seg), reps=10)
     n_seg = -(-N // seg)
 
-    def seg_min(scores):
-        """Emit's function on the score matrix: the last segment padded."""
-        pad = torch.nn.functional.pad(scores, (0, n_seg * seg - N), value=float("inf"))
-        return pad.view(M, n_seg, seg).min(-1)
-
-    lib_emit_ms = cuda_ms(lambda: seg_min((X * X).sum(-1) - 2.0 * (Y @ X.T)), reps=5)
-    lib_emit_bf16_ms = cuda_ms(lambda: seg_min((Xb.float() ** 2).sum(-1)
-                                               - 2.0 * (Y.to(bf16) @ Xb.T).float()), reps=5)
+    lib_emit_ms = cuda_ms(lambda: seg_min_scores((X * X).sum(-1) - 2.0 * (Y @ X.T), seg),
+                          reps=5)
+    lib_emit_bf16_ms = cuda_ms(lambda: seg_min_scores((Xb.float() ** 2).sum(-1)
+                                                      - 2.0 * (Y.to(bf16) @ Xb.T).float(), seg),
+                               reps=5)
     tp_rescan_ms = cuda_ms(lambda: tp.rescan_windows(X, Y, starts, seg, k), reps=20)
     tp_rescan_plain_ms = cuda_ms(lambda: tp.rescan_windows_plain(X, Y, starts, seg, k), reps=3)
     phase("kernel", f"time n={N} m={M} k={k} seg={seg}: emit {emit_ms:.3f} ms plain "
@@ -1239,17 +1328,6 @@ def main() -> None:
     # -- phase 3: main path ---------------------------------------------------------
     true_big = oracle64(X64, Y64[:100], 256)
     fence()
-    total = dict.fromkeys(ex.launches, 0)
-
-    def read_counts(path: str, need: tuple, counts: dict | None = None) -> dict:
-        counts = dict(ex.launches) if counts is None else counts
-        for name in need:
-            if counts[name] < 1:
-                raise AssertionError(f"{path}: kernel {name} was not launched")
-        for name, c in counts.items():
-            total[name] += c
-        phase("counts", f"{path}: " + ", ".join(f"{a} {b}" for a, b in counts.items()))
-        return counts
 
     # path 1: build (exact graph through the rank kernel) -> hash search
     tries = 10
@@ -1387,10 +1465,19 @@ def main() -> None:
     parity_band(read_counts)
 
     # -- phase 6: crossover and profiles -----------------------------------------------
-    crossover(X, Xb, Y, k, args.seed, dev)
+    ratios = crossover(X, Xb, Y, k, args.seed, dev)
     profile_serving("Server f32 two-phase", servers["f32"], Y)
     del servers
     profile_serving(f"Server packed bf16 w={PACKED_WINDOW} P={PACKED_PROBES}", srv_packed, Yc)
+
+    # -- phase 7: the Deep-10M deployment and the int8 edge, the earlier
+    # phases' tensors freed first -------------------------------------------------------
+    del srv_packed, Yc, X, Xb, X64, Y64, true_s, true_big
+    torch.cuda.empty_cache()
+    before = dict(total)
+    at_scale = deep10m(args.seed, dev, smi, read_counts, Y, ratios,
+                       args.deep10m_graph_precision)
+    deep_launches = {name: total[name] - before[name] for name in total}
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1400,7 +1487,8 @@ def main() -> None:
         "library_ms": timing[name][2],
         **{f"{field}_{tier}": tiers.get(name, {}).get(f"{field}_{tier}")
            for field in ("ms", "bound_ms", "library_ms", "max_abs_err") for tier in BF16_PASSES},
-        **{f"launches_{tier}": total.get(f"{name}:{tier}") for tier in BF16_PASSES}}
+        **{f"launches_{tier}": total.get(f"{name}:{tier}") for tier in BF16_PASSES},
+        "launches_deep10m": deep_launches[name], "at_scale": at_scale[name]}
         for name, (src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1908,30 +1996,517 @@ def _two_rank_paths(mesh, seed: int, ckpt: Path) -> dict:
                 load_s=load_s)
 
 
-def crossover(X, Xb, Y, k: int, seed: int, dev) -> None:
+def crossover(X, Xb, Y, k: int, seed: int, dev) -> dict:
     """Rank kernel against the two-phase engine, f32 and bf16 stored, on
     the prefixes 250k, 500k and 1M of the main corpus and on 2M and 4M
-    corpora drawn on the card from ``seed``; then the threshold the rule
-    of ``ops/twophase.py:TWOPHASE_MIN_N`` takes from the f32 ratios: the
-    smallest measured n from which two-phase / rank <= 1 at that n and at
-    every larger one (8,000,000, the exact engine's limit, where none)."""
+    corpora drawn on the card from ``seed``; then the threshold
+    :func:`twophase_rule` takes from the f32 ratios.  Returns the ratios,
+    {(label, n): two-phase / rank}, which the ``deep10m`` phase extends."""
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     ratios = {}
     for n in (250_000, 500_000, N, 2 * N, 4 * N):
         Xf = X[:n] if n <= N else torch.randn(n, 128, generator=gen, device=dev)
         for label, Xs in (("f32", Xf), ("bf16", Xb[:n] if n <= N else Xf.to(torch.bfloat16))):
-            rank_ms = cuda_ms(lambda: ex.exact_knn(Xs, Y, k), reps=5)
-            two_ms = cuda_ms(lambda: tp.exact_knn_twophase(Xs, Y, k), reps=5)
-            ratios[label, n] = two_ms / rank_ms
-            phase("crossover", f"{label} n={n} m={M} k={k} seg={tp.auto_seg(n)}: rank "
-                               f"{rank_ms:.3f} ms two-phase {two_ms:.3f} ms "
-                               f"(two-phase/rank {two_ms / rank_ms:.3f})")
+            ratios[label, n] = crossover_ratio(label, Xs, Y, k)
         del Xf, Xs
+    twophase_rule(ratios)
+    return ratios
+
+
+def crossover_ratio(label: str, Xs, Y, k: int) -> float:
+    """Two-phase / rank ms at one corpus (CUDA events, one line)."""
+    n, d = Xs.shape
+    rank_ms = cuda_ms(lambda: ex.exact_knn(Xs, Y, k), reps=5)
+    two_ms = cuda_ms(lambda: tp.exact_knn_twophase(Xs, Y, k), reps=5)
+    phase("crossover", f"{label} n={n} d={d} m={Y.shape[0]} k={k} seg={tp.auto_seg(n)}: rank "
+                       f"{rank_ms:.3f} ms two-phase {two_ms:.3f} ms "
+                       f"(two-phase/rank {two_ms / rank_ms:.3f})")
+    return two_ms / rank_ms
+
+
+def twophase_rule(ratios: dict) -> int:
+    """The rule of ``ops/twophase.py:TWOPHASE_MIN_N`` on the f32 ratios:
+    the smallest measured n from which two-phase / rank <= 1 at that n and
+    at every larger one (8,000,000, the exact engine's limit, where none);
+    printed beside the constant, which this smoke never changes."""
     sizes = sorted(n for label, n in ratios if label == "f32")
-    rule = next((n for i, n in enumerate(sizes)
-                 if all(ratios["f32", m] <= 1.0 for m in sizes[i:])), 8_000_000)
-    phase("crossover", f"threshold by the rule (f32, n up to {sizes[-1]}): {rule}; "
-                       f"TWOPHASE_MIN_N {tp.TWOPHASE_MIN_N}")
+    found = next((n for i, n in enumerate(sizes)
+                  if all(ratios["f32", m] <= 1.0 for m in sizes[i:])), None)
+    rule = 8_000_000 if found is None else found
+    phase("crossover", f"threshold by the rule (f32, n in {sizes}): {rule}"
+                       + (" (no measured n qualifies: the exact engine's limit)"
+                          if found is None else "") + f"; TWOPHASE_MIN_N {tp.TWOPHASE_MIN_N}")
+    return rule
+
+
+def gib(nbytes: float) -> str:
+    return f"{nbytes / 2**30:.2f} GiB"
+
+
+def reset_peak() -> None:
+    fence()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def read_peak() -> int:
+    """The card's peak allocated bytes since :func:`reset_peak`."""
+    fence()
+    return torch.cuda.max_memory_allocated()
+
+
+def tier_dot64(q, x, tier: str):
+    """q . x (m, n) in float64 as a kernel's tier forms it: from the raw
+    values at "highest"; at "split3" and "default" from their bf16 factors
+    (:func:`ops.exact.split_bf16`), the factor products summed in float64
+    (what :func:`near_tie_ok` judges in)."""
+    if tier == "highest":
+        return q.double() @ x.double().T
+    (qh, ql), (xh, xl) = ex.split_bf16(q), ex.split_bf16(x)
+    dot = qh.double() @ xh.double().T
+    if tier == "split3":
+        dot += qh.double() @ xl.double().T + ql.double() @ xh.double().T
+    return dot
+
+
+def oracle64_chunked(points, queries, k: int, *, tier: str = "highest", exclude=None,
+                     rows: int = 1 << 20, qblock: int = 250):
+    """(ids (m, k) int64, distances (m, k) float64): each query's k
+    nearest rows of ``points`` by |x|^2 + |q|^2 - 2 q.x in float64, q.x at
+    ``tier`` (:func:`tier_dot64`).  The corpus is upcast ``rows`` rows at a
+    time and the queries go ``qblock`` at a time, so no float64 copy of
+    the corpus and no (m, n) matrix is made; ``exclude`` (m,): one id
+    never returned per query."""
+    n = points.shape[0]
+    out_i, out_d = [], []
+    for a in range(0, queries.shape[0], qblock):
+        q = queries[a: a + qblock].float()
+        qn = (q.double() ** 2).sum(-1)
+        best_d = best_i = None
+        for lo in range(0, n, rows):
+            x = points[lo: lo + rows].float()
+            dd = (x.double() ** 2).sum(-1)[None, :] + qn[:, None] - 2.0 * tier_dot64(q, x, tier)
+            if exclude is not None:
+                e = exclude[a: a + qblock].long() - lo
+                hit = torch.nonzero((e >= 0) & (e < x.shape[0])).squeeze(1)
+                dd[hit, e[hit]] = float("inf")
+            d, i = torch.topk(dd, min(k, dd.shape[1]), dim=1, largest=False)
+            i = i + lo
+            if best_d is not None:
+                d, j = torch.topk(torch.cat([best_d, d], 1), k, dim=1, largest=False)
+                i = torch.cat([best_i, i], 1).gather(1, j)
+            best_d, best_i = d, i
+        out_i.append(best_i)
+        out_d.append(best_d)
+    return torch.cat(out_i), torch.cat(out_d)
+
+
+def pair_dist64(q, xs, tier: str):
+    """Squared distances (r, k) float64 of each query row q (r, d) to its
+    rows xs (r, k, d) in :func:`tier_dot64`'s score domain."""
+    qn = (q.double() ** 2).sum(-1)[:, None]
+    xn = (xs.double() ** 2).sum(-1)
+    if tier == "highest":
+        dot = torch.einsum("rd,rkd->rk", q.double(), xs.double())
+    else:
+        (qh, ql), (xh, xl) = ex.split_bf16(q), ex.split_bf16(xs)
+        dot = torch.einsum("rd,rkd->rk", qh.double(), xh.double())
+        if tier == "split3":
+            dot += (torch.einsum("rd,rkd->rk", qh.double(), xl.double())
+                    + torch.einsum("rd,rkd->rk", ql.double(), xh.double()))
+    return qn + xn - 2.0 * dot
+
+
+def graph_rows_ok(X, graph, rows, k: int, tier: str, rtol: float) -> float:
+    """Share of the sampled rows' graph edges (self excluded) that lie
+    within ``rtol`` of the k-th nearest distance of the oracle at
+    ``tier`` (:func:`oracle64_chunked`), distances in its score domain."""
+    q = X[rows]
+    _, kd = oracle64_chunked(X, q, k, tier=tier, exclude=rows)
+    g = graph[rows].long()
+    real = (g < X.shape[0]) & (g != rows[:, None].long())
+    dd = pair_dist64(q.float(), X[g.clamp(max=X.shape[0] - 1)].float(), tier)
+    return float((real & (dd <= kd[:, k - 1: k] * (1 + rtol))).float().mean())
+
+
+def qps_at(search, Y, batch: int, reps: int = 3) -> float:
+    """Pipelined queries a second of ``search`` over all of ``Y`` in
+    batches of ``batch`` rows, ``reps`` passes after a one-batch warm-up,
+    one fence at the end."""
+    search(Y[:batch])
+    fence()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for lo in range(0, Y.shape[0], batch):
+            search(Y[lo: lo + batch])
+    fence()
+    return reps * Y.shape[0] / (time.perf_counter() - t0)
+
+
+def seg_min_scores(scores, seg: int):
+    """Emit's function on a score matrix (m, n): the last segment padded
+    with +inf, then each segment's (minimum, first argmin)."""
+    m, n = scores.shape
+    n_seg = -(-n // seg)
+    pad = torch.nn.functional.pad(scores, (0, n_seg * seg - n), value=float("inf"))
+    return pad.view(m, n_seg, seg).min(-1)
+
+
+def at_scale_row(shape: str, ms, plain_ms, b, library_ms, err, **extra) -> dict:
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": library_ms, "max_abs_err": err, **extra}
+
+
+def deep10m(seed: int, dev, smi, read_counts, Y128, ratios,
+            graph_precision: str = DEEP_GRAPH_PRECISION) -> dict:
+    """Phase ``deep10m``: the JAX package's largest one-chip deployment
+    (Deep-10M: ``data/datasets.py:synthesize("deep-10m")``, 10M x 96
+    clustered, 1000 queries, k = 10) through the engines the router picks
+    past 8M rows, then the int8 route's edge at 32M x 96 and the
+    rank/two-phase crossover at 8M and 10M.  Gates: every route as the
+    router names it, f32 exact recall@10 1.0 up to ties on the two-phase
+    engine and the rank kernel, each kernel equal to its plain version
+    outside near-ties, packed recall@10 >= RECALL_GUARD at window 96 and 18
+    probes, card = CPU on 50 queries, the exact graph equal to its tier's
+    float64 oracle on sampled rows.  Returns {kernel: [at-scale rows]} for
+    the kernels line."""
+    k, seg = DEEP_K, tp.auto_seg(DEEP_N)
+    P = k + 2
+    rows_out = {name: [] for name in KERNELS}
+
+    # 1. data and oracle
+    t0 = time.perf_counter()
+    ds = synthesize("deep-10m", DEEP_N, DEEP_D, DEEP_NQ)
+    synth_s = time.perf_counter() - t0
+    X = torch.from_numpy(ds.base).to(dev)
+    Y = torch.from_numpy(ds.queries).to(dev)
+    Y64 = Y.double()
+    reset_peak()
+    t0 = time.perf_counter()
+    true_s = oracle64_chunked(X, Y, k)
+    fence()
+    oracle_s = time.perf_counter() - t0
+    truth = true_s[0].cpu().numpy()
+    t0 = time.perf_counter()
+    gt = ensure_groundtruth(ds, k)
+    gt_s = time.perf_counter() - t0
+    gt_rec, gt_tie = recall_up_to_ties(X, Y64, torch.from_numpy(gt).to(dev), true_s, k)
+    del ds
+    phase("deep10m", f"data: synthesize('deep-10m', {DEEP_N}, {DEEP_D}, {DEEP_NQ}) "
+                     f"{synth_s:.2f} s on the host; float64 oracle on the card in chunks "
+                     f"{oracle_s:.2f} s; ensure_groundtruth (float32, on the card) {gt_s:.2f} s, "
+                     f"its ids vs the float64 oracle recall@{k} {gt_rec:.4f} (up to ties "
+                     f"{gt_tie:.4f}); peak {gib(read_peak())}; card [{smi}]")
+
+    # 2. the exact routes at 10M
+    exact_keys = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_emit",
+                  "twophase_rescan", "twophase_rescan_all")
+    routes = (("exact_search f32", None, "twophase", {}),
+              ("exact_search f32 no_twophase", None, "rank", {"no_twophase": True}),
+              ("Server auto bf16", torch.bfloat16, "twophase", None),
+              ("Server auto int8", torch.int8, "twophase", None))
+    for label, sdt, want, kw in routes:
+        ex.reset_launch_counts()
+        reset_peak()
+        if kw is not None:
+            engine = tp.route(DEEP_N, k, {}, kw.get("no_twophase", False))
+            search = (lambda q, kw=kw: ann.exact_search(X, q, k, **kw))
+            named = f"route {engine}"
+        else:
+            srv = ann.Server.build(X, k, storage_dtype=sdt)
+            desc = srv.describe()
+            engine = desc["exact_engine"].removeprefix("cuda-") if desc["mode"] == "exact" \
+                else desc["mode"]
+            search = srv.search
+            named = f"describe() mode {desc['mode']} exact_engine {desc['exact_engine']}"
+        if engine != want:
+            raise AssertionError(f"deep10m {label}: resolved to {engine}, not {want}")
+        qps = {b: qps_at(search, Y, b) for b in DEEP_BATCHES}
+        ids, _ = search(Y)
+        rec, tie = recall_up_to_ties(X, Y64, ids, true_s, k)
+        need = ("twophase_emit", "twophase_rescan") if want == "twophase" else ("exact_knn",)
+        counts = read_counts(f"deep10m {label}", need)
+        stray = [c for c in exact_keys if counts[c] and c not in need]
+        if stray:
+            raise AssertionError(f"deep10m {label} also launched {stray}")
+        phase("deep10m", f"{label} n={DEEP_N} d={DEEP_D} k={k}: {named}; recall@{k} "
+                         f"{rec:.4f} (up to ties {tie:.4f}); pipelined QPS "
+                         + ", ".join(f"batch {b} {q:.1f}" for b, q in qps.items())
+                         + f"; peak {gib(read_peak())}; card [{smi}]")
+        if sdt is None and tie != 1.0:
+            raise AssertionError(f"deep10m {label}: f32 recall up to ties {tie}, not 1.0")
+        if kw is None:
+            del srv
+        del search
+    torch.cuda.empty_cache()
+
+    # each kernel against its plain version on 100 queries, at seg = 512
+    y100 = Y[:DEEP_CHECK_QUERIES].contiguous()
+    Xb = X.to(torch.bfloat16)
+    X8, s8 = ex.quantize_corpus(X)
+    types = (("f32", X, None), ("bf16", Xb, None), ("int8", X8, float(s8)))
+    errs = {}
+    for label, pts, sc in types:
+        errs["emit", label] = check_emit(f"10M x {DEEP_D} {label} m={DEEP_CHECK_QUERIES} "
+                                         f"seg={seg}", pts, y100, seg, scale=sc)
+        errs["rescan", label] = check_rescan(
+            f"10M x {DEEP_D} {label} m={DEEP_CHECK_QUERIES} P={P} seg={seg} k={k}", pts,
+            kernel_queries(pts, y100, sc), window_starts(pts, y100, P, seg, scale=sc), seg, k)
+    errs["rank"] = check_case(f"10M x {DEEP_D} m={DEEP_CHECK_QUERIES} k={k}", X, y100, k)
+    own = torch.arange(DEEP_CHECK_QUERIES, dtype=torch.int32, device=dev)
+    errs["graph"] = check_case(f"10M x {DEEP_D} graph rows m={DEEP_CHECK_QUERIES} exclude=self "
+                               f"{graph_precision}", X, X[:DEEP_CHECK_QUERIES].contiguous(), k,
+                               exclude=own, matmul_precision=graph_precision)
+
+    # their times at m = 1000 beside their bounds; library calls at m = 100
+    n_seg = -(-DEEP_N // seg)
+    peak_ops = {"f32": PEAK_FP32, "bf16": PEAK_BF16, "int8": PEAK_INT8}
+    item = {"f32": 4, "bf16": 2, "int8": 1}
+    ten_m = {}
+    for label, pts, sc in types:
+        q_lib = kernel_queries(pts, y100, sc)
+        xf = pts.float()  # the library's float corpus, made once as a server would keep it
+        pn = (xf * xf).sum(-1)
+        lib_ms = cuda_ms(lambda: seg_min_scores(pn - 2.0 * (q_lib @ xf.T), seg), reps=3)
+        del xf, pn
+        emit_ms = cuda_ms(lambda: tp.segment_minima(pts, Y, seg, scale=sc), reps=5)
+        emit100_ms = cuda_ms(lambda: tp.segment_minima(pts, y100, seg, scale=sc), reps=5)
+        emit_plain_ms = cuda_ms(lambda: tp.segment_minima_plain(pts, Y, seg, scale=sc),
+                                reps=1, warmup=0)
+        e_b = bound(0.0, item[label] * DEEP_N * DEEP_D + 4.0 * M * DEEP_D + 8.0 * M * n_seg)
+        e_b = max(e_b, (1e3 * 2.0 * M * DEEP_N * DEEP_D / peak_ops[label], "operations"))
+        starts = window_starts(pts, Y, P, seg, scale=sc)
+        qk = kernel_queries(pts, Y, sc)
+        res_ms = cuda_ms(lambda: tp.rescan_windows(pts, qk, starts, seg, k), reps=10)
+        res_plain_ms = cuda_ms(lambda: tp.rescan_windows_plain(pts, qk, starts, seg, k), reps=1)
+        pairs, distinct = rescan_rows(starts, DEEP_N, seg)
+        r_b = bound(3.0 * pairs * DEEP_D, item[label] * distinct * DEEP_D
+                    + 4.0 * (M * DEEP_D + M * P) + 8.0 * M * k)
+        two_ms = cuda_ms(lambda: tp.exact_knn_twophase(pts, Y, k, scale=sc), reps=5)
+        rank_ms = cuda_ms(lambda: ex.exact_knn(pts, Y, k, scale=sc), reps=5)
+        ten_m[label] = two_ms / rank_ms
+        phase("kernel", f"time emit 10M x {DEEP_D} {label} m={M} seg={seg}: {emit_ms:.3f} ms "
+                        f"(m=100 {emit100_ms:.3f} ms), plain {emit_plain_ms:.3f} ms, bound "
+                        f"{e_b[0]:.3f} ms ({e_b[1]}), library segment min at m=100 "
+                        f"{lib_ms:.3f} ms; rescan P={P} k={k} {res_ms:.3f} ms, plain "
+                        f"{res_plain_ms:.3f} ms, bound {r_b[0]:.3f} ms ({r_b[1]}; {pairs} pairs "
+                        f"over {distinct} distinct rows); exact_knn_twophase {two_ms:.3f} ms, "
+                        f"rank kernel {rank_ms:.3f} ms; card [{smi}]")
+        rows_out["twophase_emit"].append(at_scale_row(
+            f"10M x {DEEP_D} {label} m={M} seg={seg} (library at m=100)", emit_ms,
+            emit_plain_ms, e_b, lib_ms, errs["emit", label], ms_m100=emit100_ms))
+        rows_out["twophase_rescan"].append(at_scale_row(
+            f"10M x {DEEP_D} {label} m={M} P={P} seg={seg} k={k}", res_ms, res_plain_ms, r_b,
+            None, errs["rescan", label]))
+    rank_ms = cuda_ms(lambda: ex.exact_knn(X, Y, k), reps=5)
+    rank100_ms = cuda_ms(lambda: ex.exact_knn(X, y100, k), reps=5)
+    rank100_plain_ms = cuda_ms(lambda: ex.exact_knn_plain(X, y100, k), reps=1, warmup=0)
+    rank100_lib_ms = cuda_ms(lambda: torch.topk((X * X).sum(-1) - 2.0 * (y100 @ X.T), k,
+                                                largest=False), reps=3)
+    rank_b = bound(2.0 * M * DEEP_N * DEEP_D, 4.0 * (DEEP_N * DEEP_D + M * DEEP_D) + 8.0 * M * k)
+    phase("kernel", f"time rank 10M x {DEEP_D} f32 m={M} k={k}: {rank_ms:.3f} ms, bound "
+                    f"{rank_b[0]:.3f} ms ({rank_b[1]}); at m=100 {rank100_ms:.3f} ms, plain "
+                    f"{rank100_plain_ms:.3f} ms, library topk {rank100_lib_ms:.3f} ms")
+    rows_out["exact_knn"].append(at_scale_row(
+        f"10M x {DEEP_D} f32 m={M} k={k} (plain and library at m=100)", rank_ms,
+        rank100_plain_ms, rank_b, rank100_lib_ms, errs["rank"], ms_m100=rank100_ms))
+    del Xb, X8, starts, qk
+    torch.cuda.empty_cache()
+
+    # 3. the hash route: one graph chunk alone at each tier, then the build
+    excl = torch.arange(GRAPH_CHUNK, dtype=torch.int32, device=dev)
+    n_chunks = -(-DEEP_N // GRAPH_CHUNK)
+    chunk = {tier: cuda_ms(lambda: ex.exact_knn(X, X[:GRAPH_CHUNK], k, exclude=excl,
+                                                matmul_precision=tier), reps=1, warmup=0)
+             for tier in TIER_FLOORS}
+    flop = 2.0 * GRAPH_CHUNK * DEEP_N * DEEP_D
+    chunk_b = bound(flop, 4.0 * (DEEP_N * DEEP_D + GRAPH_CHUNK * (DEEP_D + 1))
+                    + 8.0 * GRAPH_CHUNK * k)
+    if graph_precision != "highest":
+        chunk_b = (1e3 * BF16_PASSES[graph_precision] * flop / PEAK_BF16, "operations")
+    phase("deep10m", f"graph chunk n={DEEP_N} d={DEEP_D} m={GRAPH_CHUNK} k={k} exclude=self: "
+                     + ", ".join(f"{t} {ms:.1f} ms (x {n_chunks} chunks = {ms * n_chunks / 1e3:.1f}"
+                                 " s)" for t, ms in chunk.items())
+                     + f"; bound at {graph_precision} {chunk_b[0]:.3f} ms; card [{smi}]")
+    rows_out["exact_knn"].append(at_scale_row(
+        f"graph chunk 10M x {DEEP_D} m={GRAPH_CHUNK} k={k} {graph_precision}",
+        chunk[graph_precision], None, chunk_b, None, errs["graph"]))
+    ex.reset_launch_counts()
+    stages = StageTimes(memory=True)
+    t0 = time.perf_counter()
+    srv = ann.Server.build(X, k, layout="packed", packed_dtype=torch.int8, window=96,
+                           tries=DEEP_TRIES, capacity=DEEP_CAPACITY, seed=seed,
+                           graph_precision=graph_precision, stage_times=stages)
+    fence()
+    build_s = time.perf_counter() - t0
+    desc = srv.describe()
+    pv = srv.packed
+    if desc["mode"] != "hash" or desc["layout"] != "packed" or pv.tries != DEEP_TRIES:
+        raise AssertionError(f"deep10m Server auto f32: {desc}, not hash packed")
+    counts = read_counts(f"deep10m hash build graph_precision={graph_precision}", ("exact_knn",))
+    tier_key = f"exact_knn:{graph_precision}"
+    if graph_precision != "highest" and counts[tier_key] != counts["exact_knn"]:
+        raise AssertionError("deep10m build: a graph chunk ran another tier")
+    phase("deep10m", f"Server.build auto f32 n={DEEP_N} d={DEEP_D} k={k} tries={DEEP_TRIES} "
+                     f"capacity={DEEP_CAPACITY} packed int8 w=96 super_width {pv.super_width} "
+                     f"graph_precision={graph_precision}: mode {desc['mode']}, layout "
+                     f"{desc['layout']}, d_short {pv.d_short}, tmax {srv.index.tmax}, n_pad "
+                     f"{pv.n_pad}, index_mb {desc['index_mb']}; {build_s:.2f} s; stages "
+                     + ", ".join(f"{name} {stages.totals[name]:.2f} s (peak "
+                                 f"{gib(stages.peaks[name])})" for name in stages.totals)
+                     + f"; card [{smi}]")
+    g_rows = torch.randperm(DEEP_N, generator=torch.Generator().manual_seed(seed + 8))[
+        :DEEP_GRAPH_ROWS].to(dev)
+    reset_peak()
+    tier_ok = graph_rows_ok(X, srv.index.graph, g_rows, k, graph_precision,
+                            1e-6 if graph_precision == "highest" else 1e-5)
+    raw_ok = (tier_ok if graph_precision == "highest"
+              else graph_rows_ok(X, srv.index.graph, g_rows, k, "highest", 1e-6))
+    phase("deep10m", f"exact graph on {DEEP_GRAPH_ROWS} sampled rows: edges within the "
+                     f"{graph_precision} tier's float64 oracle up to ties {tier_ok:.6f}, within "
+                     f"the raw float64 oracle (rtol 1e-6) {raw_ok:.6f}; peak "
+                     f"{gib(read_peak())}")
+    if tier_ok != 1.0:
+        raise AssertionError(f"deep10m exact graph disagrees with its oracle: {tier_ok}")
+
+    # every packed serving point of the configuration from this view
+    ex.reset_launch_counts()
+    recs = {}
+    for w, n_probes, rr in DEEP_POINTS:
+        kw = dict(window=w, n_probes=n_probes, rerank_width=rr)
+        reset_peak()
+        before = ex.launches["probe_topk"]
+        search = (lambda q, kw=kw: srv.search(q, **kw))
+        qps = {b: qps_at(search, Y, b) for b in DEEP_BATCHES}
+        ids, _ = search(Y)
+        rec = recall_at_k(truth, ids.cpu().numpy(), k)
+        recs[w, n_probes, rr] = rec
+        launched = ex.launches["probe_topk"] - before
+        phase("deep10m", f"Server packed int8 w={w} P={n_probes} rerank={rr}: recall@{k} "
+                         f"{rec:.4f}; pipelined QPS "
+                         + ", ".join(f"batch {b} {q:.1f}" for b, q in qps.items())
+                         + f"; probe_topk launches {launched}; peak {gib(read_peak())}; "
+                         f"card [{smi}]")
+        if not launched:
+            raise AssertionError(f"deep10m packed w={w} P={n_probes}: the probe did not run")
+    read_counts("deep10m packed serving", ("probe_topk",))
+    if recs[96, 18, None] < RECALL_GUARD:
+        raise AssertionError(f"deep10m packed recall@10 {recs[96, 18, None]:.4f} at window 96 "
+                             f"is below the {RECALL_GUARD} guard")
+    qs = Y / pv.scale  # the fused path's int8 queries
+    kw = dict(n=pv.live_bound, n_pad=pv.n_pad, window=96)
+    for n_probes in (18, 48):
+        starts = probe_starts(pv, Y, n_probes, 96)
+        err = check_probe(f"10M int8 tries={DEEP_TRIES} m={M} P={n_probes} w=96 k={k}",
+                          pv.point_rows, qs, starts, k=k, **kw)
+        ms = cuda_ms(lambda: pr.probe_topk(pv.point_rows, qs, starts, k=k, **kw), reps=10)
+        q_, st_, w_ = pr.prepare(pv.point_rows, qs, starts, n_pad=pv.n_pad, window=96)
+        plain_ms = cuda_ms(lambda: pr.probe_topk_plain(pv.point_rows, q_, st_, k=k,
+                                                       n=pv.live_bound, n_pad=pv.n_pad,
+                                                       window=w_), reps=1)
+        triples, distinct = probe_work(st_, w_)
+        b = bound(3.0 * DEEP_D * triples, 1.0 * DEEP_D * distinct
+                  + 4.0 * (M * DEEP_D + st_.numel()) + 8.0 * M * DEEP_TRIES * k)
+        phase("kernel", f"time probe 10M int8 tries={DEEP_TRIES} m={M} P={n_probes} w={w_} "
+                        f"k={k}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms; {triples} distinct "
+                        f"(query, table, slot) triples over {distinct} distinct rows; bound "
+                        f"{b[0]:.3f} ms ({b[1]}); card [{smi}]")
+        rows_out["probe_topk"].append(at_scale_row(
+            f"10M x {DEEP_D} int8 tries={DEEP_TRIES} m={M} P={n_probes} w={w_} k={k}", ms,
+            plain_ms, b, None, err))
+    # the card against the same search on the CPU, the view carried by
+    # to_numpy_dict / from_numpy
+    sub = slice(0, CPU_CHECK_QUERIES)
+    ids, dd = ann.search_packed_fused(pv, queries=Y[sub], n_probes=18)
+    t0 = time.perf_counter()
+    cpu_view = ann.PackedIndex.from_numpy(pv.to_numpy_dict(), device="cpu")
+    carry_s = time.perf_counter() - t0
+    c_ids, c_d = ann.search_packed_fused(cpu_view, queries=Y[sub].cpu(), n_probes=18)
+    del cpu_view
+    n_cmp, n_tied = compare_with_cpu("deep10m packed search", pv, Y[sub], ids, dd, c_ids, c_d)
+    phase("deep10m", f"card vs CPU search_packed_fused int8 w=96 P=18 on {CPU_CHECK_QUERIES} "
+                     f"queries (view carried in {carry_s:.2f} s): {n_cmp} rows compared, ids "
+                     f"equal outside near-ties ({n_tied} near-tie rows), distances rtol 1e-5")
+    del srv, pv, X, Y, Y64, qs, starts, q_, st_
+    torch.cuda.empty_cache()
+
+    # 4. the int8 route's edge: 32M x 96 drawn on the card, exact two-phase
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    X = torch.empty((EDGE_N, DEEP_D), device=dev)
+    for lo in range(0, EDGE_N, 1 << 22):
+        X[lo: lo + (1 << 22)] = torch.randn(min(1 << 22, EDGE_N - lo), DEEP_D, generator=gen,
+                                            device=dev)
+    Y = torch.randn(M, DEEP_D, generator=gen, device=dev)
+    yr = Y[:EDGE_RECALL_QUERIES].contiguous()
+    true_e = oracle64_chunked(X, yr, k)
+    ex.reset_launch_counts()
+    reset_peak()
+    srv = ann.Server.build(X, k, storage_dtype=torch.int8)
+    desc = srv.describe()
+    if desc["mode"] != "exact" or desc["exact_engine"] != "cuda-twophase":
+        raise AssertionError(f"deep10m Server int8 n={EDGE_N}: {desc}")
+    ids, _ = srv.search(yr)
+    rec, tie = recall_up_to_ties(X, yr.double(), ids, true_e, k)
+    build_peak = read_peak()
+    del X
+    torch.cuda.empty_cache()
+    reset_peak()
+    qps = qps_at(srv.search, Y, M)
+    read_counts(f"deep10m Server int8 n={EDGE_N}", ("twophase_emit", "twophase_rescan"))
+    phase("deep10m", f"Server.build storage_dtype=int8 n={EDGE_N} d={DEEP_D} k={k}: describe() "
+                     f"mode {desc['mode']} exact_engine {desc['exact_engine']}; recall@{k} on "
+                     f"{EDGE_RECALL_QUERIES} queries vs the float64 oracle {rec:.4f} (up to ties "
+                     f"{tie:.4f}); pipelined QPS batch {M} {qps:.1f}; peak with the float32 "
+                     f"corpus {gib(build_peak)}, serving after it was freed "
+                     f"{gib(read_peak())}; card [{smi}]")
+    X8, sc = srv.points, srv.scale
+    y16 = Y[:EDGE_CHECK_QUERIES].contiguous()
+    seg32 = tp.auto_seg(EDGE_N)
+    e_err = check_emit(f"{EDGE_N} x {DEEP_D} int8 ({X8.numel()} bytes) m={EDGE_CHECK_QUERIES} "
+                       f"seg={seg32}", X8, y16, seg32, scale=sc)
+    r_err = check_rescan(f"{EDGE_N} x {DEEP_D} int8 m={EDGE_CHECK_QUERIES} P={P} seg={seg32} "
+                         f"k={k}", X8, kernel_queries(X8, y16, sc),
+                         window_starts(X8, y16, P, seg32, scale=sc), seg32, k)
+    n_seg = -(-EDGE_N // seg32)
+    emit_ms = cuda_ms(lambda: tp.segment_minima(X8, Y, seg32, scale=sc), reps=3)
+    emit16_ms = cuda_ms(lambda: tp.segment_minima(X8, y16, seg32, scale=sc), reps=3)
+    emit16_plain_ms = cuda_ms(lambda: tp.segment_minima_plain(X8, y16, seg32, scale=sc),
+                              reps=1, warmup=0)
+    e_b = max(bound(0.0, 1.0 * EDGE_N * DEEP_D + 4.0 * M * DEEP_D + 8.0 * M * n_seg),
+              (1e3 * 2.0 * M * EDGE_N * DEEP_D / PEAK_INT8, "operations"))
+    starts = window_starts(X8, Y, P, seg32, scale=sc)
+    qk = kernel_queries(X8, Y, sc)
+    res_ms = cuda_ms(lambda: tp.rescan_windows(X8, qk, starts, seg32, k), reps=10)
+    res_plain_ms = cuda_ms(lambda: tp.rescan_windows_plain(X8, qk, starts, seg32, k), reps=1)
+    pairs, distinct = rescan_rows(starts, EDGE_N, seg32)
+    r_b = bound(3.0 * pairs * DEEP_D, 1.0 * distinct * DEEP_D + 4.0 * (M * DEEP_D + M * P)
+                + 8.0 * M * k)
+    phase("kernel", f"time emit {EDGE_N} x {DEEP_D} int8 m={M} seg={seg32}: {emit_ms:.3f} ms "
+                    f"(m={EDGE_CHECK_QUERIES} {emit16_ms:.3f} ms, plain {emit16_plain_ms:.3f} "
+                    f"ms), bound {e_b[0]:.3f} ms ({e_b[1]}); rescan P={P} k={k} {res_ms:.3f} ms, "
+                    f"plain {res_plain_ms:.3f} ms, bound {r_b[0]:.3f} ms ({r_b[1]}); card [{smi}]")
+    rows_out["twophase_emit"].append(at_scale_row(
+        f"{EDGE_N} x {DEEP_D} int8 m={M} seg={seg32} (plain at m={EDGE_CHECK_QUERIES})",
+        emit_ms, emit16_plain_ms, e_b, None, e_err, ms_m16=emit16_ms))
+    rows_out["twophase_rescan"].append(at_scale_row(
+        f"{EDGE_N} x {DEEP_D} int8 m={M} P={P} seg={seg32} k={k}", res_ms, res_plain_ms, r_b,
+        None, r_err))
+    del srv, X8, Y, yr, y16, starts, qk
+    torch.cuda.empty_cache()
+
+    # 5. rank against two-phase at 8M x 128 (drawn on the card) and 10M x 96
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    Xf = torch.randn(8 * N, 128, generator=gen, device=dev)
+    ratios = dict(ratios or {})
+    for label, Xs in (("f32", Xf), ("bf16", Xf.to(torch.bfloat16))):
+        ratios[label, 8 * N] = crossover_ratio(label, Xs, Y128, k)
+    del Xf, Xs
+    for label in ("f32", "bf16"):
+        ratios[label, DEEP_N] = ten_m[label]
+        phase("crossover", f"{label} n={DEEP_N} d={DEEP_D} m={M} k={k} seg={seg}: two-phase/rank "
+                           f"{ten_m[label]:.3f} (the deep10m kernel lines)")
+    twophase_rule(ratios)
+    torch.cuda.empty_cache()
+    return rows_out
 
 
 def merge_paths(srv, serve, results, read_counts, X, Y) -> None:

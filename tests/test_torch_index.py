@@ -48,7 +48,7 @@ def assert_same(t: ANNIndex, j: JIndex):
 def test_jax_npz_loads_in_port_and_back(jax_index, tmp_path):
     jidx, _ = jax_index
     jidx.save(str(tmp_path / "j.npz"))
-    tidx = ANNIndex.load(str(tmp_path / "j.npz"))
+    tidx = ANNIndex.load(str(tmp_path / "j.npz"), device="cpu")
     assert_same(tidx, jidx)
     tidx.save(str(tmp_path / "t.npz"))
     back = JIndex.load(str(tmp_path / "t.npz"))
@@ -65,20 +65,20 @@ def test_from_numpy_is_the_weight_carrier(jax_index, tmp_path):
     jidx.save(str(tmp_path / "j.npz"))
     with np.load(tmp_path / "j.npz") as z:
         a = ANNIndex.from_numpy(z, device="cpu")
-    b = ANNIndex.load(str(tmp_path / "j.npz"))
+    b = ANNIndex.load(str(tmp_path / "j.npz"), device="cpu")
     for f in FIELDS:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     # the JAX index's own leaves, as np.asarray gives them, work as well
     leaves = {f: np.asarray(getattr(jidx, f)) for f in FIELDS}
     leaves["meta"] = np.array([jidx.n, jidx.k, jidx.d, jidx.d_short, jidx.tries, jidx.tmax])
-    assert_same(ANNIndex.from_numpy(leaves), jidx)
+    assert_same(ANNIndex.from_numpy(leaves, device="cpu"), jidx)
 
 
 def test_half_precision_stash_round_trip(jax_index, tmp_path):
     jidx, X = jax_index
     jb = dataclasses.replace(jidx, points=jnp.asarray(X, jnp.bfloat16))
     jb.save(str(tmp_path / "jb.npz"))
-    tb = ANNIndex.load(str(tmp_path / "jb.npz"))
+    tb = ANNIndex.load(str(tmp_path / "jb.npz"), device="cpu")
     assert tb.points.dtype == torch.bfloat16
     assert_same(tb, jb)
     tb.save(str(tmp_path / "tb.npz"))
@@ -90,7 +90,7 @@ def test_half_precision_stash_round_trip(jax_index, tmp_path):
     # ml_dtypes bfloat16 arrays straight from jax are accepted too
     leaves = {f: np.asarray(getattr(jb, f)) for f in FIELDS + ("points",)}
     leaves["meta"] = np.array([jb.n, jb.k, jb.d, jb.d_short, jb.tries, jb.tmax])
-    assert ANNIndex.from_numpy(leaves).points.dtype == torch.bfloat16
+    assert ANNIndex.from_numpy(leaves, device="cpu").points.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("method", ["add_points", "remove_points", "with_depth",
@@ -101,7 +101,7 @@ def test_unported_updates_raise(jax_index, tmp_path, method):
     stores none, as the JAX package requires)."""
     jidx, X = jax_index
     jidx.save(str(tmp_path / "j.npz"))
-    tidx = ANNIndex.load(str(tmp_path / "j.npz"))
+    tidx = ANNIndex.load(str(tmp_path / "j.npz"), device="cpu")
     Y = X[:3] + 0.25
     args = {"add_points": ((jnp.asarray(Y),), (torch.from_numpy(Y),), {"points": X}),
             "remove_points": (([1, 2, 600],), ([1, 2, 600],), {}),

@@ -95,7 +95,7 @@ def built(tmp_path_factory):
     jidx, _, _ = jann.build(jnp.asarray(X), K, tries=TRIES, seed=3, store_points=True)
     path = str(tmp_path_factory.mktemp("idx") / "j.npz")
     jidx.save(path)
-    return X, Y, jidx, ANNIndex.load(path)
+    return X, Y, jidx, ANNIndex.load(path, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +107,7 @@ def views(built):
     out = {}
     for name, dt in (("f32", None), ("int8", jnp.int8)):
         jpv = jidx.packed(dtype=dt)
-        out[name] = (jpv, PackedIndex.from_numpy(jax_view_arrays(jpv)))
+        out[name] = (jpv, PackedIndex.from_numpy(jax_view_arrays(jpv), device="cpu"))
     return out
 
 
@@ -208,7 +208,7 @@ def test_packed_save_load_both_ways(built, tmp_path, dt):
     # the JAX view (rows lane-padded to 128) -> npz -> the port: pad lanes go
     jpv = jidx.packed(dtype=jdt)
     jpv.save(str(tmp_path / "j.npz"))
-    tl = PackedIndex.load(str(tmp_path / "j.npz"))
+    tl = PackedIndex.load(str(tmp_path / "j.npz"), device="cpu")
     assert jpv.lane_dim == 128 and tl.point_rows.shape == (TRIES * tl.n_pad, D)
     assert tl.point_rows.dtype == (tdt or torch.float32)
     np.testing.assert_array_equal(tl.point_rows.float().numpy(),
@@ -238,7 +238,7 @@ def test_search_packed_matches_jax(built, case, tmp_path):
         jidx, _, _ = jann.build(jnp.asarray(X), K, tries=TRIES, seed=5, metric=metric,
                                 store_points=True)
         jidx.save(str(tmp_path / "a.npz"))
-        tidx = ANNIndex.load(str(tmp_path / "a.npz"))
+        tidx = ANNIndex.load(str(tmp_path / "a.npz"), device="cpu")
     jpv, tpv = jidx.packed(), tidx.packed()
     if window is not None:
         jpv, tpv = jpv.with_window(window), tpv.with_window(window)

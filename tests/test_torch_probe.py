@@ -63,7 +63,7 @@ def views(tmp_path_factory):
         jpv = jidx.packed(dtype=dt)
         path = str(tmp_path_factory.mktemp("pv") / f"{name}.npz")
         jpv.save(path)
-        out[name] = (jpv, PackedIndex.load(path))
+        out[name] = (jpv, PackedIndex.load(path, device="cpu"))
     return X, Y, out
 
 

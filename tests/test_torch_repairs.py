@@ -69,7 +69,7 @@ def built(tmp_path_factory):
     jidx, _, _ = jann.build(jnp.asarray(X), K, tries=2, seed=3, store_points=True)
     path = str(tmp_path_factory.mktemp("idx") / "j.npz")
     jidx.save(path)
-    tidx = ANNIndex.load(path)
+    tidx = ANNIndex.load(path, device="cpu")
     jc, _ = j_query_codes(jidx.row_means, jidx.bases, jnp.asarray(Y))
     tc, _ = t_query_codes(tidx.row_means, tidx.bases, T(Y))
     agree = tc.numpy() == np.asarray(jc)

@@ -59,7 +59,7 @@ def jax_built(data, tmp_path_factory):
     jidx, jgraph, jgd = jann.build(jnp.asarray(X), K, tries=TRIES, seed=3)
     path = str(tmp_path_factory.mktemp("idx") / "j.npz")
     jidx.save(path)
-    return jidx, jgraph, jgd, ANNIndex.load(path)
+    return jidx, jgraph, jgd, ANNIndex.load(path, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [

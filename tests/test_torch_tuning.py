@@ -63,7 +63,7 @@ def tune_both(X, Q, k, tmp_path, monkeypatch, **kw):
     jrep = jtune(X, k, queries=Q, measure=False, **kw)
     path = str(tmp_path / "tuned.npz")
     jrep._index.save(path)
-    carried = ANNIndex.load(path)
+    carried = ANNIndex.load(path, device="cpu")
     seen = {}
 
     def fake_build(points, kk, **bkw):

@@ -49,7 +49,7 @@ def assert_search_match(jidx, tidx, Y, a, b):
 
 def carry(jidx, tmp_path):
     jidx.save(str(tmp_path / "idx.npz"))
-    return ANNIndex.load(str(tmp_path / "idx.npz"))
+    return ANNIndex.load(str(tmp_path / "idx.npz"), device="cpu")
 
 
 @pytest.fixture(scope="module")
