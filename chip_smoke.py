@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--kernel-only | --deep10m-only]
+    python3 chip_smoke.py [--seed 0] [--kernel-only | --deep10m-only | --bench-only]
                           [--deep10m-graph-precision default|split3|highest]
 
 Phases, one line each, and a non-zero exit on the first failure:
@@ -8,6 +8,17 @@ Phases, one line each, and a non-zero exit on the first failure:
 0. environment: torch/CUDA versions, the card's name and power limit;
 1. build of the CUDA kernels from ``approximatenn_tpu_torch/csrc`` (one
    nvcc per source, started together);
+1b. the headline bench: ``python3 bench_torch.py`` in its own process
+   (``bench.py``'s config: 20,000 x 128 from ``default_rng(12345)``, a hash
+   build at tries 10, 1000 queries, the exact round-5 protocol and the 1M
+   tiers), its one JSON line parsed and gated: every key of ``bench.py``'s
+   line, ``device`` the card's name and power limit, the exact ids at 20k
+   and at 1M ("highest" and split3) 1.0 up to ties against the float64
+   oracle, the 20k hash search equal to the same index's search on the
+   CPU, ``Server`` auto on the rank kernel; its stderr (kernel-build
+   seconds, host syncs, launch counts) echoed; the rank kernel at the bench's
+   shape against its plain version, timed beside the library call and its
+   bound.  ``--bench-only`` stops after it;
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes and the degenerate ones.  Rank kernel: serving f32 and
    bf16; one exact-graph chunk of 65,536 corpus rows with ``exclude`` = own
@@ -174,6 +185,7 @@ import dataclasses
 import io
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -185,6 +197,7 @@ import torch
 import torch.distributed as dist
 
 import approximatenn_tpu_torch as ann
+import bench_torch
 from approximatenn_tpu_torch.data.datasets import ensure_groundtruth, synthesize
 from approximatenn_tpu_torch.data.synthetic import clustered_gaussian, gaussian
 from approximatenn_tpu_torch.engine.search import probe_starts
@@ -301,6 +314,10 @@ DEEP_GRAPH_PRECISION = "default"
 # the int8 route's edge: EXACT_MAX_N_DEFAULT x 4 rows; queries for the
 # plain versions (2^31-byte corpora) and for the float64 oracle
 EDGE_N, EDGE_CHECK_QUERIES, EDGE_RECALL_QUERIES = 32_000_000, 16, 100
+# bench_torch.py run in its own process: its time limit, and the head of
+# the stderr line that carries its launch counts
+BENCH_TIMEOUT = 600
+BENCH_LAUNCHES = "[bench] launches "
 
 
 def phase(name: str, msg: str) -> None:
@@ -924,6 +941,108 @@ def tier_server(X, k, srv_twophase, serve, results, read_counts, smi) -> None:
                            + f"; card [{smi}]")
 
 
+def bench_phase(dev, smi, read_counts) -> dict:
+    """``python3 bench_torch.py`` in a fresh process, so that its cold build
+    is cold in its own process and its one-line contract is what is read;
+    it writes the ids it scored and its hash index to a temporary directory
+    (``bench_torch.KEEP_ENV``).  Gates: every key of ``bench.py``'s line;
+    ``device`` the card's name and power limit; the exact ids at 20k and at
+    1M ("highest" and split3) 1.0 up to ties against the float64 oracle (the
+    1M corpus drawn again here from the bench's generator, its float32
+    recall equal to the line's); the 20k hash search equal to the same
+    index's search on the CPU; ``Server`` auto on the rank kernel; the rank
+    kernel at the bench's shape against its plain version.  Returns the
+    bench's launch counts (its own process's, the main path of the run)
+    and the rank kernel's row at the bench's shape."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as keep_dir:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(root / "bench_torch.py")], cwd=root,
+                              env={**os.environ, bench_torch.KEEP_ENV: keep_dir},
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        bench_s = time.perf_counter() - t0
+        for line in proc.stderr.splitlines():
+            phase("bench", f"bench_torch.py stderr: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"bench_torch.py exited {proc.returncode}")
+        out = proc.stdout.strip().splitlines()
+        if len(out) != 1:
+            raise AssertionError(f"bench_torch.py printed {len(out)} lines on stdout, not one")
+        result = json.loads(out[0])
+        with np.load(Path(keep_dir) / "ids.npz") as z:
+            kept = {key: torch.from_numpy(z[key]).to(dev) for key in z.files}
+        index = ann.ANNIndex.load(str(Path(keep_dir) / "index.npz"), device=dev)
+    launches = [json.loads(line[len(BENCH_LAUNCHES):]) for line in proc.stderr.splitlines()
+                if line.startswith(BENCH_LAUNCHES)]
+    if not launches:
+        raise AssertionError("bench_torch.py printed no launch counts on stderr")
+    missing = [key for key in bench_torch.KEYS if key not in result]
+    if missing:
+        raise AssertionError(f"bench_torch.py's line lacks bench.py's keys {missing}")
+    if result["device"] != smi:
+        raise AssertionError(f"bench_torch.py's device {result['device']!r} is not {smi!r}")
+    phase("bench", f"python3 bench_torch.py: exit 0 in {bench_s:.2f} s; line: " + ", ".join(
+        f"{key} {result[key]}" for key in bench_torch.KEYS if key != "config"))
+    counts = read_counts("bench (bench_torch.py, its own process)",
+                         ("exact_knn", "exact_knn:split3"), launches[-1])
+
+    cfg = bench_torch.CONFIG
+    n, d, k, m = cfg["n"], cfg["d"], cfg["k"], cfg["ycnt"]
+    Xn, Yn = bench_torch.bench_data()
+    X, Y = torch.from_numpy(Xn).to(dev), torch.from_numpy(Yn).to(dev)
+    X64, Y64 = X.double(), Y.double()
+    true20 = oracle64(X64, Y64, k)
+    rec, tie = recall_up_to_ties(X64, Y64, kept["exact_ids"], true20, k)
+    if tie != 1.0:
+        raise AssertionError(f"bench exact ids at {n}: recall up to ties {tie}, not 1.0")
+    h_rec, h_tie = recall_up_to_ties(X64, Y64, kept["hash_ids"], true20, k)
+    sub = slice(0, CPU_CHECK_QUERIES)
+    n_cmp, n_tied = check_search_on_cpu(index, X, Y[sub], kept["hash_ids"][sub],
+                                        kept["hash_dists"][sub])
+    desc = ann.Server.build(X, k, mode="auto").describe()
+    if desc["mode"] != "exact" or desc["exact_engine"] != "cuda-rank":
+        raise AssertionError(f"Server auto at the bench's config is not the rank kernel: {desc}")
+    phase("bench", f"n={n} d={d} m={m} k={k}: exact ids vs f64 oracle recall@10 {rec:.4f} "
+                   f"(up to ties {tie:.4f}); hash ids {h_rec:.4f} (up to ties {h_tie:.4f}); "
+                   f"card vs CPU hash search on {CPU_CHECK_QUERIES} queries: {n_cmp} rows "
+                   f"compared, ids equal outside near-ties ({n_tied} near-tie rows); "
+                   f"Server auto: {desc['exact_engine']}")
+    del X64, Y64, index
+
+    X1, Y1 = bench_torch.data_1m(d, m, dev)
+    tq1 = brute_force_knn(X1, Y1, k)[0]
+    if round(recall_at_k(tq1.cpu().numpy(), kept["exact_1m_ids"].cpu().numpy(), k), 4) \
+            != result["exact_1m_recall_at_10"]:
+        raise AssertionError("the 1M corpus drawn here is not the bench's: its float32 "
+                             "recall differs from the line's")
+    X164, Y164 = X1.double(), Y1.double()
+    true1 = oracle64(X164, Y164, k)
+    ties = {}
+    for key in ("exact_1m", "exact_1m_split3", "exact_1m_bf16"):
+        ties[key] = recall_up_to_ties(X164, Y164, kept[f"{key}_ids"], true1, k)[1]
+        if key != "exact_1m_bf16" and ties[key] != 1.0:
+            raise AssertionError(f"bench {key} ids: recall up to ties {ties[key]}, not 1.0")
+    phase("bench", f"1M x {d} m={m} k={k} ids vs f64 oracle, recall@10 up to ties: " + ", ".join(
+        f"{key} {v:.4f}" for key, v in ties.items()))
+    del X1, Y1, X164, Y164, tq1, true1
+
+    # the rank kernel at the bench's shape: what exact_search launches there
+    err = check_case(f"bench shape n={n} d={d} m={m} k={k}", X, Y, k)
+    ms = cuda_ms(lambda: ex.exact_knn(X, Y, k), reps=200)
+    plain_ms = cuda_ms(lambda: ex.exact_knn_plain(X, Y, k), reps=20)
+    lib_ms = cuda_ms(lambda: torch.topk((X * X).sum(-1) - 2.0 * (Y @ X.T), k, largest=False),
+                     reps=200)
+    b = bound(2.0 * m * n * d, 4.0 * (n * d + m * d) + 8.0 * m * k)
+    call_ms = 1e3 * m / result["exact_qps"]
+    phase("kernel", f"time rank bench shape n={n} d={d} m={m} k={k}: kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, library topk {lib_ms:.4f} ms, bound {b[0]:.4f} "
+                    f"ms ({b[1]}); exact_search's pipelined call in the bench {call_ms:.4f} ms")
+    return {"launches": counts,
+            "rows": {"exact_knn": at_scale_row(f"{n} x {d} f32, m={m}, k={k} (bench_torch.py)",
+                                               ms, plain_ms, b, lib_ms, err,
+                                               call_ms=call_ms)}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -931,6 +1050,8 @@ def main() -> None:
                     help="stop after the kernel-vs-plain phase")
     ap.add_argument("--deep10m-only", action="store_true",
                     help="build the kernels, then run the deep10m phase alone")
+    ap.add_argument("--bench-only", action="store_true",
+                    help="build the kernels, then run the bench phase alone")
     ap.add_argument("--deep10m-graph-precision", default=DEEP_GRAPH_PRECISION,
                     choices=tuple(TIER_FLOORS),
                     help="the 10M exact graph's tier (default: %(default)s)")
@@ -986,6 +1107,12 @@ def main() -> None:
                            args.deep10m_graph_precision)
         print(json.dumps({"at_scale": at_scale, "launches": total}))
         phase("done", "deep10m-only run: the earlier paths not driven, no result line")
+        return
+
+    # -- phase 1b: the headline bench, bench_torch.py in its own process ------------
+    bench = bench_phase(dev, smi, read_counts)
+    if args.bench_only:
+        phase("done", "bench-only run: the other paths not driven, no result line")
         return
 
     # -- phase 2: kernels against plain versions ----------------------------------
@@ -1488,7 +1615,8 @@ def main() -> None:
         **{f"{field}_{tier}": tiers.get(name, {}).get(f"{field}_{tier}")
            for field in ("ms", "bound_ms", "library_ms", "max_abs_err") for tier in BF16_PASSES},
         **{f"launches_{tier}": total.get(f"{name}:{tier}") for tier in BF16_PASSES},
-        "launches_deep10m": deep_launches[name], "at_scale": at_scale[name]}
+        "launches_deep10m": deep_launches[name], "at_scale": at_scale[name],
+        "launches_bench": bench["launches"][name], "at_bench": bench["rows"].get(name)}
         for name, (src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
