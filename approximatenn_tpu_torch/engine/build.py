@@ -15,8 +15,6 @@ blocks, blocked only to bound the candidate-gather transient.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -28,6 +26,7 @@ from ..ops.distance import blocked_over_rows, candidate_dists, pick_block
 from ..ops.hash import probe_codes_directed, query_codes
 from ..ops.topk import dedup_topk
 from ..ops.transforms import derive_dims, materialize_bases, sample_ortho_params_batch
+from ..utils.profiling import build_stage
 
 
 def resolve_capacity(counts: torch.Tensor, capacity) -> int:
@@ -185,7 +184,8 @@ def build(
     in JAX.  ``stage_times``: a :class:`~..utils.profiling.StageTimes` that
     records the stages "hash" (centre, transforms, codes), "tables" (the
     per-table bucket sorts; inside "graph" for the hash graph) and "graph"
-    (the kNN graph), each fenced.
+    (the kNN graph), each fenced.  Each stage is the span ``build.<stage>``
+    whether or not ``stage_times`` is given.
     """
     from ..data.preprocess import prepare_points
 
@@ -204,8 +204,7 @@ def build(
         raise ValueError(f"d_short={d_short} too large (bucket table 2^{d_short})")
 
     def stage(name):
-        return (contextlib.nullcontext([]) if stage_times is None
-                else stage_times.stage(name))
+        return build_stage(name, stage_times, rows=n)
 
     with stage("hash") as sink:
         row_means, bases, codes, counts = hash_stage(

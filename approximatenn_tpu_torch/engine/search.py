@@ -22,6 +22,7 @@ from ..index import ANNIndex, PackedIndex
 from ..ops.distance import blocked_over_rows, candidate_dists, pick_block
 from ..ops.hash import probe_codes, probe_codes_directed, query_codes
 from ..ops.topk import dedup_topk
+from ..utils.profiling import span
 
 
 def search_impl(index: ANNIndex, points, queries, block_rows: int,
@@ -169,7 +170,9 @@ def search_packed_fused_impl(pi: PackedIndex, points, queries,
     ``[start, start + window)`` (widened to the kernel's alignment), the
     per-table distance and top-k run in the kernel, and only the ``tries *
     kk`` winners per query come back for the id lookup, the cross-table
-    merge and supercharge, in PyTorch as in the JAX package."""
+    merge and supercharge, in PyTorch as in the JAX package.  The four
+    stages are the spans ``search.codes``, ``search.probe``,
+    ``search.merge`` and ``search.supercharge``."""
     from ..ops.probe import probe_topk
 
     n, k, tries = pi.n, pi.k, pi.tries
@@ -178,22 +181,26 @@ def search_packed_fused_impl(pi: PackedIndex, points, queries,
     window = max(1, min(int(pi.window if window is None else window), n_pad))
     dev = pi.device
     m = queries.shape[0]
-    q = queries.to(pi.bases.dtype)
-    start = probe_starts(pi, q, n_probes, window)
-    # int8 rows: the kernel ranks q / scale against round(x / scale) and one
-    # multiply by scale^2 restores the true distances
-    qp = q if pi.scale is None else q.float() / pi.scale
-    pos, dd = probe_topk(pi.point_rows, qp, start, k=kk, n=pi.live_bound, n_pad=n_pad,
-                         window=window)
-    if pi.scale is not None:
-        dd = dd * (pi.scale * pi.scale)
-    slot_off = (torch.arange(tries, device=dev) * n_pad)[None, :, None]
-    ids_flat = pi.ids.reshape(-1)
-    wids = ids_flat[torch.clamp(pos + slot_off, max=ids_flat.shape[0] - 1).long()]
-    wids = torch.where(torch.isinf(dd), n, wids)
-    dd = torch.where(wids == n, float("inf"), dd)
-    t1, td1 = dedup_topk(wids.reshape(m, -1), dd.reshape(m, -1), kk, n)
-    return _finish(pi, points, q, t1, td1, kk, supercharge_rounds)
+    with span("search.codes", rows=m):
+        q = queries.to(pi.bases.dtype)
+        start = probe_starts(pi, q, n_probes, window)
+    with span("search.probe", rows=m):
+        # int8 rows: the kernel ranks q / scale against round(x / scale) and
+        # one multiply by scale^2 restores the true distances
+        qp = q if pi.scale is None else q.float() / pi.scale
+        pos, dd = probe_topk(pi.point_rows, qp, start, k=kk, n=pi.live_bound, n_pad=n_pad,
+                             window=window)
+        if pi.scale is not None:
+            dd = dd * (pi.scale * pi.scale)
+    with span("search.merge", rows=m):
+        slot_off = (torch.arange(tries, device=dev) * n_pad)[None, :, None]
+        ids_flat = pi.ids.reshape(-1)
+        wids = ids_flat[torch.clamp(pos + slot_off, max=ids_flat.shape[0] - 1).long()]
+        wids = torch.where(torch.isinf(dd), n, wids)
+        dd = torch.where(wids == n, float("inf"), dd)
+        t1, td1 = dedup_topk(wids.reshape(m, -1), dd.reshape(m, -1), kk, n)
+    with span("search.supercharge", rows=m):
+        return _finish(pi, points, q, t1, td1, kk, supercharge_rounds)
 
 
 def _packed_inputs(pindex: PackedIndex, points, queries):

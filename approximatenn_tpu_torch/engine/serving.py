@@ -23,18 +23,17 @@ The JAX package's lane-padded corpus is TPU layout and is not ported.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass, field
 from typing import Any
 
 import torch
-from torch.profiler import record_function
 
 from ..config import default_device
 from ..ops.exact import KMAX, exact_kernel, exact_search, stream_dtype
 from ..ops.twophase import TWOPHASE_MIN_N
 from ..ops.twophase import TWOPHASE_ONLY_KW as _TWOPHASE_ONLY_KW
 from ..ops.twophase import exact_knn_twophase, route
+from ..utils.profiling import build_stage, span
 
 # the JAX package's defaults (see the module docstring)
 EXACT_MAX_N_DEFAULT = 8_000_000
@@ -102,60 +101,61 @@ class Server:
         defaults to a tensor's own device and to the CUDA card otherwise
         (see :func:`config.default_device`).  A ``stage_times`` build
         keyword (:class:`~..utils.profiling.StageTimes`) also records the
-        packed view's stage, "pack"."""
+        packed view's stage, "pack".  The call is the root span
+        ``server.build``, each stage the span ``build.<stage>``."""
         if layout not in ("table", "packed"):
             raise ValueError(f"unknown layout {layout!r}")
-        points = torch.as_tensor(points, device=default_device(points, device))
-        from ..data.preprocess import prepare_points
+        with span("server.build", rows=len(points)):
+            points = torch.as_tensor(points, device=default_device(points, device))
+            from ..data.preprocess import prepare_points
 
-        quantized = storage_dtype == torch.int8
-        scale = None
-        if quantized:
-            if metric != "l2":
-                # normalize BEFORE quantizing: the grid covers the unit sphere
-                points = prepare_points(points.float(), metric)
-            from ..ops.exact import quantize_corpus
+            quantized = storage_dtype == torch.int8
+            scale = None
+            if quantized:
+                if metric != "l2":
+                    # normalize BEFORE quantizing: the grid covers the unit sphere
+                    points = prepare_points(points.float(), metric)
+                from ..ops.exact import quantize_corpus
 
-            points, s = quantize_corpus(points)
-            scale = float(s)
-        elif storage_dtype is not None:
-            points = points.to(storage_dtype)
-        n = points.shape[0]
-        if exact_max_n is None:
-            exact_max_n = EXACT_MAX_N_DEFAULT
-            if points.element_size() <= 2:
-                exact_max_n *= 2
-            if points.element_size() == 1:
-                exact_max_n *= 2
-        if mode == "auto":
-            # the JAX rule: k > 128 stays exact where the two-phase
-            # engine's big-k route applies
-            mode = ("exact" if quantized
-                    or (n <= exact_max_n and (k <= 128 or n >= 8 * (k + 2)))
-                    else "hash")
-        if mode not in ("exact", "hash"):
-            raise ValueError(f"unknown mode {mode!r}")
-        if quantized and mode != "exact":
-            raise ValueError("storage_dtype=int8 serves the exact engine only")
-        if metric != "l2" and not quantized:
-            points = prepare_points(points, metric)
-        tp_min = TWOPHASE_MIN_N if twophase_min_n is None else twophase_min_n
-        srv = cls(points=points, k=k, mode=mode, metric=metric,
-                  n_probes=n_probes, scale=scale, twophase_min_n=tp_min,
-                  fused_min_batch=fused_min_batch,
-                  _twophase=(mode == "exact" and n >= tp_min and k + 2 <= KMAX
-                             and points.element_size() <= 4))
-        if mode == "hash":
-            from .build import build
+                points, s = quantize_corpus(points)
+                scale = float(s)
+            elif storage_dtype is not None:
+                points = points.to(storage_dtype)
+            n = points.shape[0]
+            if exact_max_n is None:
+                exact_max_n = EXACT_MAX_N_DEFAULT
+                if points.element_size() <= 2:
+                    exact_max_n *= 2
+                if points.element_size() == 1:
+                    exact_max_n *= 2
+            if mode == "auto":
+                # the JAX rule: k > 128 stays exact where the two-phase
+                # engine's big-k route applies
+                mode = ("exact" if quantized
+                        or (n <= exact_max_n and (k <= 128 or n >= 8 * (k + 2)))
+                        else "hash")
+            if mode not in ("exact", "hash"):
+                raise ValueError(f"unknown mode {mode!r}")
+            if quantized and mode != "exact":
+                raise ValueError("storage_dtype=int8 serves the exact engine only")
+            if metric != "l2" and not quantized:
+                points = prepare_points(points, metric)
+            tp_min = TWOPHASE_MIN_N if twophase_min_n is None else twophase_min_n
+            srv = cls(points=points, k=k, mode=mode, metric=metric,
+                      n_probes=n_probes, scale=scale, twophase_min_n=tp_min,
+                      fused_min_batch=fused_min_batch,
+                      _twophase=(mode == "exact" and n >= tp_min and k + 2 <= KMAX
+                                 and points.element_size() <= 4))
+            if mode == "hash":
+                from .build import build
 
-            srv.index, _, _ = build(points, k, metric=metric, store_points=True,
-                                    **build_kw)
-            if layout == "packed":
-                st = build_kw.get("stage_times")
-                with (contextlib.nullcontext([]) if st is None else st.stage("pack")) as sink:
-                    srv.packed = srv.index.packed(window=window, dtype=packed_dtype)
-                    sink.append(srv.packed.point_rows)
-        return srv
+                srv.index, _, _ = build(points, k, metric=metric, store_points=True,
+                                        **build_kw)
+                if layout == "packed":
+                    with build_stage("pack", build_kw.get("stage_times"), rows=n) as sink:
+                        srv.packed = srv.index.packed(window=window, dtype=packed_dtype)
+                        sink.append(srv.packed.point_rows)
+            return srv
 
     def _route_twophase(self, k: int, no_twophase: bool = False,
                         skw: dict | None = None) -> bool:
@@ -175,7 +175,12 @@ class Server:
 
     def search(self, queries, k: int | None = None, **kw):
         """k exact or approximate nearest neighbours per query row: (ids
-        int32, squared distances), sentinel n past the real candidates."""
+        int32, squared distances), sentinel n past the real candidates.
+        The call is the root span ``server.search``."""
+        with span("server.search", rows=len(queries)):
+            return self._search(queries, k, kw)
+
+    def _search(self, queries, k: int | None, kw: dict):
         k = self.k if k is None else k
         queries = torch.as_tensor(queries, device=self.points.device)
         if self.mode == "exact":
@@ -274,7 +279,7 @@ class Server:
             return self
         self.index = self.index.add_points(new_points)
         self.points = self.index.points
-        with record_function("add_points: re-pack"):
+        with span("add_points: re-pack", rows=len(new_points)):
             self._repack()
         return self
 

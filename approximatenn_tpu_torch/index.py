@@ -27,9 +27,9 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .config import default_device, itype
+from .utils.profiling import span
 
 _HALF = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 _TORCH_NAME = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
@@ -219,7 +219,7 @@ class ANNIndex:
         # bulk append per table: rank each new point within its bucket
         # (stable sort + searchsorted) and write slot counts[b] + rank;
         # slots past the capacity are dropped
-        with record_function("add_points: bucket append"):
+        with span("add_points: bucket append", rows=m):
             codes, _ = query_codes(self.row_means, self.bases, new_points)
             counts = self.counts.clone()
             arange_m = torch.arange(m, device=dev)
@@ -237,7 +237,7 @@ class ANNIndex:
         # the self-match and removed rows masked by id and the row re-sorted
         n_dead = 0 if self.dead is None else int(self.dead.sum())
         kk = min(self.k + 1 + n_dead, n_new)
-        with record_function("add_points: exact rows"):
+        with span("add_points: exact rows", rows=m):
             gnew, gd = exact_search(all_points, new_points, kk)
         gnew, gd = gnew.to(itype), gd.float()
         own = (n_old + torch.arange(m, dtype=itype, device=dev))[:, None]
@@ -253,7 +253,7 @@ class ANNIndex:
         graph = torch.cat([graph, gnew])
 
         if repair_reverse_edges:
-            with record_function("add_points: reverse-edge repair"):
+            with span("add_points: reverse-edge repair", rows=m):
                 aff = torch.unique(gnew)
                 aff = aff[aff < n_old]
                 if self.dead is not None and aff.numel():

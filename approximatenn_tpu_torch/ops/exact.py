@@ -51,6 +51,7 @@ from pathlib import Path
 import torch
 
 from ..config import default_device, itype
+from ..utils.profiling import span
 
 KMAX = 128
 _MAX_SPLITS = 32
@@ -433,7 +434,8 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
     sources).  ``compute_dtype`` (torch.float32, bfloat16
     or float16) is the width the corpus streams at; see the module
     docstring for the norms each kernel takes.  The JAX kernels' TPU knobs
-    (``tile``, ``query_block``, ``interpret``) raise ``ValueError``.
+    (``tile``, ``query_block``, ``interpret``) raise ``ValueError``.  The
+    rank kernel's CUDA route is the span ``exact.rank``.
 
     ``merge="twophase"`` is the JAX package's two-phase merge: the emit
     kernel's per-``twophase_seg``-row segment minima, then the k best of
@@ -469,10 +471,11 @@ def exact_knn(points: torch.Tensor, queries: torch.Tensor, k: int, *,
         pts, q, qn, pn, scale2 = _replace_worst_inputs(points, queries, scale, compute_dtype)
         return _split_launch("rescan_merge_knn", "exact_knn_rescan", pts, q, qn, pn, k,
                              exclude, scale2, stream_tier(pts.dtype, matmul_precision))
-    pts = compute_corpus(points, compute_dtype)
-    q, qn, scale2 = _prepare(pts, queries, scale)
-    return _split_launch("exact_knn", "exact_knn", pts, q, qn, None, k, exclude, scale2,
-                         stream_tier(pts.dtype, matmul_precision))
+    with span("exact.rank", rows=queries.shape[0]):
+        pts = compute_corpus(points, compute_dtype)
+        q, qn, scale2 = _prepare(pts, queries, scale)
+        return _split_launch("exact_knn", "exact_knn", pts, q, qn, None, k, exclude, scale2,
+                             stream_tier(pts.dtype, matmul_precision))
 
 
 def _empty(k: int, dev):

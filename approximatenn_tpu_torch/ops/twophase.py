@@ -31,6 +31,7 @@ import math
 import torch
 
 from ..config import itype
+from ..utils.profiling import span
 from .exact import (_DTYPE_CODE, KMAX, TIER_CODE, _check, _prepare, count_launch, device_index,
                     dist_dot, gather_geometry, launch_error, launches, place, splits,
                     stream_tier, tile_geometry, _library)
@@ -370,7 +371,8 @@ def exact_knn_twophase(points, queries, k: int, *, seg: int | None = None,
     "dma" runs the rescan kernel on a CUDA corpus (the name is the JAX
     package's); "xla" the gather form, which is also the kernel's plain
     version and what every CPU tensor runs.  Takes tensors or array-likes,
-    placed as :func:`~.exact.exact_search` places them (``device``)."""
+    placed as :func:`~.exact.exact_search` places them (``device``).  Emit,
+    segment pick and rescan are the span ``exact.twophase``."""
     points, queries = place(points, queries, device)
     _check(points, queries, k, None, matmul_precision)
     if rescan not in ("dma", "xla"):
@@ -381,31 +383,32 @@ def exact_knn_twophase(points, queries, k: int, *, seg: int | None = None,
     seg = auto_seg(n) if seg is None else seg
     _check_seg(seg)
     P = k + pad_segments
-    sel, _ = segment_merge(points, queries, P, seg, scale=scale,
-                           matmul_precision=matmul_precision)
-    # the picked segments are unique per query, so their windows are
-    # disjoint; an exhausted pick (id n) starts at n and reads nothing
-    starts = torch.where(sel < n, sel // seg * seg, torch.full_like(sel, n))
-    q, _, scale2 = _prepare(points, queries, scale)
-    if rescan == "xla":
-        fn = rescan_windows_plain
-    else:
-        fn = rescan_windows
-    if k <= KMAX:
-        ids, dd = fn(points, q, starts, seg, k)
-    else:
-        # emit-all in query blocks that keep the (block, P*seg) pool and its
-        # int64 selection keys near 256 MB each
-        block = max(1, min(queries.shape[0], (32 << 20) // (P * seg)))
-        parts_i, parts_d = [], []
-        for lo in range(0, queries.shape[0], block):
-            pos, dd_all = fn(points, q[lo: lo + block], starts[lo: lo + block], seg, None)
-            d_k, i_k = smallest(dd_all, pos, k)
-            parts_i.append(i_k)
-            parts_d.append(d_k)
-        ids = torch.cat(parts_i) if parts_i else torch.empty((0, k), dtype=itype,
-                                                             device=points.device)
-        dd = torch.cat(parts_d) if parts_d else torch.empty((0, k), device=points.device)
-    inf = torch.isinf(dd)
-    ids = torch.where(inf, torch.full_like(ids, n), ids)
-    return ids, dd * scale2
+    with span("exact.twophase", rows=queries.shape[0]):
+        sel, _ = segment_merge(points, queries, P, seg, scale=scale,
+                               matmul_precision=matmul_precision)
+        # the picked segments are unique per query, so their windows are
+        # disjoint; an exhausted pick (id n) starts at n and reads nothing
+        starts = torch.where(sel < n, sel // seg * seg, torch.full_like(sel, n))
+        q, _, scale2 = _prepare(points, queries, scale)
+        if rescan == "xla":
+            fn = rescan_windows_plain
+        else:
+            fn = rescan_windows
+        if k <= KMAX:
+            ids, dd = fn(points, q, starts, seg, k)
+        else:
+            # emit-all in query blocks that keep the (block, P*seg) pool and its
+            # int64 selection keys near 256 MB each
+            block = max(1, min(queries.shape[0], (32 << 20) // (P * seg)))
+            parts_i, parts_d = [], []
+            for lo in range(0, queries.shape[0], block):
+                pos, dd_all = fn(points, q[lo: lo + block], starts[lo: lo + block], seg, None)
+                d_k, i_k = smallest(dd_all, pos, k)
+                parts_i.append(i_k)
+                parts_d.append(d_k)
+            ids = torch.cat(parts_i) if parts_i else torch.empty((0, k), dtype=itype,
+                                                                 device=points.device)
+            dd = torch.cat(parts_d) if parts_d else torch.empty((0, k), device=points.device)
+        inf = torch.isinf(dd)
+        ids = torch.where(inf, torch.full_like(ids, n), ids)
+        return ids, dd * scale2

@@ -2935,12 +2935,65 @@ def updates(srv, Yc, seed: int, dev, read_counts) -> None:
     del before
 
 
+def kernel_rows(prof) -> list:
+    """(device us, launches, name) of each kernel, copy and set in a
+    profile: the card's own rows, as torch's table sums them.  Not a host
+    op's row, which carries its kernels' time again, and not a range's
+    device-side row (a user annotation: a span's, an ``add_points:``
+    range's), which marks the card's span of the kernels under it."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if (ev.device_type != DeviceType.CUDA or ev.is_user_annotation
+                or ev.key in NOT_KERNELS):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    return rows
+
+
+def range_times(prof, prefix: str) -> dict:
+    """``{name: (host s, device s)}`` of the host ranges whose name starts
+    with ``prefix``.  A range's device time is the card's span of its
+    kernels, from the first one's start to the last one's end: the tracer
+    gives each kernel to the innermost range open at its launch and marks
+    that range's span on the card, so the spans opened inside a range
+    (``exact.rank`` or ``exact.twophase`` in the exact rows) count toward
+    it."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    owner, host = {}, {}
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and ev.name.startswith(prefix):
+            host[ev.name] = host.get(ev.name, 0.0) + ev.cpu_time_total / 1e6
+            owner[ev.name] = ev.name
+            todo = list(ev.cpu_children)
+            while todo:
+                child = todo.pop()
+                if child.is_user_annotation:
+                    owner.setdefault(child.name, ev.name)
+                todo.extend(child.cpu_children)
+    ends: dict = {}
+    for ev in events:
+        if ev.device_type != DeviceType.CPU and ev.is_user_annotation and ev.name in owner:
+            name = owner[ev.name]
+            lo, hi = ends.get(name, (ev.time_range.start, ev.time_range.end))
+            ends[name] = (min(lo, ev.time_range.start), max(hi, ev.time_range.end))
+    return {name: (h, (ends[name][1] - ends[name][0]) / 1e6 if name in ends else 0.0)
+            for name, h in host.items()}
+
+
 def profile_add(srv, new) -> None:
     """``srv.add_points(new)`` under torch.profiler: device time of the
     stages (the ``add_points:`` ranges: bucket append, exact rows,
-    reverse-edge repair, re-pack; each range's device time is the span of
-    the kernels it launched), then of the kernels, grouped as the exact
-    rows' emit, rescan and split merge, the rank kernel, the selection's
+    reverse-edge repair, re-pack; :func:`range_times`), then of the
+    kernels (:func:`kernel_rows`), grouped as the exact rows' emit,
+    rescan and split merge, the rank kernel, the selection's
     ``torch.topk`` and sort kernels, and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2950,21 +3003,13 @@ def profile_add(srv, new) -> None:
         srv.add_points(new)
         fence()
         wall_s = time.perf_counter() - t0
-    stages, kernels = {}, []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if ev.key.startswith("add_points:"):
-            dev_s, host_s = stages.get(ev.key, (0.0, 0.0))
-            stages[ev.key] = (dev_s + dev_us / 1e6, host_s + ev.cpu_time_total / 1e6)
-        elif dev_us > 0 and not ev.key.startswith("aten::") and ev.key not in NOT_KERNELS:
-            kernels.append((dev_us / 1e6, ev.count, ev.key))
+    stages = range_times(prof, "add_points:")
+    kernels = [(us / 1e6, count, key) for us, count, key in kernel_rows(prof)]
     busy = sum(r[0] for r in kernels)
     phase("updates", f"profile add {N_ADD} points: wall {wall_s:.3f} s under the profiler, "
                      f"device {busy:.3f} s, idle share {1 - busy / wall_s:.3f}; stages "
                      "(host s, device s): " + ", ".join(
-                         f"{key[12:]} {h:.3f}, {t:.3f}" for key, (t, h) in stages.items()))
+                         f"{key[12:]} {h:.3f}, {t:.3f}" for key, (h, t) in stages.items()))
     groups = {"emit": ("EmitSelect",), "rescan": ("rescan_kernel",),
               "split merge": ("split_merge",), "rank": ("RankSelect",),
               "topk and sort": ("topk", "TopK", "radix", "Radix", "sort", "Sort")}
@@ -3019,15 +3064,8 @@ def profile_serving(label, srv, Y, reps: int = 5) -> None:
             srv.search(Y)
         fence()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        # an aten op's device time is its kernels', which have rows of their own
-        if dev_us > 0 and not ev.key.startswith("aten::") and ev.key not in NOT_KERNELS:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = sorted(((us / 1e3, count, key) for us, count, key in kernel_rows(prof)),
+                  reverse=True)
     busy = sum(r[0] for r in rows)
     phase("profile", f"{label}, {reps} calls: wall {wall_ms / reps:.3f} ms "
                      f"per call, device {busy / reps:.3f} ms per call, idle share "
