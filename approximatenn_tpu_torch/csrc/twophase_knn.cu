@@ -37,7 +37,14 @@
 //     reduces per 32-row chunk, a shorter one in lane groups.  Splits are
 //     cut on segment boundaries (knn_tile.cuh:launch_tiled's split_tiles),
 //     so every segment is reduced by one block and its pair goes straight
-//     to the output: no second pass.
+//     to the output: no second pass.  That loop costs ~5 ps a score at any
+//     precision, the MMAs a small part of it (26x the bf16 bound at
+//     Deep-10M's shape), so bf16 / f16 corpora of d a multiple of 8 up to
+//     128 (ops/twophase.py:emit_design) take knn_wgmma.cuh's pipeline
+//     instead: TMA-fed stages of 256 rows, wgmma with the accumulators read
+//     in place by EmitSelectWG below, 128 queries a block (9.2x faster at
+//     10M x 96, m = 10,000).  Float32 (every tier), int8 and other widths
+//     stay on the tile loop.
 //   * rescan scores m * P * seg (query, row) pairs (786 MB of row loads at
 //     1M, m = 1000, k = 10) at 3 flop per element; queries that pick the
 //     same segment share its rows, so the least it must read from memory
@@ -75,12 +82,180 @@
 
 #include "knn_gather.cuh"
 #include "knn_tile.cuh"
+#include "knn_wgmma.cuh"
 
 namespace {
 
 using namespace knn;
 
 constexpr int MAX_SPLITS = 32;
+
+// Emit's selection step on the Hopper pipeline (knn_wgmma.cuh), for bf16 /
+// f16 corpora: consumer thread (warp w of its warpgroup, lane = 4 g + tq)
+// holds the scores of queries A = 16 w + g and B = A + 8 against rows
+// t0 + 8 j + 2 tq + b (j < 32, b < 2) of each stage, in the accumulators.
+// It walks its columns in increasing row order keeping, per query, the
+// running (score, row) with a strict <, so a tie keeps the smaller row and
+// a NaN never enters; rows past n have norm +inf, so their scores are +inf
+// or NaN.  A segment of 256 rows or more spans whole stages and the pair
+// runs on from stage to stage; a shorter one spans seg / 8 of the 32
+// column groups.  Where a segment ends, two xor shuffles take the minimum
+// over the quad (the four threads hold the same queries, other columns),
+// ties to the smaller row, and the pair goes to a staging array of SB
+// segments a query in shared memory; a full array (or the unit's end) is
+// written out by the whole warpgroup, SB neighbouring segments of a query
+// side by side.  Every segment length has code of its own (no test inside
+// a stage): 4 instructions a score (FFMA, FSETP, two selects).  A query's
+// excluded row turns its products to -inf first, in the one stage that
+// holds it.
+template <typename T>
+struct EmitSelectWG {
+  static constexpr int SB = 16;      // segments staged a query
+  static constexpr int SS = SB + 1;  // staging row stride
+  static constexpr size_t STATE_BYTES = (size_t)wg::CONSUMERS * wg::WG_Q * SS * 8;
+
+  const wg::Args& a;
+  float* st_d;
+  int* st_i;
+  int wgi, wt, tq, qa;  // qa: query A's row in the warpgroup's 64
+  int q0, hi, staged, sbase;
+  int ex[2];               // queries A and B's excluded rows (-1: none)
+  float rb[2];             // the running pairs
+  int ri[2];
+
+  __device__ EmitSelectWG(const wg::Args& a_, unsigned char* state, int wgi_, int wt_)
+      : a(a_), wgi(wgi_), wt(wt_), tq(wt_ & 3),
+        qa(16 * (wt_ >> 5) + ((wt_ & 31) >> 2)) {
+    st_d = reinterpret_cast<float*>(state) + wgi * wg::WG_Q * SS;
+    st_i = reinterpret_cast<int*>(state + wg::CONSUMERS * wg::WG_Q * SS * 4) + wgi * wg::WG_Q * SS;
+  }
+
+  __device__ void begin(int q0_, int lo, int hi_) {
+    q0 = q0_;
+    hi = hi_;
+    staged = 0;
+    sbase = lo / a.seg;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + qa + 8 * i;
+      ex[i] = (a.excl && qi < a.m) ? a.excl[qi] : -1;
+      rb[i] = pos_inf();
+      ri[i] = lo + 2 * tq;
+    }
+  }
+
+  // the warpgroup writes its staged pairs out
+  __device__ void flush() {
+    wg::named_sync(1 + wgi, wg::WG);
+    for (int e = wt; e < wg::WG_Q * SB; e += wg::WG) {
+      const int r = e / SB, sl = e % SB;
+      const int qi = q0 + r, s = sbase + sl;
+      if (sl < staged && qi < a.m && s < a.n_seg) {
+        a.seg_d[(long long)qi * a.n_seg + s] = st_d[r * SS + sl];
+        a.seg_i[(long long)qi * a.n_seg + s] = st_i[r * SS + sl];
+      }
+    }
+    wg::named_sync(1 + wgi, wg::WG);
+    sbase += staged;
+    staged = 0;
+  }
+
+  // the running pairs are a segment's: the quad's minimum into the staging
+  __device__ void finish_segment() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, rb[i], off);
+        const int oi = __shfl_xor_sync(0xffffffffu, ri[i], off);
+        if (lex_less(od, oi, rb[i], ri[i])) { rb[i] = od; ri[i] = oi; }
+      }
+      if (tq == i) {
+        st_d[(qa + 8 * i) * SS + staged] = rb[i];
+        st_i[(qa + 8 * i) * SS + staged] = ri[i];
+      }
+    }
+    ++staged;
+  }
+
+  // one step of the running pairs: query i's column c (8 j + b of the
+  // stage) scores v
+  __device__ __forceinline__ static void step(float v, int c, float& b, int& bc) {
+    if (v < b) { b = v; bc = c; }
+  }
+
+  // a stage of segments of SEGJ column groups (seg = 8 SEGJ < 256 rows)
+  template <int SEGJ>
+  __device__ __forceinline__ void short_segments(const float (&acc)[128], const float* nq,
+                                                 int t0) {
+#pragma unroll
+    for (int j0 = 0; j0 < 32; j0 += SEGJ) {
+      float b0 = pos_inf(), b1 = pos_inf();
+      int c0 = 8 * j0, c1 = 8 * j0;
+#pragma unroll
+      for (int j = j0; j < j0 + SEGJ; ++j) {
+        const float2 nn = *reinterpret_cast<const float2*>(nq + 8 * j);
+        step(fmaf(-2.0f, acc[4 * j], nn.x), 8 * j, b0, c0);
+        step(fmaf(-2.0f, acc[4 * j + 1], nn.y), 8 * j + 1, b0, c0);
+        step(fmaf(-2.0f, acc[4 * j + 2], nn.x), 8 * j, b1, c1);
+        step(fmaf(-2.0f, acc[4 * j + 3], nn.y), 8 * j + 1, b1, c1);
+      }
+      rb[0] = b0;
+      rb[1] = b1;
+      ri[0] = t0 + 2 * tq + c0;
+      ri[1] = t0 + 2 * tq + c1;
+      finish_segment();
+      // seg = 8: 32 segments a stage, the staging is full halfway
+      if (SEGJ == 1 && j0 == 15) flush();
+    }
+  }
+
+  // a stage inside a segment of 256 rows or more: the running pairs go on
+  __device__ __forceinline__ void long_segment(const float (&acc)[128], const float* nq, int t0) {
+    if ((t0 & (a.seg - 1)) == 0) {
+      rb[0] = rb[1] = pos_inf();
+      ri[0] = ri[1] = t0 + 2 * tq;
+    }
+    float b0 = rb[0], b1 = rb[1];
+    int c0 = -1, c1 = -1;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float2 nn = *reinterpret_cast<const float2*>(nq + 8 * j);
+      step(fmaf(-2.0f, acc[4 * j], nn.x), 8 * j, b0, c0);
+      step(fmaf(-2.0f, acc[4 * j + 1], nn.y), 8 * j + 1, b0, c0);
+      step(fmaf(-2.0f, acc[4 * j + 2], nn.x), 8 * j, b1, c1);
+      step(fmaf(-2.0f, acc[4 * j + 3], nn.y), 8 * j + 1, b1, c1);
+    }
+    rb[0] = b0;
+    rb[1] = b1;
+    if (c0 >= 0) ri[0] = t0 + 2 * tq + c0;
+    if (c1 >= 0) ri[1] = t0 + 2 * tq + c1;
+    if (((t0 + wg::ROWS) & (a.seg - 1)) == 0 || t0 + wg::ROWS >= hi) finish_segment();
+  }
+
+  __device__ void tile(float (&acc)[128], const float* nq, int t0) {
+    // a query's excluded row in this stage: its products become -inf, so
+    // its score is +inf, as a row past n scores with its +inf norm
+    if ((unsigned)(ex[0] - t0) < (unsigned)wg::ROWS ||
+        (unsigned)(ex[1] - t0) < (unsigned)wg::ROWS) {
+      const int xa = ex[0] - t0 - 2 * tq, xb = ex[1] - t0 - 2 * tq;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + (e & 1) == ((e >> 1) ? xb : xa)) acc[4 * j + e] = -pos_inf();
+    }
+    switch (a.seg) {
+      case 8: short_segments<1>(acc, nq, t0); break;
+      case 16: short_segments<2>(acc, nq, t0); break;
+      case 32: short_segments<4>(acc, nq, t0); break;
+      case 64: short_segments<8>(acc, nq, t0); break;
+      case 128: short_segments<16>(acc, nq, t0); break;
+      default: long_segment(acc, nq, t0); break;
+    }
+    if (staged == SB || t0 + wg::ROWS >= hi) flush();
+  }
+};
 
 // Emit's selection step for the tile loop: warp w takes queries QPW w ..
 // QPW w + QPW - 1 and keeps their excluded ids and (seg >= TN) running
@@ -292,6 +467,20 @@ int emit(const void* pts, const float* q, const int* excl, int n, int d, int m, 
                                                          stream);
 }
 
+// Emit on the Hopper pipeline (bf16 / f16): the plan of the wrapper
+// (ops/twophase.py:emit_plan) gives split_rows, stages and blocks.
+template <typename T>
+int emit_wgmma(const void* pts, const float* q, const int* excl, int n, int d, int m, int seg,
+               int n_seg, int split_rows, int stages, int blocks, float* seg_d, int* seg_i,
+               cudaStream_t stream) {
+  const int n_qb = (m + wg::BLOCK_Q - 1) / wg::BLOCK_Q;
+  const long long units = (long long)n_qb * ((n + (long long)split_rows - 1) / split_rows);
+  if (units > INT32_MAX || blocks > units) return (int)cudaErrorInvalidValue;
+  const wg::Args a{q, excl, seg_d, seg_i, n, d, m, seg, n_seg, (d + 15) / 16,
+                   (d + wg::CHUNK - 1) / wg::CHUNK, stages, n_qb, (int)units, split_rows};
+  return (int)wg::launch<T, EmitSelectWG<T>>(pts, a, blocks, stream);
+}
+
 template <typename T>
 struct RescanLaunch {
   const void* pts;
@@ -386,6 +575,32 @@ int twophase_emit_launch(int device, const void* pts, int dtype, int tier, const
   }
 }
 
+// The emit on the Hopper pipeline (knn_wgmma.cuh): dtype 1 (bfloat16) or 2
+// (float16), d a multiple of 8 in [8, 128], seg a power of two >= 8.  The
+// corpus is cut into splits of split_rows rows (a multiple of max(seg,
+// 256)), each with every block of 128 queries a work unit; `blocks`
+// persistent blocks (at most the units) of `stages` ring stages walk them.
+// Returns the CUDA error code (0 = launched).
+int twophase_emit_wgmma_launch(int device, const void* pts, int dtype, const float* q,
+                               const int* excl, int n, int d, int m, int seg, int n_seg,
+                               int split_rows, int stages, int blocks, float* seg_d,
+                               int* seg_i, void* stream) {
+  if (!pow2(seg) || seg < 8 || n < 1 || m < 1 || d < 8 || d % 8 ||
+      d > wg::MAX_CHUNKS * wg::CHUNK || n_seg != (int)(((long long)n + seg - 1) / seg) ||
+      reinterpret_cast<uintptr_t>(pts) % 16 || split_rows < 1 ||
+      split_rows % (seg > wg::ROWS ? seg : wg::ROWS) || stages < wg::MIN_STAGES ||
+      stages > wg::MAX_STAGES || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1: return emit_wgmma<__nv_bfloat16>(pts, q, excl, n, d, m, seg, n_seg, split_rows, stages, blocks, seg_d, seg_i, s);
+    case 2: return emit_wgmma<__half>(pts, q, excl, n, d, m, seg, n_seg, split_rows, stages, blocks, seg_d, seg_i, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // starts (m, P) int32: window first rows, n = exhausted.  seg = 1 << seg_log.
 // k in [1, 128]: out_d/out_i hold m * k entries; k == 0 (emit all): m * P * seg.
 // The scorer's geometry (knn_gather.cuh): vec bytes a load, lanes a group.
@@ -430,6 +645,15 @@ int twophase_rescan_blocks_per_sm(int dtype, int vec) {
 // emit's geometry (the tile loop's): queries per block and corpus rows per tile
 int twophase_knn_query_block() { return knn::tile::QB; }
 int twophase_knn_tile_rows() { return knn::TN; }
+
+// the Hopper emit's geometry: queries a work unit, corpus rows a ring
+// stage, and the shared memory a block of `stages` stages of `chunks`
+// 32-feature chunks takes
+int twophase_emit_wgmma_query_block() { return knn::wg::BLOCK_Q; }
+int twophase_emit_wgmma_tile_rows() { return knn::wg::ROWS; }
+int twophase_emit_wgmma_smem(int stages, int chunks) {
+  return (int)knn::wg::smem_bytes(stages, chunks, EmitSelectWG<__nv_bfloat16>::STATE_BYTES);
+}
 
 const char* twophase_knn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -89,6 +89,10 @@ _ENTRY_POINTS = {
                                    _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
         "twophase_rescan_blocks_per_sm": [_ci, _ci],
         "twophase_knn_query_block": [], "twophase_knn_tile_rows": [],
+        "twophase_emit_wgmma_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
+                                       _ci, _ci, _ci, _vp, _vp, _vp],
+        "twophase_emit_wgmma_query_block": [], "twophase_emit_wgmma_tile_rows": [],
+        "twophase_emit_wgmma_smem": [_ci, _ci],
     },
     "probe_knn": {"probe_topk_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                         _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp]},
@@ -105,11 +109,12 @@ _ENTRY_POINTS = {
 # its selecting launches, k <= 128, apart from its emit-all ones).  The four
 # tensor-core kernels also count their launches at the bf16 tiers of a
 # float32 stream under "<kernel>:split3" and "<kernel>:default" (the kernel's
-# own key counts every launch).
+# own key counts every launch).  "twophase_emit:wgmma" counts the emit
+# launches of the Hopper pipeline (csrc/knn_wgmma.cuh) among "twophase_emit"'s.
 TIERED = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_emit")
 launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0,
             "twophase_rescan_all": 0, "probe_topk": 0, "exact_knn_rescan": 0,
-            "exact_knn_stream": 0,
+            "exact_knn_stream": 0, "twophase_emit:wgmma": 0,
             **{f"{name}:{tier}": 0 for name in TIERED for tier in ("split3", "default")}}
 _libs: dict = {}
 

@@ -107,7 +107,81 @@ def smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):
     return out_d, out_i
 
 
-# -- phase 1: the emit kernel and its plain version ---------------------------
+# -- phase 1: the emit kernels and their plain version -------------------------
+
+# The Hopper emit (csrc/knn_wgmma.cuh with twophase_knn.cu:EmitSelectWG):
+# queries a work unit, corpus rows a ring stage, features a swizzled chunk,
+# the widest row it takes, the fewest and most ring stages, and the shared
+# memory a block may use.  ``segment_minima`` checks the first two and the
+# shared memory against the built library.
+WG_QUERIES = 128
+WG_TILE_ROWS = 256
+WG_CHUNK = 32
+WG_MAX_D = 128
+WG_STAGES = (3, 8)
+SMEM_MAX = 232_448
+# segments staged a query (EmitSelectWG::SB), staging row stride SB + 1
+_WG_STATE = 2 * 64 * 17 * 8
+
+
+def wgmma_smem(stages: int, chunks: int) -> int:
+    """Bytes of shared memory of a Hopper emit block (``knn_wgmma.cuh:
+    smem_bytes``): alignment slack, ``stages`` ring stages of ``chunks``
+    chunks of 256 rows x 64 bytes, a norm slice and three barriers a
+    stage, the selection step's staging."""
+    return 1024 + stages * chunks * WG_TILE_ROWS * 64 + stages * WG_TILE_ROWS * 4 \
+        + 3 * stages * 8 + _WG_STATE
+
+
+def emit_design(dtype: torch.dtype, d: int, seg: int) -> str:
+    """Which emit kernel serves a corpus of ``dtype`` and width ``d`` at
+    segments of ``seg`` rows: "wgmma" (the Hopper pipeline: TMA-fed ring,
+    wgmma, segment minima reduced in registers) for bf16 and f16 rows whose
+    pitch is a multiple of 16 bytes (d a multiple of 8, TMA's stride rule)
+    up to :data:`WG_MAX_D` features, at ``seg`` >= 8 (a quad's columns);
+    "tile" (the tile loop of ``knn_tile.cuh``) for everything else: float32
+    at every tier, int8, other d, ``seg`` < 8."""
+    if (dtype in (torch.bfloat16, torch.float16) and d % 8 == 0 and 8 <= d <= WG_MAX_D
+            and seg >= 8):
+        return "wgmma"
+    return "tile"
+
+
+def emit_plan(m: int, n: int, d: int, seg: int, sms: int) -> dict:
+    """The Hopper emit's launch for m queries against n rows of width d at
+    ``seg``-row segments on a card of ``sms`` SMs.  Work units are (block of
+    128 queries, corpus split); a split takes whole groups of max(seg, 256)
+    rows, so a segment is never cut and every pair is written once.  The
+    splits: the fewest whose units keep at least 15/16 of the SMs busy over
+    the waves of ``sms`` persistent blocks (units of one split cost the
+    same), else the count that keeps the most busy; ``splits`` counts the
+    non-empty ones.  The ring: the deepest that fits (at most 8 stages).
+    Returns {"splits", "split_rows", "units", "blocks", "stages", "busy"}."""
+    group = max(seg, WG_TILE_ROWS)
+    groups = -(-n // group)
+    n_qb = -(-m // WG_QUERIES)
+    chunks = -(-d // WG_CHUNK)
+    stages = max((s for s in range(WG_STAGES[0], WG_STAGES[1] + 1)
+                  if wgmma_smem(s, chunks) <= SMEM_MAX), default=0)
+    if not stages:
+        raise ValueError(f"no Hopper emit ring fits d = {d}")
+
+    def busy(s):
+        units = n_qb * s
+        return units / (-(-units // sms) * sms)
+
+    best = 1
+    for s in range(1, groups + 1):  # s = sms has busy 1 where groups >> sms
+        s_eff = -(-groups // -(-groups // s))  # as many as are non-empty
+        if busy(s_eff) > busy(best):
+            best = s_eff
+        if busy(best) >= 15 / 16:
+            break
+    per = -(-groups // best) * group
+    units = n_qb * best
+    return {"splits": best, "split_rows": per, "units": units, "blocks": min(units, sms),
+            "stages": stages, "busy": busy(best)}
+
 
 def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
                    exclude: torch.Tensor | None = None, scale=None,
@@ -116,7 +190,9 @@ def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
     ``|x|^2 - 2 q.x`` and its id, as (minima (m, ceil(n/seg)) float32, ids
     int32); rows past n and the excluded id score +inf, ties go to the
     smaller id; ``q.x`` at ``matmul_precision``'s tier for a float32 corpus
-    (:func:`~.exact.stream_tier`).  The emit kernel on a CUDA tensor,
+    (:func:`~.exact.stream_tier`).  On a CUDA tensor one launch of the emit
+    kernel :func:`emit_design` names: the Hopper pipeline (counted also
+    under ``launches["twophase_emit:wgmma"]``) or the tile loop;
     :func:`segment_minima_plain` on a CPU tensor."""
     _check(points, queries, 1, exclude, matmul_precision)
     _check_seg(seg)
@@ -143,9 +219,22 @@ def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
         points = points.clone()
     lib = _library("twophase_knn")
     tier = stream_tier(points.dtype, matmul_precision)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if emit_design(points.dtype, d, seg) == "wgmma":
+        _check_wgmma_geometry(lib)
+        plan = emit_plan(m, n, d, seg, sms)
+        err = lib.twophase_emit_wgmma_launch(
+            device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], q.data_ptr(),
+            exclude.data_ptr() if exclude is not None else None, n, d, m, seg, n_seg,
+            plan["split_rows"], plan["stages"], plan["blocks"], seg_d.data_ptr(),
+            seg_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise launch_error(lib, "twophase_emit", err)
+        count_launch("twophase_emit", tier)
+        launches["twophase_emit:wgmma"] += 1
+        return seg_d, seg_i
     # the rank kernel's grid; the kernel rounds a split up to whole segments
-    s = splits(m, n, torch.cuda.get_device_properties(dev).multi_processor_count,
-               *tile_geometry("twophase_knn"))
+    s = splits(m, n, sms, *tile_geometry("twophase_knn"))
     err = lib.twophase_emit_launch(
         device_index(dev), points.data_ptr(), _DTYPE_CODE[points.dtype], TIER_CODE[tier],
         q.data_ptr(),
@@ -156,6 +245,15 @@ def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,
         raise launch_error(lib, "twophase_emit", err)
     count_launch("twophase_emit", tier)
     return seg_d, seg_i
+
+
+def _check_wgmma_geometry(lib) -> None:
+    """The built library's Hopper emit geometry is the planner's."""
+    got = (lib.twophase_emit_wgmma_query_block(), lib.twophase_emit_wgmma_tile_rows(),
+           lib.twophase_emit_wgmma_smem(3, 3))
+    want = (WG_QUERIES, WG_TILE_ROWS, wgmma_smem(3, 3))
+    if got != want:
+        raise RuntimeError(f"twophase_knn's Hopper emit geometry {got} is not the planner's {want}")
 
 
 def segment_minima_plain(points: torch.Tensor, queries: torch.Tensor, seg: int, *,

@@ -155,7 +155,11 @@ Phases, one line each, and a non-zero exit on the first failure:
    batches of 1000 and 32, peak memory; emit and rescan at ``seg`` 512
    (f32, bf16, int8) and the rank kernel against their plain versions on
    100 queries, their times at m = 1000 beside their bounds (library calls
-   at m = 100); one exact-graph chunk at each tier, then ``Server.build``
+   at m = 100); the Hopper emit (bf16: ``csrc/knn_wgmma.cuh``) at m = 1,
+   26, 1,000 and the Deep-10M cell's 10,000 beside its bound, and at m = 1
+   and 26 beside the tile loop that served 16-bit corpora before it (the
+   Hopper emit must not be slower there); one exact-graph chunk at each
+   tier, then ``Server.build``
    auto on the float32 corpus (hash: tries 6, capacity 48, exact graph at
    ``DEEP_GRAPH_PRECISION``, int8 packed rows, window 96) with each build
    stage's seconds and peak memory, the graph against its tier's float64
@@ -1430,9 +1434,14 @@ def main() -> None:
                         f"{lib16:.3f} ms = {bf_ms / b16:.2f} x bound {b16:.3f} ms (bf16 "
                         f"tensor-core operations)")
         blocks = -(-M // qbs[kern])
-        phase("kernel", f"{kern} effective L2 read rate ({blocks} query blocks x corpus bytes "
-                        f"/ kernel time): f32 {blocks * 4.0 * N * 128 / f32_ms / 1e9:.3f} TB/s, "
-                        f"bf16 stored {blocks * 2.0 * N * 128 / bf_ms / 1e9:.3f} TB/s")
+        # the bf16 emit reads the corpus once per Hopper emit unit of queries
+        blocks16 = (-(-M // tp.WG_QUERIES)
+                    if kern == "emit" and tp.emit_design(torch.bfloat16, 128, seg) == "wgmma"
+                    else blocks)
+        phase("kernel", f"{kern} effective L2 read rate (query blocks x corpus bytes / kernel "
+                        f"time): f32 {blocks} blocks {blocks * 4.0 * N * 128 / f32_ms / 1e9:.3f} "
+                        f"TB/s, bf16 stored {blocks16} blocks "
+                        f"{blocks16 * 2.0 * N * 128 / bf_ms / 1e9:.3f} TB/s")
     phase("kernel", f"point norms alone (in every rescan-merge and stream time): "
                     f"{norms_ms:.3f} ms")
     timing = {"exact_knn": (kern_ms, plain_ms, lib_ms),
@@ -2284,6 +2293,66 @@ def at_scale_row(shape: str, ms, plain_ms, b, library_ms, err, **extra) -> dict:
             "bound_by": b[1], "library_ms": library_ms, "max_abs_err": err, **extra}
 
 
+def tile_loop_emit(points, q, seg: int):
+    """Emit on the tile loop (``csrc/knn_tile.cuh``) whatever the corpus
+    type: ``twophase_emit_launch`` at the rank kernel's grid, as
+    ``segment_minima`` launched it for 16-bit corpora before the Hopper
+    pipeline served them.  The yardstick of the Hopper emit's small-m
+    gate."""
+    n, d = points.shape
+    m = q.shape[0]
+    n_seg = -(-n // seg)
+    dev = points.device
+    seg_d = torch.empty((m, n_seg), dtype=torch.float32, device=dev)
+    seg_i = torch.empty((m, n_seg), dtype=torch.int32, device=dev)
+    lib = ex._library("twophase_knn")
+    s = ex.splits(m, n, torch.cuda.get_device_properties(dev).multi_processor_count,
+                  *ex.tile_geometry("twophase_knn"))
+    err = lib.twophase_emit_launch(ex.device_index(dev), points.data_ptr(),
+                                   ex._DTYPE_CODE[points.dtype], 0, q.data_ptr(), None, n, d, m,
+                                   seg, n_seg, s, seg_d.data_ptr(), seg_i.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise ex.launch_error(lib, "twophase_emit", err)
+    return seg_d, seg_i
+
+
+def hopper_emit(Xb, Y, seg: int, err, rows_out, smi) -> None:
+    """The Hopper emit (``csrc/knn_wgmma.cuh``) on the 10M x 96 bf16 corpus:
+    its time at m = 1,000 and at the Deep-10M cell's batch of 10,000 (Y
+    repeated; emit's work does not depend on the values) beside the bf16
+    bound, and at m = 1 and 26 (a single query, add_points' emit-all block)
+    beside the tile loop on the same card, which must not be faster; the
+    tile loop's minima equal the Hopper emit's outside near-ties."""
+    y10k = torch.cat([Y] * 10)
+    before = ex.launches["twophase_emit:wgmma"]
+    wg_ms = {m: cuda_ms(lambda: tp.segment_minima(Xb, y10k[:m].contiguous(), seg),
+                        reps=3 if m > 1000 else 10) for m in (1, 26, 1000, 10_000)}
+    if ex.launches["twophase_emit:wgmma"] == before:
+        raise AssertionError("deep10m: the bf16 emit did not take the Hopper pipeline")
+    tile_ms = {m: cuda_ms(lambda: tile_loop_emit(Xb, y10k[:m].contiguous(), seg), reps=10)
+               for m in (1, 26)}
+    va, ia = tp.segment_minima(Xb, Y[:26].contiguous(), seg)
+    vb, ib = tile_loop_emit(Xb, Y[:26].contiguous(), seg)
+    fence()
+    if not torch.allclose(va, vb, rtol=1e-5, atol=1e-4) or float((ia != ib).float().mean()) > 1e-3:
+        raise AssertionError("deep10m: the Hopper emit and the tile loop disagree at m = 26")
+    bounds = {m: 1e3 * 2.0 * m * DEEP_N * DEEP_D / PEAK_BF16 for m in wg_ms}
+    phase("kernel", f"time Hopper emit 10M x {DEEP_D} bf16 seg={seg}: "
+                    + ", ".join(f"m={m} {wg_ms[m]:.3f} ms (bound {bounds[m]:.3f} ms, "
+                                f"{100 * bounds[m] / wg_ms[m]:.1f}%)" for m in wg_ms)
+                    + "; tile loop " + ", ".join(f"m={m} {t:.3f} ms" for m, t in tile_ms.items())
+                    + f"; card [{smi}]")
+    for m in (1, 26):
+        if wg_ms[m] > tile_ms[m]:
+            raise AssertionError(f"deep10m: the Hopper emit at m = {m} ({wg_ms[m]:.3f} ms) is "
+                                 f"slower than the tile loop ({tile_ms[m]:.3f} ms)")
+    for m in (1000, 10_000):
+        rows_out["twophase_emit"].append(at_scale_row(
+            f"10M x {DEEP_D} bf16 m={m} seg={seg} Hopper emit", wg_ms[m], None,
+            (bounds[m], "operations"), None, err))
+
+
 def deep10m(seed: int, dev, smi, read_counts, Y128, ratios,
             graph_precision: str = DEEP_GRAPH_PRECISION) -> dict:
     """Phase ``deep10m``: the JAX package's largest one-chip deployment
@@ -2437,6 +2506,7 @@ def deep10m(seed: int, dev, smi, read_counts, Y128, ratios,
     rows_out["exact_knn"].append(at_scale_row(
         f"10M x {DEEP_D} f32 m={M} k={k} (plain and library at m=100)", rank_ms,
         rank100_plain_ms, rank_b, rank100_lib_ms, errs["rank"], ms_m100=rank100_ms))
+    hopper_emit(Xb, Y, seg, errs["emit", "bf16"], rows_out, smi)
     del Xb, X8, starts, qk
     torch.cuda.empty_cache()
 

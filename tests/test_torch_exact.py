@@ -274,26 +274,19 @@ def test_kernel_matches_plain_on_card(dt, kernel):
             runs.append((raw.to(p.dtype), qd[:1].contiguous(), [(8, excl[:1]), (1024, None)]))
         for pts, qq, scases in runs:
             for seg, e in scases:
-                before = ex.launches["twophase_emit"]
+                # the Hopper emit serves 16-bit rows of d = 96 at every seg
+                # here; float32, int8 and the other widths the tile loop
+                wgmma = tp.emit_design(pts.dtype, pts.shape[1], seg) == "wgmma"
+                assert wgmma == (dt in ("bf16", "f16") and pts.shape[1] == 96)
+                before = dict(ex.launches)
                 va, ia = tp.segment_minima(pts, qq, seg, exclude=e, scale=scale)
-                assert ex.launches["twophase_emit"] == before + 1
+                ran = {name: c - before[name] for name, c in ex.launches.items()
+                       if c != before[name]}
+                assert ran == ({"twophase_emit": 1, "twophase_emit:wgmma": 1} if wgmma
+                               else {"twophase_emit": 1}), ran
                 vb, ib = tp.segment_minima_plain(pts, qq, seg, exclude=e, scale=scale)
                 torch.cuda.synchronize()
-                assert va.shape == vb.shape == (qq.shape[0], -(-pts.shape[0] // seg))
-                fin = torch.isfinite(vb)
-                assert torch.equal(fin, torch.isfinite(va))
-                np.testing.assert_allclose(va[fin].cpu().numpy(), vb[fin].cpu().numpy(),
-                                           rtol=1e-5, atol=1e-4)  # fp32 sums of exact products
-                # argmin ids may differ only where two rows of a segment near-tie
-                qk, _, _ = ex._prepare(pts, qq, scale)  # as the kernel multiplies them
-                if dt in ("bf16", "f16"):
-                    qk = qk.to(pts.dtype).float()
-                x = pts.double()
-                rows = torch.nonzero((ia != ib) & fin)
-                for r, sg in rows.tolist()[:50]:
-                    sa = (x[ia[r, sg]] - qk[r].double()).pow(2).sum()
-                    sb = (x[ib[r, sg]] - qk[r].double()).pow(2).sum()
-                    assert abs(float(sa - sb)) <= 1e-4 * abs(float(sb)) + 1e-3
+                assert_emit_match(pts, qq, scale, va, ia, vb, ib, seg)
     else:
         m = q.shape[0]
         qq, _, _ = ex._prepare(p, q, scale)
@@ -320,6 +313,98 @@ def test_kernel_matches_plain_on_card(dt, kernel):
                 _, d_next = tp.rescan_windows_plain(p, qq, starts, seg, min(k + 1, 128))
                 dref = torch.cat([db, d_next[:, k:]], 1) if k < 128 else db
                 assert_match(ia.cpu(), da.cpu(), ib.cpu(), dref.cpu())
+
+
+def assert_emit_match(pts, qq, scale, va, ia, vb, ib, seg):
+    """Emit's minima (va, ia) against the plain version's (vb, ib): the same
+    finite entries, values at rtol 1e-5 / atol 1e-4 (fp32 sums of exact
+    products), argmin rows apart only where two rows of a segment near-tie."""
+    assert va.shape == vb.shape == (qq.shape[0], -(-pts.shape[0] // seg))
+    fin = torch.isfinite(vb)
+    assert torch.equal(fin, torch.isfinite(va))
+    np.testing.assert_allclose(va[fin].cpu().numpy(), vb[fin].cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)  # fp32 sums of exact products
+    qk, _, _ = ex._prepare(pts, qq, scale)  # as the kernel multiplies them
+    if pts.dtype in (torch.bfloat16, torch.float16):
+        qk = qk.to(pts.dtype).float()
+    x = pts.double()
+    rows = torch.nonzero((ia != ib) & fin)
+    for r, sg in rows.tolist()[:50]:
+        sa = (x[ia[r, sg]] - qk[r].double()).pow(2).sum()
+        sb = (x[ib[r, sg]] - qk[r].double()).pow(2).sum()
+        assert abs(float(sa - sb)) <= 1e-4 * abs(float(sb)) + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16", "int8"])
+def test_emit_deep_like_on_card(dt):
+    """Emit at the Deep-10M cell's width on a corpus of 300,001 rows (a
+    partial last stage and segment) with m = 1,037 queries (a partial last
+    query block and warpgroup), at seg 8 to 1,024, against the plain
+    version: with ``exclude``; a NaN row that never returns (the kernel
+    counts it +inf, so it must equal the run where that row lies far away,
+    bit for bit); duplicated rows where a query sits exactly on the row,
+    whose tie goes to the smaller id (inside a quad's columns, inside one
+    thread's, across two stages of one segment), and to the duplicate
+    where the smaller one is excluded.  bf16 and f16 take the Hopper emit,
+    float32 and int8 the tile loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from approximatenn_tpu_torch.ops import twophase as tp
+
+    g = torch.Generator().manual_seed(20)
+    dev = torch.device("cuda")
+    n, d, m = 300_001, 96, 1037
+    raw = torch.randn(n, d, generator=g)
+    q = torch.randn(m, d, generator=g)
+    pairs = [(1000, 1003), (2000, 2008), (4100, 4600)]
+    for src, dst in pairs:
+        raw[dst] = raw[src]
+    scale = None
+    if dt == "int8":
+        pts, scale = ex.quantize_corpus(raw)
+        stored = pts.float() * scale
+    else:
+        tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[dt]
+        pts = raw.to(tdt)
+        stored = pts.float()
+    for i, (src, _) in enumerate(pairs):  # queries 0..2 sit on the duplicated rows
+        q[i] = stored[src]
+    far = pts.clone()
+    if dt != "int8":  # int8 holds no NaN
+        far[7] = 6e4  # f16 holds it; the row's score dwarfs every other
+        pts[7, 3] = float("nan")
+    pts, far, q = pts.to(dev), far.to(dev), q.to(dev)
+    excl = torch.randint(0, n, (m,), generator=g, dtype=torch.int32)
+    excl[: len(pairs)] = -1
+    excl_src = excl.clone()
+    excl_src[: len(pairs)] = torch.tensor([s for s, _ in pairs], dtype=torch.int32)
+    excl, excl_src = excl.to(dev), excl_src.to(dev)
+    wgmma = dt in ("bf16", "f16")
+    for seg in (8, 16, 32, 64, 128, 256, 512, 1024):
+        assert (tp.emit_design(pts.dtype, d, seg) == "wgmma") == wgmma
+        for e in (None, excl, excl_src):
+            before = ex.launches["twophase_emit:wgmma"]
+            va, ia = tp.segment_minima(pts, q, seg, exclude=e, scale=scale)
+            assert ex.launches["twophase_emit:wgmma"] == before + wgmma
+            vf, i_f = tp.segment_minima(far, q, seg, exclude=e, scale=scale)
+            vb, ib = tp.segment_minima_plain(far, q, seg, exclude=e, scale=scale)
+            torch.cuda.synchronize()
+            assert torch.equal(va, vf) and torch.equal(ia, i_f), seg
+            if dt != "int8":
+                assert not bool((ia == 7).any())
+            assert_emit_match(far, q, scale, va, ia, vb, ib, seg)
+            ia = ia.cpu()
+            for i, (src, dst) in enumerate(pairs):
+                for row in (src, dst):
+                    s = row // seg
+                    # the rows that sit on the query, in this segment, not excluded
+                    on = [r for r in (src, dst)
+                          if r // seg == s and not (e is excl_src and r == src)]
+                    if on:
+                        assert int(ia[i, s]) == min(on), (seg, i, row, on)
+                    else:
+                        assert int(ia[i, s]) != src, (seg, i, row)
 
 
 def one_hot_rows(n: int, d: int, dev):

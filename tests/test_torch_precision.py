@@ -331,6 +331,26 @@ def test_tier_kernel_matches_plain_on_card(kernel, tier):
             ran = {name: c - before[name] for name, c in ex.launches.items()
                    if c != before[name]}
             assert ran == {key: 2, f"{key}:{tier}": 1}, ran
+            if kernel == "emit":
+                # a 16-bit corpus has no tier: the emit computes what it does
+                # at "highest", on the Hopper pipeline at d = 96 (the tile
+                # loop at d = 33 and 960), and counts no tier
+                for t16 in (torch.bfloat16, torch.float16):
+                    p16 = p.to(t16)
+                    wgmma = tp.emit_design(t16, d, 128) == "wgmma"
+                    assert wgmma == (d == 96)
+                    before = dict(ex.launches)
+                    v16, i16 = tp.segment_minima(p16, q, 128, exclude=e, matmul_precision=tier)
+                    ran = {name: c - before[name] for name, c in ex.launches.items()
+                           if c != before[name]}
+                    assert ran == ({key: 1, f"{key}:wgmma": 1} if wgmma else {key: 1}), ran
+                    vh, ih = tp.segment_minima(p16, q, 128, exclude=e)
+                    vp, _ = tp.segment_minima_plain(p16, q, 128, exclude=e,
+                                                    matmul_precision=tier)
+                    torch.cuda.synchronize()
+                    assert torch.equal(v16, vh) and torch.equal(i16, ih)
+                    np.testing.assert_allclose(v16.cpu().numpy(), vp.cpu().numpy(),
+                                               rtol=1e-5, atol=1e-4)
     # proof that the bf16 path ran: one bf16 pass moves some result (split3
     # ranks as "highest" does outside near-ties)
     assert differs or tier == "split3"

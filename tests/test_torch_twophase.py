@@ -136,6 +136,85 @@ def test_segment_minima_plain_semantics(rng):
     np.testing.assert_array_equal(np.sort(ti.numpy(), 1), np.sort(oi.numpy(), 1))
 
 
+EMIT_DESIGNS = [
+    # (storage, d, seg, emit kernel)
+    (torch.bfloat16, 96, 512, "wgmma"),    # the Deep-10M cell
+    (torch.float16, 96, 8, "wgmma"),       # the shortest segment a quad holds
+    (torch.bfloat16, 128, 1024, "wgmma"),  # the widest row the ring takes
+    (torch.float16, 8, 64, "wgmma"),       # one 16-byte unit a row
+    (torch.bfloat16, 40, 32, "wgmma"),     # a K step half past d
+    (torch.bfloat16, 96, 4, "tile"),       # seg < 8
+    (torch.bfloat16, 33, 512, "tile"),     # odd d: the pitch is no multiple of 16 bytes
+    (torch.float16, 100, 128, "tile"),     # d % 8 = 4: the same
+    (torch.bfloat16, 136, 512, "tile"),    # past 128 features
+    (torch.float16, 2048, 64, "tile"),
+    (torch.float32, 96, 512, "tile"),      # float32 at every tier
+    (torch.int8, 96, 512, "tile"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,seg,want", EMIT_DESIGNS)
+def test_emit_design(dtype, d, seg, want):
+    """Which emit kernel a corpus takes (``segment_minima``'s dispatch)."""
+    assert tp.emit_design(dtype, d, seg) == want
+
+
+def _plan_rows(plan, m, n):
+    """Per query block, the rows each of its work units covers, as the
+    Hopper emit's roles walk them (unit u: query block u % n_qb, split
+    u // n_qb; split s covers [s * split_rows, min((s + 1) * split_rows, n)))."""
+    n_qb = -(-m // tp.WG_QUERIES)
+    assert plan["units"] == n_qb * plan["splits"]
+    cover = {qb: [] for qb in range(n_qb)}
+    for u in range(plan["units"]):
+        lo = (u // n_qb) * plan["split_rows"]
+        cover[u % n_qb].append((lo, min(lo + plan["split_rows"], n)))
+    return cover
+
+
+@pytest.mark.parametrize("seg", [8, 64, 256, 512, 1024])
+def test_emit_plan_covers_every_segment_once(seg):
+    """Every segment of every query block falls in exactly one work unit, no
+    unit is empty and every split starts on a segment and a stage boundary,
+    for n a multiple of neither the 256-row stage nor the segment; the
+    blocks never outnumber the units; the ring fits the block's shared
+    memory at every width the design takes."""
+    for n in (1, 1001, 5003, 300_001, 10_000_000 + 3):
+        for m in (1, 26, 300, 1037, 10_000):
+            plan = tp.emit_plan(m, n, 96, seg, 132)
+            assert 1 <= plan["blocks"] <= min(plan["units"], 132)
+            for spans in _plan_rows(plan, m, n).values():
+                assert all(lo < hi for lo, hi in spans), (n, m, plan)
+                assert all(lo % seg == 0 and lo % tp.WG_TILE_ROWS == 0 for lo, _ in spans)
+                # the spans tile [0, n) end to end: each segment once
+                spans.sort()
+                ends = [0] + [hi for _, hi in spans]
+                assert [lo for lo, _ in spans] == ends[:-1] and ends[-1] == n, (n, m, plan)
+    for d in range(8, tp.WG_MAX_D + 1, 8):
+        st = tp.emit_plan(1000, 10**6, d, 512, 132)["stages"]
+        assert tp.WG_STAGES[0] <= st <= tp.WG_STAGES[1]
+        assert tp.wgmma_smem(st, -(-d // tp.WG_CHUNK)) <= tp.SMEM_MAX
+        if st < tp.WG_STAGES[1]:
+            assert tp.wgmma_smem(st + 1, -(-d // tp.WG_CHUNK)) > tp.SMEM_MAX
+
+
+@pytest.mark.parametrize("m", [1, 26, 1000, 10_000])
+def test_emit_plan_fills_the_card(m):
+    """At the Deep-10M shape (10M x 96, seg 512) on 132 SMs: at m = 10,000
+    (the cell's batch) and 1,000 the units keep at least 7/8 of the SMs
+    busy over their waves; at m = 1 and 26 (a single query, add_points'
+    emit-all block) one query block is cut into one wave of splits that
+    still holds 7/8 of the SMs."""
+    plan = tp.emit_plan(m, 10_000_000, 96, 512, 132)
+    assert plan["busy"] >= 7 / 8, plan
+    assert plan["units"] / (-(-plan["units"] // 132) * 132) == plan["busy"]
+    if m <= tp.WG_QUERIES:
+        assert plan["units"] == plan["splits"] and 7 / 8 * 132 <= plan["units"] <= 132
+        assert plan["split_rows"] % 512 == 0
+    if m == 10_000:
+        assert plan["units"] == 79 * plan["splits"] and plan["stages"] == 4
+
+
 def test_smallest_orders_by_distance_then_id():
     d = torch.tensor([[1.0, -0.0, 0.0, -2.0, 1.0, float("inf")]])
     ids = torch.tensor([[9, 7, 3, 8, 2, 1]], dtype=torch.int32)
