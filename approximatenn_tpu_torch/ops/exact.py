@@ -111,10 +111,13 @@ _ENTRY_POINTS = {
 # float32 stream under "<kernel>:split3" and "<kernel>:default" (the kernel's
 # own key counts every launch).  "twophase_emit:wgmma" counts the emit
 # launches of the Hopper pipeline (csrc/knn_wgmma.cuh) among "twophase_emit"'s.
+# "twophase_calls" counts calls of the two-phase engine
+# (ops/twophase.py:exact_knn_twophase), which launch the emit once a query
+# block (ops/twophase.py:query_block).
 TIERED = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_emit")
 launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0,
             "twophase_rescan_all": 0, "probe_topk": 0, "exact_knn_rescan": 0,
-            "exact_knn_stream": 0, "twophase_emit:wgmma": 0,
+            "exact_knn_stream": 0, "twophase_emit:wgmma": 0, "twophase_calls": 0,
             **{f"{name}:{tier}": 0 for name in TIERED for tier in ("split3", "default")}}
 _libs: dict = {}
 

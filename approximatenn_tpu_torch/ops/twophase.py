@@ -53,6 +53,13 @@ TWOPHASE_ONLY_KW = ("seg", "pad_segments", "rescan")
 
 _INT32_MAX = 2**31 - 1
 _BLOCK_ELEMS = 64 << 20  # plain versions: ~256 MB float32 per query block
+# (query, segment) pairs of one query block of the engine: the emit's
+# minima and ids take 8 bytes a pair and the segment pick's keys and
+# temporaries ~32 more, so a block peaks near 21 GB beside the corpus.  A
+# batch within it is one block (10,000 queries against 10M rows at seg 512
+# is 1.95e8 pairs); past it the blocks are whole 128-query emit units
+# (1,024 queries against 250M rows).
+BLOCK_PAIRS = 1 << 29
 
 
 def auto_seg(n: int) -> int:
@@ -85,6 +92,19 @@ def route(n: int, k: int, kw, no_twophase: bool = False,
             return "twophase"
         return "rank"
     return "twophase" if tp_ok and big_k_route(n, k) else "brute"
+
+
+def query_block(m: int, n_seg: int) -> int:
+    """Queries a block of :func:`exact_knn_twophase` for m queries against
+    ``n_seg`` segments: all m where the pairs fit :data:`BLOCK_PAIRS`, else
+    as many as fit, in whole :data:`WG_QUERIES`-query units where one fits
+    (at least one query)."""
+    if m * n_seg <= BLOCK_PAIRS:
+        return max(m, 1)
+    per = BLOCK_PAIRS // n_seg
+    if per >= WG_QUERIES:
+        per -= per % WG_QUERIES
+    return max(1, per)
 
 
 def smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):
@@ -463,7 +483,10 @@ def exact_knn_twophase(points, queries, k: int, *, seg: int | None = None,
     Returns (ids (m, k) int32 ascending, squared distances (m, k) float32
     in diff form, times scale^2 for int8), ties to the smaller id, (n, +inf)
     past the real rows.  Any k: past 128 the rescan returns every window row
-    and the final top-k runs in PyTorch.
+    and the final top-k runs in PyTorch.  Queries whose (query, segment)
+    pairs pass :data:`BLOCK_PAIRS` run in blocks of :func:`query_block`
+    queries, each its own emit, pick and rescan; a query's answer does not
+    depend on its block.
 
     ``seg`` (a power of two) defaults to :func:`auto_seg`.  ``rescan``:
     "dma" runs the rescan kernel on a CUDA corpus (the name is the JAX
@@ -480,33 +503,47 @@ def exact_knn_twophase(points, queries, k: int, *, seg: int | None = None,
     n = points.shape[0]
     seg = auto_seg(n) if seg is None else seg
     _check_seg(seg)
+    m = queries.shape[0]
+    block = query_block(m, -(-n // seg))
+    launches["twophase_calls"] += 1
+    with span("exact.twophase", rows=m):
+        if block >= m:
+            return _twophase_block(points, queries, k, seg, pad_segments, scale, rescan,
+                                   matmul_precision)
+        parts = [_twophase_block(points, queries[lo: lo + block], k, seg, pad_segments,
+                                 scale, rescan, matmul_precision)
+                 for lo in range(0, m, block)]
+        return torch.cat([i for i, _ in parts]), torch.cat([dd for _, dd in parts])
+
+
+def _twophase_block(points, queries, k: int, seg: int, pad_segments: int, scale,
+                    rescan: str, matmul_precision: str):
+    """:func:`exact_knn_twophase` for one block of queries: emit, segment
+    pick and rescan."""
+    n = points.shape[0]
     P = k + pad_segments
-    with span("exact.twophase", rows=queries.shape[0]):
-        sel, _ = segment_merge(points, queries, P, seg, scale=scale,
-                               matmul_precision=matmul_precision)
-        # the picked segments are unique per query, so their windows are
-        # disjoint; an exhausted pick (id n) starts at n and reads nothing
-        starts = torch.where(sel < n, sel // seg * seg, torch.full_like(sel, n))
-        q, _, scale2 = _prepare(points, queries, scale)
-        if rescan == "xla":
-            fn = rescan_windows_plain
-        else:
-            fn = rescan_windows
-        if k <= KMAX:
-            ids, dd = fn(points, q, starts, seg, k)
-        else:
-            # emit-all in query blocks that keep the (block, P*seg) pool and its
-            # int64 selection keys near 256 MB each
-            block = max(1, min(queries.shape[0], (32 << 20) // (P * seg)))
-            parts_i, parts_d = [], []
-            for lo in range(0, queries.shape[0], block):
-                pos, dd_all = fn(points, q[lo: lo + block], starts[lo: lo + block], seg, None)
-                d_k, i_k = smallest(dd_all, pos, k)
-                parts_i.append(i_k)
-                parts_d.append(d_k)
-            ids = torch.cat(parts_i) if parts_i else torch.empty((0, k), dtype=itype,
-                                                                 device=points.device)
-            dd = torch.cat(parts_d) if parts_d else torch.empty((0, k), device=points.device)
-        inf = torch.isinf(dd)
-        ids = torch.where(inf, torch.full_like(ids, n), ids)
-        return ids, dd * scale2
+    sel, _ = segment_merge(points, queries, P, seg, scale=scale,
+                           matmul_precision=matmul_precision)
+    # the picked segments are unique per query, so their windows are
+    # disjoint; an exhausted pick (id n) starts at n and reads nothing
+    starts = torch.where(sel < n, sel // seg * seg, torch.full_like(sel, n))
+    q, _, scale2 = _prepare(points, queries, scale)
+    fn = rescan_windows_plain if rescan == "xla" else rescan_windows
+    if k <= KMAX:
+        ids, dd = fn(points, q, starts, seg, k)
+    else:
+        # emit-all in query blocks that keep the (block, P*seg) pool and its
+        # int64 selection keys near 256 MB each
+        block = max(1, min(queries.shape[0], (32 << 20) // (P * seg)))
+        parts_i, parts_d = [], []
+        for lo in range(0, queries.shape[0], block):
+            pos, dd_all = fn(points, q[lo: lo + block], starts[lo: lo + block], seg, None)
+            d_k, i_k = smallest(dd_all, pos, k)
+            parts_i.append(i_k)
+            parts_d.append(d_k)
+        ids = torch.cat(parts_i) if parts_i else torch.empty((0, k), dtype=itype,
+                                                             device=points.device)
+        dd = torch.cat(parts_d) if parts_d else torch.empty((0, k), device=points.device)
+    inf = torch.isinf(dd)
+    ids = torch.where(inf, torch.full_like(ids, n), ids)
+    return ids, dd * scale2

@@ -45,6 +45,7 @@ from ..harness.scoring import recall_at_k
 from ..index import _stash, _unstash
 from ..ops.exact import KMAX, abs_max, check_tpu_knobs, quantize_corpus
 from ..ops.twophase import TWOPHASE_MIN_N, TWOPHASE_ONLY_KW
+from ..utils.profiling import span
 from .checkpoint import (_check_format, _check_one_host, _dtype_name, _read_scale,
                          _write_files, load_sharded_index, load_sharded_packed,
                          save_sharded_index, save_sharded_packed)
@@ -89,57 +90,62 @@ class ShardedServer:
               storage_dtype=None, layout: str = "packed", window: int | None = None,
               packed_dtype=None, n_probes: int | None = None, exact_max_n: int | None = None,
               twophase_min_n: int | None = None, fused_min_batch: int | None = None,
-              **build_kw) -> "ShardedServer":
+              n_true: int | None = None, **build_kw) -> "ShardedServer":
         """Shard the global ``points`` (n, d), pick the per-shard engine and
-        stage the serving state.  ``storage_dtype`` (exact mode):
-        torch.bfloat16 / float16 halve each shard's corpus, torch.int8
-        quarters it; ``packed_dtype`` is the packed rows' type (hash)."""
-        if layout not in ("table", "packed"):
-            raise ValueError(f"unknown layout {layout!r}")
-        s = mesh.size
-        n, d = points.shape
-        n_local = -(-n // s)
-        if exact_max_n is None:
-            exact_max_n = EXACT_MAX_N_DEFAULT
-            size = 4 if storage_dtype is None else storage_dtype.itemsize
-            if size <= 2:
-                exact_max_n *= 2
-            if size == 1:
-                exact_max_n *= 2
-        quantized = storage_dtype == torch.int8
-        if mode == "auto":
-            mode = ("exact" if quantized or (n_local <= exact_max_n
-                                             and (k <= KMAX or n_local >= 8 * (k + 2)))
-                    else "hash")
-        if mode not in ("exact", "hash"):
-            raise ValueError(f"unknown mode {mode!r}")
-        if quantized and mode != "exact":
-            raise ValueError("storage_dtype=int8 serves the exact engine only (as on one "
-                             "card); pass mode='exact'")
-        srv = cls(mesh=mesh, k=k, mode=mode, metric=metric, n=n, d_logical=d,
-                  _fused_min_batch=fused_min_batch)
-        if mode == "hash":
-            srv.sidx = build_sharded(points, k, mesh=mesh, metric=metric, store_points=True,
-                                     n_probes=n_probes, **build_kw)
-            if n_probes is not None:
-                srv._search_kw["n_probes"] = n_probes
-            if layout == "packed":
-                srv.spk = packed_sharded(srv.sidx, mesh=mesh, window=window,
-                                         dtype=packed_dtype)
-            return srv
+        stage the serving state: the span ``sharded.build``.  ``points`` may
+        be this rank's rows already (:class:`~.sharded.LocalRows`).
+        ``storage_dtype`` (exact mode): torch.bfloat16 / float16 halve each
+        shard's corpus, torch.int8 quarters it; each rank makes its stored
+        rows from its own, a chunk at a time, and keeps rows already in the
+        stored form as they are (a bf16 shard served in bf16 is not
+        copied).  ``n_true`` (exact mode): the real row count of a corpus
+        the caller padded to the shard count, its zero pad rows last.
+        ``packed_dtype`` is the packed rows' type (hash)."""
+        with span("sharded.build", rows=int(points.shape[0])):
+            if layout not in ("table", "packed"):
+                raise ValueError(f"unknown layout {layout!r}")
+            s = mesh.size
+            n, d = points.shape
+            n_local = -(-n // s)
+            if exact_max_n is None:
+                exact_max_n = EXACT_MAX_N_DEFAULT
+                size = 4 if storage_dtype is None else storage_dtype.itemsize
+                if size <= 2:
+                    exact_max_n *= 2
+                if size == 1:
+                    exact_max_n *= 2
+            quantized = storage_dtype == torch.int8
+            if mode == "auto":
+                mode = ("exact" if quantized or (n_local <= exact_max_n
+                                                 and (k <= KMAX or n_local >= 8 * (k + 2)))
+                        else "hash")
+            if mode not in ("exact", "hash"):
+                raise ValueError(f"unknown mode {mode!r}")
+            if quantized and mode != "exact":
+                raise ValueError("storage_dtype=int8 serves the exact engine only (as on one "
+                                 "card); pass mode='exact'")
+            if n_true is not None and (mode != "exact" or not n - s < n_true <= n):
+                raise ValueError(f"n_true={n_true}: the real row count of an exact corpus of "
+                                 f"{n} rows padded to {s} shards")
+            srv = cls(mesh=mesh, k=k, mode=mode, metric=metric,
+                      n=n if n_true is None else n_true, d_logical=d,
+                      _fused_min_batch=fused_min_batch)
+            if mode == "hash":
+                srv.sidx = build_sharded(points, k, mesh=mesh, metric=metric, store_points=True,
+                                         n_probes=n_probes, **build_kw)
+                if n_probes is not None:
+                    srv._search_kw["n_probes"] = n_probes
+                if layout == "packed":
+                    srv.spk = packed_sharded(srv.sidx, mesh=mesh, window=window,
+                                             dtype=packed_dtype)
+                return srv
 
-        # angular: unit rows (zero pad rows stay zero: normalize's eps guard)
-        pts = prepare_points(_shard_points(points, mesh, dtype=torch.float32), metric)
-        if quantized:
-            # ONE global scale, so quantized distances compare across shards
-            srv.scale = float(_all_reduce_max(mesh, abs_max(pts)) / 127.0)
-            pts, _ = quantize_corpus(pts, srv.scale)
-        elif storage_dtype is not None:
-            pts = pts.to(storage_dtype)
-        tp_min = TWOPHASE_MIN_N if twophase_min_n is None else twophase_min_n
-        srv._twophase = n_local >= tp_min and k + 2 <= KMAX and pts.element_size() <= 4
-        srv.points = pts.contiguous()
-        return srv
+            pts, srv.scale = _stored_shard(_shard_points(points, mesh), mesh, metric,
+                                           storage_dtype)
+            tp_min = TWOPHASE_MIN_N if twophase_min_n is None else twophase_min_n
+            srv._twophase = n_local >= tp_min and k + 2 <= KMAX and pts.element_size() <= 4
+            srv.points = pts
+            return srv
 
     def _route_twophase(self, k: int, no_twophase: bool = False) -> bool:
         """Whether an exact search at ``k`` runs the per-shard two-phase
@@ -155,31 +161,34 @@ class ShardedServer:
         knobs: hash paths take ``n_probes`` / ``window`` / ``rerank_width`` /
         ``supercharge_rounds``; exact takes ``matmul_precision`` /
         ``no_twophase`` / ``scale`` and, on the two-phase route, ``seg`` /
-        ``pad_segments`` / ``rescan`` (dropped on the rank route)."""
-        check_tpu_knobs(kw)
-        for key in ("interpret", "query_block"):
-            kw.pop(key, None)
-        k = self.k if k is None else k
-        queries = torch.as_tensor(queries, device=self.mesh.device)
-        skw = {**self._search_kw, **kw}
-        if self.mode == "exact":
-            queries = prepare_points(queries.float(), self.metric)
-            tp = self._route_twophase(k, bool(skw.pop("no_twophase", False)))
-            if not tp:
-                for key in TWOPHASE_ONLY_KW:
-                    skw.pop(key, None)
-            scale = skw.pop("scale", self.scale)
-            corpus = LocalRows(self.points, (self.points.shape[0] * self.mesh.size,
-                                             self.points.shape[1]))
-            return search_exact_sharded(corpus, queries, k, mesh=self.mesh, scale=scale,
-                                        twophase=tp, n_true=self.n, **skw)
-        if self.spk is None:
-            return search_sharded(self.sidx, None, queries, mesh=self.mesh, **skw)
-        window = skw.pop("window", None)
-        route = packed_route(self.sidx.n_local, queries.shape[0],
-                             self.mesh.device.type == "cuda", self._fused_min_batch)
-        fn = search_packed_fused_sharded if route == "fused" else search_packed_sharded
-        return fn(self.sidx, self.spk, None, queries, mesh=self.mesh, window=window, **skw)
+        ``pad_segments`` / ``rescan`` (dropped on the rank route).  The span
+        ``sharded.search`` is the root of the engine's spans and of the
+        merge's (``sharded.merge``)."""
+        with span("sharded.search", rows=len(queries)):
+            check_tpu_knobs(kw)
+            for key in ("interpret", "query_block"):
+                kw.pop(key, None)
+            k = self.k if k is None else k
+            queries = torch.as_tensor(queries, device=self.mesh.device)
+            skw = {**self._search_kw, **kw}
+            if self.mode == "exact":
+                queries = prepare_points(queries.float(), self.metric)
+                tp = self._route_twophase(k, bool(skw.pop("no_twophase", False)))
+                if not tp:
+                    for key in TWOPHASE_ONLY_KW:
+                        skw.pop(key, None)
+                scale = skw.pop("scale", self.scale)
+                corpus = LocalRows(self.points, (self.points.shape[0] * self.mesh.size,
+                                                 self.points.shape[1]))
+                return search_exact_sharded(corpus, queries, k, mesh=self.mesh, scale=scale,
+                                            twophase=tp, n_true=self.n, **skw)
+            if self.spk is None:
+                return search_sharded(self.sidx, None, queries, mesh=self.mesh, **skw)
+            window = skw.pop("window", None)
+            route = packed_route(self.sidx.n_local, queries.shape[0],
+                                 self.mesh.device.type == "cuda", self._fused_min_batch)
+            fn = search_packed_fused_sharded if route == "fused" else search_packed_sharded
+            return fn(self.sidx, self.spk, None, queries, mesh=self.mesh, window=window, **skw)
 
     def save(self, path) -> None:
         """Persist the serving state in the JAX package's npz layout (a
@@ -261,6 +270,41 @@ class ShardedServer:
                 out["index_mb"] = round(self.spk.memory_bytes() * self.mesh.size / 2**20, 1)
                 out["packed_dtype"] = _dtype_name(self.spk.point_rows.dtype)
         return out
+
+
+# rows of a shard widened to float32 at a time while its stored rows are made
+_CHUNK_ROWS = 1 << 20
+
+
+def _stored_shard(local: torch.Tensor, mesh: Mesh, metric: str, storage_dtype):
+    """(this rank's rows as an exact shard serves them, the int8 tier's
+    scale or None): the rows metric-prepared in float32 (angular: unit rows;
+    zero pad rows stay zero, normalize's eps guard) and narrowed to
+    ``storage_dtype`` (float32 when None), a chunk of rows at a time, so
+    that no float32 copy of a 16-bit shard is made; rows already in that
+    form (l2, the stored type) are kept as they are.  int8 takes ONE global
+    scale, the max over every rank (one all-reduce), so quantized distances
+    compare across shards."""
+    dtype = torch.float32 if storage_dtype is None else storage_dtype
+    if metric == "l2" and local.dtype == dtype:
+        return local.contiguous(), None
+    n = local.shape[0]
+
+    def prepared(lo):
+        return prepare_points(local[lo: lo + _CHUNK_ROWS].float(), metric)
+
+    scale = None
+    if dtype == torch.int8:
+        mx = torch.zeros((), dtype=torch.float32, device=local.device)
+        for lo in range(0, n, _CHUNK_ROWS):
+            mx = torch.maximum(mx, abs_max(prepared(lo)))
+        scale = float(_all_reduce_max(mesh, mx) / 127.0)
+    out = torch.empty(local.shape, dtype=dtype, device=local.device)
+    for lo in range(0, n, _CHUNK_ROWS):
+        x = prepared(lo)
+        out[lo: lo + _CHUNK_ROWS] = quantize_corpus(x, scale)[0] if scale is not None \
+            else x.to(dtype)
+    return out, scale
 
 
 @dataclass

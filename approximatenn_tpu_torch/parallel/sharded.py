@@ -48,6 +48,7 @@ from .. import config
 from ..config import itype
 from ..index import ANNIndex, PackedIndex, _stash, _storage_points, _unstash, from_numpy
 from ..ops.topk import topk_no_dedup
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -422,15 +423,17 @@ def _merge(mesh: Mesh, ids_l, dists, n_local: int, n: int, k: int):
     global ids, one all-gather of the distances and ids side by side (the
     distances' bits viewed as an integer type of their width, at least 32
     bits), the lists in rank order ((m, S * width), as the JAX ``moveaxis``
-    + ``reshape``), top-k.  Ties go to the lower shard."""
-    gids, dd = _to_global(ids_l, dists, n_local, n, mesh.rank * n_local)
-    m = gids.shape[0]
-    wide = dd if dd.element_size() >= 4 else dd.float()
-    bits = {4: torch.int32, 8: torch.int64}[wide.element_size()]
-    both = torch.stack([wide.contiguous().view(bits), gids.to(bits)], dim=-1)
-    both = _all_gather_stacked(mesh, both).transpose(0, 1).reshape(m, -1, 2)
-    all_dd = both[..., 0].contiguous().view(wide.dtype).to(dd.dtype)
-    return topk_no_dedup(all_dd, both[..., 1].to(gids.dtype), k)
+    + ``reshape``), top-k.  Ties go to the lower shard.  The span
+    ``sharded.merge``."""
+    with span("sharded.merge", rows=int(ids_l.shape[0])):
+        gids, dd = _to_global(ids_l, dists, n_local, n, mesh.rank * n_local)
+        m = gids.shape[0]
+        wide = dd if dd.element_size() >= 4 else dd.float()
+        bits = {4: torch.int32, 8: torch.int64}[wide.element_size()]
+        both = torch.stack([wide.contiguous().view(bits), gids.to(bits)], dim=-1)
+        both = _all_gather_stacked(mesh, both).transpose(0, 1).reshape(m, -1, 2)
+        all_dd = both[..., 0].contiguous().view(wide.dtype).to(dd.dtype)
+        return topk_no_dedup(all_dd, both[..., 1].to(gids.dtype), k)
 
 
 def _resolve_corpus(sidx: ShardedIndex, points, mesh: Mesh) -> torch.Tensor:

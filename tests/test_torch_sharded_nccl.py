@@ -8,7 +8,12 @@ near-ties, ``ids_agree``), then a ``ShardedServer`` exact int8 and one hash
 packed (bf16 rows) saved and loaded on the same ranks, their searches
 equal bit for bit.  A save gathers to rank 0 alone: the card memory a
 save allocates is held to one shard's largest array on rank 0 and to
-nothing on the other ranks (1 MiB of allocator slack each).
+nothing on the other ranks (1 MiB of allocator slack each).  Then a
+``ShardedServer`` exact bf16 built from each rank's own bf16 rows
+(``LocalRows``, the pad row given by ``n_true``): it serves those rows
+as they are, its build allocates at most one bf16 shard more (no float32
+copy of the shard; 1 MiB of slack), and its answers equal the single-card
+search over the same bf16 rows outside near-ties.
 
     python -m pytest --noconftest tests/test_torch_sharded_nccl.py -m cuda -q
 
@@ -71,6 +76,28 @@ def rank_paths(mesh, n: int, root: Path) -> dict:
         b_ids, b_d = back.search(Y)
         out[f"{name}_same"] = (torch.equal(a_ids, b_ids) and torch.equal(a_d, b_d)
                                and back.describe() == srv.describe())
+    # this rank's rows in bf16, the pad row last on the last rank
+    per = -(-n // mesh.size)
+    lo = mesh.rank * per
+    rows = torch.zeros((per, D), dtype=torch.bfloat16)
+    real = max(0, min(per, n - lo))
+    rows[:real] = torch.from_numpy(X[lo: lo + real]).to(torch.bfloat16)
+    rows = rows.to(mesh.device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    srv = sv.ShardedServer.build(sh.LocalRows(rows, (per * mesh.size, D)), K, mesh=mesh,
+                                 mode="exact", storage_dtype=torch.bfloat16, n_true=n)
+    if on_card:
+        out["bf16_build_extra"] = torch.cuda.max_memory_allocated() - before
+    out["bf16_shard"] = rows.numel() * rows.element_size()
+    out["bf16_served_as_is"] = srv.points.data_ptr() == rows.data_ptr()
+    b_ids, b_d = srv.search(Y)
+    # the single-card search over the same bf16 rows, k + 1 to see the boundary
+    o_ids, o_d = exact_search(torch.from_numpy(X).to(torch.bfloat16).to(mesh.device), Y, K + 1)
+    out["bf16_agrees"] = ids_agree(b_ids.cpu(), o_ids[:, :K].cpu(), o_d.cpu())[0]
+    out["bf16_max_id"] = int(b_ids.max())
     return out
 
 
@@ -116,6 +143,9 @@ def check(res: list[dict], on_card: bool, n: int) -> None:
             if on_card:
                 bound = (r[f"{name}_largest"] if r["rank"] == 0 else 0) + SLACK
                 assert r[f"{name}_save_extra"] <= bound, (r["rank"], name, r)
+        assert r["bf16_served_as_is"] and r["bf16_agrees"] and r["bf16_max_id"] < n, r
+        if on_card:
+            assert r["bf16_build_extra"] <= r["bf16_shard"] + SLACK, r
 
 
 @pytest.mark.cuda

@@ -254,6 +254,60 @@ def test_add_points_ranges_are_spans():
     assert set(rows.values()) == {Y.shape[0]}
 
 
+@pytest.fixture
+def one_rank_mesh():
+    """A one-rank gloo group on an in-process store and its CPU mesh,
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from approximatenn_tpu_torch.parallel import multihost
+    from approximatenn_tpu_torch.parallel.sharded import make_mesh
+
+    multihost.initialize(backend="gloo", timeout=60)
+    try:
+        yield make_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_server_spans_nest_under_sharded_search(one_rank_mesh, monkeypatch):
+    """``sharded.build`` is the build's root; ``sharded.search`` the search's,
+    with the engine's span and ``sharded.merge`` as its children in one
+    request, its self time what they leave; no ``record_function`` while no
+    profiler records, ranges on the trace while one does."""
+    from approximatenn_tpu_torch.parallel.serving import ShardedServer
+
+    X, Y = _data()
+    srv = ShardedServer.build(X.to(torch.bfloat16), 5, mesh=one_rank_mesh, mode="exact",
+                              storage_dtype=torch.bfloat16)
+    assert [(r.name, r.parent, r.rows) for r in spans()] == [("sharded.build", None, X.shape[0])]
+    # the two-phase engine, which a card mesh routes to, forced on the CPU
+    srv._route_twophase = lambda *a, **kw: True
+    made = []
+    real = profiling.record_function
+    monkeypatch.setattr(profiling, "record_function", lambda name: made.append(name) or real(name))
+    reset_spans()
+    ids, dd = srv.search(Y)
+    recs = spans()
+    assert [(r.name, r.parent) for r in recs] == [
+        ("exact.twophase", "sharded.search"), ("sharded.merge", "sharded.search"),
+        ("sharded.search", None)]
+    assert {r.request for r in recs} == {recs[-1].request}
+    assert all(r.rows == Y.shape[0] for r in recs)
+    root = recs[-1]
+    assert root.self_ns == (root.end_ns - root.start_ns) - sum(
+        r.end_ns - r.start_ns for r in recs[:-1])
+    assert made == []
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ids1, dd1 = srv.search(Y)
+    assert made == ["sharded.search", "exact.twophase", "sharded.merge"]
+    assert {"sharded.search", "exact.twophase", "sharded.merge"} <= {e.name for e in prof.events()}
+    assert torch.equal(ids, ids1) and torch.equal(dd, dd1)
+
+
 @pytest.mark.cuda
 def test_the_engines_spans_on_the_card():
     if not torch.cuda.is_available():

@@ -111,6 +111,33 @@ def test_auto_seg_is_the_jax_formula(n):
     assert tp.auto_seg(n) & (tp.auto_seg(n) - 1) == 0
 
 
+@pytest.mark.parametrize("m, n, seg, want", [
+    (10_000, 10_000_000, 512, 10_000),  # the Deep-10M batch: one block
+    (10_000, 250_000_000, 512, 1_024),  # a Deep-1B shard: 128-query units
+    (7, 2**40, 8, 1),                   # not one unit fits: one query
+    (0, 1_000, 32, 1),
+])
+def test_query_block(m, n, seg, want):
+    assert tp.query_block(m, -(-n // seg)) == want
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_query_blocks_equal_one_block(monkeypatch, dt):
+    """The engine in several query blocks (the pair budget forced small;
+    the last block partial) returns the single block's answers bit for
+    bit, and counts one engine call."""
+    g = torch.Generator().manual_seed(8)
+    X = torch.randn(3001, 24, generator=g).to(dt)
+    Q = torch.randn(300, 24, generator=g)
+    one = tp.exact_knn_twophase(X, Q, 10, seg=16)
+    monkeypatch.setattr(tp, "BLOCK_PAIRS", -(-3001 // 16) * 128)
+    assert tp.query_block(300, -(-3001 // 16)) == 128
+    before = ex.launches["twophase_calls"]
+    blocked = tp.exact_knn_twophase(X, Q, 10, seg=16)
+    assert ex.launches["twophase_calls"] == before + 1
+    assert torch.equal(one[0], blocked[0]) and torch.equal(one[1], blocked[1])
+
+
 def test_segment_minima_plain_semantics(rng):
     """Segments are global and contiguous, the last one partial; the
     excluded id and exhausted picks mask out; ties go to the smaller id."""
@@ -451,3 +478,63 @@ def test_rescan_nan_and_inf_rows_on_card(dt):
         ids = _rescan_on_card(pts, q, starts, 64, k, n_splits=splits)
         assert not torch.isin(ids, bad.to(ids.dtype)).any(), (k, splits)
     _rescan_on_card(pts, q, starts, 64, None, n_splits=5)
+
+
+@pytest.mark.cuda
+def test_query_blocks_on_card(monkeypatch):
+    """On the card (the Hopper emit, bf16): the engine in query blocks of
+    128 equals the single block bit for bit and launches the emit once a
+    block."""
+    dev = _card()
+    g = torch.Generator().manual_seed(9)
+    X = torch.randn(300_001, 96, generator=g).to(dev, torch.bfloat16)
+    Q = torch.randn(1037, 96, generator=g).to(dev)
+    one = tp.exact_knn_twophase(X, Q, 10)
+    monkeypatch.setattr(tp, "BLOCK_PAIRS", -(-300_001 // tp.auto_seg(300_001)) * 128)
+    before = dict(ex.launches)
+    blocked = tp.exact_knn_twophase(X, Q, 10)
+    torch.cuda.synchronize()
+    assert ex.launches["twophase_emit"] - before["twophase_emit"] == 9
+    assert ex.launches["twophase_calls"] - before["twophase_calls"] == 1
+    assert torch.equal(one[0], blocked[0]) and torch.equal(one[1], blocked[1])
+
+
+@pytest.mark.cuda
+def test_engine_past_2_31_elements_on_card():
+    """A bf16 corpus of 24M x 96 rows, 2.3e9 elements (past 2**31, 4.6 GB):
+    the emit, the segment pick and the rescan against their plain
+    versions, on queries whose own rows lie before and past the 2**31-th
+    element, and the engine returning each query's own row first."""
+    dev = _card()
+    n, d, seg, k = 24_000_000, 96, 512, 10
+    assert n * d > 2**31
+    g = torch.Generator(device=dev).manual_seed(31)
+    pts = torch.randn((n, d), generator=g, device=dev, dtype=torch.bfloat16)
+    own = torch.tensor([5, 2**31 // d - 1, 2**31 // d + 1, 23_000_017, n - 1], device=dev)
+    q = pts[own].float() + 0.01 * torch.randn((own.numel(), d), generator=g, device=dev)
+    # emit: every (query, segment) minimum against the plain version
+    va, ia = tp.segment_minima(pts, q, seg)
+    vb, ib = tp.segment_minima_plain(pts, q, seg)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(va.cpu().numpy(), vb.cpu().numpy(), rtol=1e-5, atol=1e-3)
+    differ = torch.nonzero(ia != ib).tolist()
+    qk = q.to(torch.bfloat16).double()
+    for r, sg in differ[:50]:  # only where two rows of a segment near-tie
+        sa = (pts[ia[r, sg]].double() - qk[r]).pow(2).sum()
+        sb = (pts[ib[r, sg]].double() - qk[r]).pow(2).sum()
+        assert abs(float(sa - sb)) <= 1e-4 * abs(float(sb)) + 1e-3
+    assert torch.equal(ia[torch.arange(own.numel()), own // seg], own.int())
+    # the pick: the own row's segment first, the picked minima as the plain pick's
+    P = k + 2
+    sel, sd = tp.segment_merge(pts, q, P, seg)
+    _, qn, _ = ex._prepare(pts, q, None)
+    pd, pi = tp.smallest(vb + qn[:, None], ib, P)
+    assert torch.equal(sel[:, 0], own.int())
+    np.testing.assert_allclose(sd.cpu().numpy(), pd.cpu().numpy(), rtol=1e-5, atol=1e-3)
+    # the rescan over the picked windows, past 2**31 elements too
+    starts = (sel // seg * seg).int()
+    _rescan_on_card(pts, q, starts, seg, k)
+    ids, dd = tp.exact_knn_twophase(pts, q, k)
+    want = (pts[own].double() - qk).pow(2).sum(1)
+    assert torch.equal(ids[:, 0], own.int())
+    np.testing.assert_allclose(dd[:, 0].cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6)
