@@ -5,6 +5,8 @@
 // scores there.  The two-phase emit for bf16 / f16 corpora runs on it
 // (twophase_knn.cu:EmitSelectWG); it replaces no TPU kernel of its own (the
 // TPU kernel is _kernel_emit, whose other port is knn_tile.cuh's tile loop).
+// Its PTX helpers and tensor map also serve the float32 rank kernel's
+// pipeline (knn_wgmma_tf32.cuh).
 //
 // Why not the tile loop.  knn_tile.cuh's blocks take 32 queries, multiply
 // with mma.sync and hand every score through shared memory to warps that
@@ -476,17 +478,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of an (n, d) row-major corpus of 16-bit values: boxes of
-// {CHUNK features, ROWS rows}, 64-byte swizzle, zeros out of bounds.
+// The tensor map of an (n, d) row-major corpus of T (float32, bf16 or f16):
+// boxes of {box_cols features (64 bytes), box_rows rows}, 64-byte swizzle,
+// zeros out of bounds.
 template <typename T>
-cudaError_t corpus_map(CUtensorMap* map, const void* pts, int n, int d) {
+cudaError_t corpus_map(CUtensorMap* map, const void* pts, int n, int d,
+                       int box_cols = CHUNK, int box_rows = ROWS) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
   const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(T)};
-  const cuuint32_t box[2] = {CHUNK, ROWS};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUtensorMapDataType type = std::is_same<T, __nv_bfloat16>::value
+  const CUtensorMapDataType type = std::is_same<T, float>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : std::is_same<T, __nv_bfloat16>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   const CUresult r = fn(map, type, 2, const_cast<void*>(pts), dims, strides, box, elem,

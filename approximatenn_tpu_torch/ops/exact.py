@@ -34,6 +34,11 @@ card) or "default" (one pass of the factors rounded to bf16, as
 ``Precision.DEFAULT`` on the TPU); bf16, f16 and int8 streams ignore the
 tier (:func:`stream_tier`).  Norms are float32 at every tier.
 
+The rank kernel has two designs (:func:`rank_design`): the tile loop
+(``csrc/knn_tile.cuh``) and, for a float32 stream at "highest", the Hopper
+pipeline (``csrc/knn_wgmma_tf32.cuh``, :func:`rank_plan`), counted also
+under ``launches["exact_knn:wgmma"]``.
+
 ``exact_knn`` runs the kernel for a CUDA tensor and the plain version for
 a CPU tensor, never anything else: no fallback, no silent device move.
 """
@@ -81,7 +86,12 @@ _ENTRY_POINTS = {
     "exact_knn": {"exact_knn_launch": [_ci, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _ci, _ci,
                                        _ci, _ci, _vp, _vp, _vp, _vp, ctypes.c_float,
                                        _vp],
-                  "exact_knn_query_block": [], "exact_knn_tile_rows": []},
+                  "exact_knn_query_block": [], "exact_knn_tile_rows": [],
+                  "exact_knn_wgmma_launch": [_ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
+                                             _ci, _ci, _ci, _vp, _vp, _vp, _vp,
+                                             ctypes.c_float, _vp],
+                  "exact_knn_wgmma_query_block": [], "exact_knn_wgmma_tile_rows": [],
+                  "exact_knn_wgmma_max_k": [], "exact_knn_wgmma_smem": [_ci, _ci, _ci]},
     "twophase_knn": {
         "twophase_emit_launch": [_ci, _vp, _ci, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                  _ci, _vp, _vp, _vp],
@@ -110,14 +120,16 @@ _ENTRY_POINTS = {
 # tensor-core kernels also count their launches at the bf16 tiers of a
 # float32 stream under "<kernel>:split3" and "<kernel>:default" (the kernel's
 # own key counts every launch).  "twophase_emit:wgmma" counts the emit
-# launches of the Hopper pipeline (csrc/knn_wgmma.cuh) among "twophase_emit"'s.
-# "twophase_calls" counts calls of the two-phase engine
-# (ops/twophase.py:exact_knn_twophase), which launch the emit once a query
-# block (ops/twophase.py:query_block).
+# launches of the Hopper pipeline (csrc/knn_wgmma.cuh) among "twophase_emit"'s,
+# "exact_knn:wgmma" the rank launches of the float32 one
+# (csrc/knn_wgmma_tf32.cuh) among "exact_knn"'s.  "twophase_calls" counts
+# calls of the two-phase engine (ops/twophase.py:exact_knn_twophase), which
+# launch the emit once a query block (ops/twophase.py:query_block).
 TIERED = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_emit")
 launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0,
             "twophase_rescan_all": 0, "probe_topk": 0, "exact_knn_rescan": 0,
-            "exact_knn_stream": 0, "twophase_emit:wgmma": 0, "twophase_calls": 0,
+            "exact_knn_stream": 0, "twophase_emit:wgmma": 0, "exact_knn:wgmma": 0,
+            "twophase_calls": 0,
             **{f"{name}:{tier}": 0 for name in TIERED for tier in ("split3", "default")}}
 _libs: dict = {}
 
@@ -414,6 +426,113 @@ def gather_geometry(d: int, itemsize: int, ptr: int = 0, *,
     return v, lanes
 
 
+# The rank kernel on the Hopper pipeline (csrc/knn_wgmma_tf32.cuh with
+# exact_knn.cu:RankSelectWG): queries a work unit, corpus rows a tile,
+# features a ring item, the widest row and the largest k it takes, the
+# fewest and most ring slots, and the shared memory a block may use.
+# :func:`_check_rank_geometry` holds them to the built library.
+WG_RANK_QUERIES = 128
+WG_RANK_TILE_ROWS = 128
+WG_RANK_BOX = 16
+WG_RANK_MAX_D = 128
+WG_RANK_KMAX = 64
+WG_RANK_STAGES = (4, 12)
+SMEM_MAX = 232_448
+
+
+def rank_boxes_per_item(d: int) -> int:
+    """16-feature boxes a ring item of the Hopper rank kernel holds for rows
+    of width d (``knn_wgmma_tf32.cuh:boxes_per_item``): two where a tile's
+    boxes pair up, else one."""
+    return 1 if -(-d // WG_RANK_BOX) % 2 else 2
+
+
+def wgmma_rank_smem(stages: int, bpi: int, k: int) -> int:
+    """Bytes of shared memory of a Hopper rank block (``knn_wgmma_tf32.cuh:
+    smem_bytes``): alignment slack, ``stages`` ring slots of ``bpi`` hi and
+    ``bpi`` lo boxes (128 rows x 64 bytes each), a norm slice a slot, the
+    split's norm parts of two tiles (4 a row), three barriers a slot, the
+    128 queries' sorted lists of k (score, id) pairs."""
+    rows = WG_RANK_TILE_ROWS
+    return 1024 + stages * 2 * bpi * rows * 64 + stages * rows * 4 + 2 * rows * 4 * 4 \
+        + 3 * stages * 8 + WG_RANK_QUERIES * k * 8
+
+
+def rank_design(dtype: torch.dtype, tier: str, d: int, k: int, m: int) -> str:
+    """Which rank kernel serves m queries against a corpus streamed at
+    ``dtype`` and ``tier`` (:func:`stream_tier`) of width ``d`` at ``k``:
+    "wgmma" (the Hopper pipeline: TMA-fed ring, 3xTF32 on wgmma,
+    top-k read from the accumulators) for float32 at "highest" with rows
+    whose pitch is a multiple of 16 bytes (d a multiple of 4, TMA's stride
+    rule) up to :data:`WG_RANK_MAX_D` features, k up to
+    :data:`WG_RANK_KMAX` (the lists its shared memory holds beside the ring)
+    and more than one block of :data:`WG_RANK_QUERIES` queries; "tile" (the
+    tile loop of ``knn_tile.cuh``) for everything else: the bf16 tiers,
+    bf16, f16, int8, other d and k, and one query block, whose at most 32
+    work units (one a corpus split) leave most of the card idle
+    (``chip_smoke.py:rank_designs`` times both designs on each side of the
+    gate and fails where the routed one is slower)."""
+    if (dtype == torch.float32 and tier == "highest" and d % 4 == 0
+            and 4 <= d <= WG_RANK_MAX_D and 1 <= k <= WG_RANK_KMAX
+            and m > WG_RANK_QUERIES):
+        return "wgmma"
+    return "tile"
+
+
+def persistent_splits(n_qb: int, groups: int, sms: int,
+                      cap: int | None = None) -> tuple[int, float]:
+    """(splits, share of SM slots busy) of a persistent kernel's work units,
+    ``n_qb`` query blocks x splits of whole row groups (``groups`` of them),
+    on ``sms`` persistent blocks: the fewest splits (at most ``cap``) whose
+    units keep at least 15/16 of the SMs busy over their waves (units of one
+    split cost the same), else the count that keeps the most busy; counted
+    as the non-empty ones.  The Hopper emit's and the Hopper rank kernel's
+    plans."""
+    def busy(s):
+        units = n_qb * s
+        return units / (-(-units // sms) * sms)
+
+    best = 1
+    for s in range(1, min(groups, cap or groups) + 1):  # s = sms has busy 1 where groups >> sms
+        s_eff = -(-groups // -(-groups // s))  # as many as are non-empty
+        if busy(s_eff) > busy(best):
+            best = s_eff
+        if busy(best) >= 15 / 16:
+            break
+    return best, busy(best)
+
+
+def rank_plan(m: int, n: int, d: int, k: int, sms: int) -> dict:
+    """The Hopper rank kernel's launch for m queries against n rows of width
+    d at k on a card of ``sms`` SMs.  Work units are (block of 128 queries, corpus
+    split); a split takes whole 128-row tiles; the splits are
+    :func:`persistent_splits`' at most the split merge's 32.  The ring: the
+    deepest (in items of
+    :func:`rank_boxes_per_item` boxes) that fits beside the lists of k.
+    Returns {"splits", "split_rows", "units", "blocks", "stages", "busy"}."""
+    groups = -(-n // WG_RANK_TILE_ROWS)
+    n_qb = -(-m // WG_RANK_QUERIES)
+    bpi = rank_boxes_per_item(d)
+    stages = max((s for s in range(WG_RANK_STAGES[0], WG_RANK_STAGES[1] + 1)
+                  if wgmma_rank_smem(s, bpi, k) <= SMEM_MAX), default=0)
+    if not stages:
+        raise ValueError(f"no Hopper rank ring fits k = {k}")
+    best, busy = persistent_splits(n_qb, groups, sms, _MAX_SPLITS)
+    per = -(-groups // best) * WG_RANK_TILE_ROWS
+    units = n_qb * best
+    return {"splits": best, "split_rows": per, "units": units, "blocks": min(units, sms),
+            "stages": stages, "busy": busy}
+
+
+def _check_rank_geometry(lib) -> None:
+    """The built library's Hopper rank geometry is the planner's."""
+    got = (lib.exact_knn_wgmma_query_block(), lib.exact_knn_wgmma_tile_rows(),
+           lib.exact_knn_wgmma_max_k(), lib.exact_knn_wgmma_smem(4, 2, 10))
+    want = (WG_RANK_QUERIES, WG_RANK_TILE_ROWS, WG_RANK_KMAX, wgmma_rank_smem(4, 2, 10))
+    if got != want:
+        raise RuntimeError(f"exact_knn's Hopper rank geometry {got} is not the planner's {want}")
+
+
 def tile_geometry(name: str) -> tuple[int, int]:
     """(queries per block, corpus rows per tile) of the rank kernel
     (``name="exact_knn"``), the rescan merge (``"rescan_merge_knn"``) or the
@@ -493,11 +612,11 @@ def _empty(k: int, dev):
 
 def _split_launch(name: str, key: str, pts, q, qn, pn, k: int, exclude, scale2, tier: str):
     """Launch the corpus-split kernel of library ``name``: the rank kernel
-    (``"exact_knn"``, ``pn`` None) or the rescan merge
-    (``"rescan_merge_knn"``, which takes the point norms ``pn`` after
-    ``qn``), at precision ``tier`` (:func:`stream_tier`); per (query block,
-    corpus split) a running top-k, then a merge of the splits' ascending
-    lists."""
+    (``"exact_knn"``, ``pn`` None; of :func:`rank_design`'s design) or the
+    rescan merge (``"rescan_merge_knn"``, which takes the point norms ``pn``
+    after ``qn``), at precision ``tier`` (:func:`stream_tier`); per (query
+    block, corpus split) a running top-k, then a merge of the splits'
+    ascending lists."""
     n, d = pts.shape
     m = q.shape[0]
     dev = pts.device
@@ -508,6 +627,8 @@ def _split_launch(name: str, key: str, pts, q, qn, pn, k: int, exclude, scale2, 
         pts = pts.clone()
     lib = _library(name)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if pn is None and rank_design(pts.dtype, tier, d, k, m) == "wgmma":
+        return _rank_wgmma(lib, pts, q, qn, k, exclude, scale2, sms)
     s = splits(m, n, sms, *tile_geometry(name))
     part_d = torch.empty((m, s, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((m, s, k), dtype=torch.int32, device=dev)
@@ -524,6 +645,33 @@ def _split_launch(name: str, key: str, pts, q, qn, pn, k: int, exclude, scale2, 
     if err != 0:
         raise launch_error(lib, key, err)
     count_launch(key, tier)
+    return out_i, out_d
+
+
+def _rank_wgmma(lib, pts, q, qn, k: int, exclude, scale2, sms: int):
+    """The rank kernel on the Hopper pipeline (:func:`rank_design` said
+    "wgmma"), launched as :func:`rank_plan` plans it, then the split merge;
+    counted under ``launches["exact_knn"]`` and ``["exact_knn:wgmma"]``."""
+    n, d = pts.shape
+    m = q.shape[0]
+    dev = pts.device
+    _check_rank_geometry(lib)
+    plan = rank_plan(m, n, d, k, sms)
+    s = plan["splits"]
+    part_d = torch.empty((m, s, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((m, s, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, k), dtype=itype, device=dev)
+    err = lib.exact_knn_wgmma_launch(
+        device_index(dev), pts.data_ptr(), q.data_ptr(),
+        exclude.data_ptr() if exclude is not None else None, qn.data_ptr(), n, d, m, k,
+        plan["split_rows"], s, plan["stages"], plan["blocks"], part_d.data_ptr(),
+        part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), scale2,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise launch_error(lib, "exact_knn", err)
+    count_launch("exact_knn", "highest")
+    launches["exact_knn:wgmma"] += 1
     return out_i, out_d
 
 

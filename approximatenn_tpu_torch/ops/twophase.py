@@ -32,9 +32,9 @@ import torch
 
 from ..config import itype
 from ..utils.profiling import span
-from .exact import (_DTYPE_CODE, KMAX, TIER_CODE, _check, _prepare, count_launch, device_index,
-                    dist_dot, gather_geometry, launch_error, launches, place, splits,
-                    stream_tier, tile_geometry, _library)
+from .exact import (_DTYPE_CODE, KMAX, SMEM_MAX, TIER_CODE, _check, _prepare, count_launch,
+                    device_index, dist_dot, gather_geometry, launch_error, launches,
+                    persistent_splits, place, splits, stream_tier, tile_geometry, _library)
 
 # At and above this corpus size exact serving takes the two-phase engine:
 # the smallest n from which two-phase / rank <= 1 in float32 there and at
@@ -131,15 +131,14 @@ def smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):
 
 # The Hopper emit (csrc/knn_wgmma.cuh with twophase_knn.cu:EmitSelectWG):
 # queries a work unit, corpus rows a ring stage, features a swizzled chunk,
-# the widest row it takes, the fewest and most ring stages, and the shared
-# memory a block may use.  ``segment_minima`` checks the first two and the
-# shared memory against the built library.
+# the widest row it takes and the fewest and most ring stages (the shared
+# memory a block may use is ``exact.SMEM_MAX``).  ``segment_minima`` checks
+# the first two and the shared memory against the built library.
 WG_QUERIES = 128
 WG_TILE_ROWS = 256
 WG_CHUNK = 32
 WG_MAX_D = 128
 WG_STAGES = (3, 8)
-SMEM_MAX = 232_448
 # segments staged a query (EmitSelectWG::SB), staging row stride SB + 1
 _WG_STATE = 2 * 64 * 17 * 8
 
@@ -171,11 +170,9 @@ def emit_plan(m: int, n: int, d: int, seg: int, sms: int) -> dict:
     """The Hopper emit's launch for m queries against n rows of width d at
     ``seg``-row segments on a card of ``sms`` SMs.  Work units are (block of
     128 queries, corpus split); a split takes whole groups of max(seg, 256)
-    rows, so a segment is never cut and every pair is written once.  The
-    splits: the fewest whose units keep at least 15/16 of the SMs busy over
-    the waves of ``sms`` persistent blocks (units of one split cost the
-    same), else the count that keeps the most busy; ``splits`` counts the
-    non-empty ones.  The ring: the deepest that fits (at most 8 stages).
+    rows, so a segment is never cut and every pair is written once; the
+    splits are :func:`~.exact.persistent_splits`'.  The ring: the deepest
+    that fits (at most 8 stages).
     Returns {"splits", "split_rows", "units", "blocks", "stages", "busy"}."""
     group = max(seg, WG_TILE_ROWS)
     groups = -(-n // group)
@@ -185,22 +182,11 @@ def emit_plan(m: int, n: int, d: int, seg: int, sms: int) -> dict:
                   if wgmma_smem(s, chunks) <= SMEM_MAX), default=0)
     if not stages:
         raise ValueError(f"no Hopper emit ring fits d = {d}")
-
-    def busy(s):
-        units = n_qb * s
-        return units / (-(-units // sms) * sms)
-
-    best = 1
-    for s in range(1, groups + 1):  # s = sms has busy 1 where groups >> sms
-        s_eff = -(-groups // -(-groups // s))  # as many as are non-empty
-        if busy(s_eff) > busy(best):
-            best = s_eff
-        if busy(best) >= 15 / 16:
-            break
+    best, busy = persistent_splits(n_qb, groups, sms)
     per = -(-groups // best) * group
     units = n_qb * best
     return {"splits": best, "split_rows": per, "units": units, "blocks": min(units, sms),
-            "stages": stages, "busy": busy(best)}
+            "stages": stages, "busy": busy}
 
 
 def segment_minima(points: torch.Tensor, queries: torch.Tensor, seg: int, *,

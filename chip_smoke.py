@@ -23,7 +23,10 @@ Phases, one line each, and a non-zero exit on the first failure:
    path's shapes and the degenerate ones.  Rank kernel: serving f32 and
    bf16; one exact-graph chunk of 65,536 corpus rows with ``exclude`` = own
    ids; k = 1, k = 128, k > n, k = n - 1 with exclusion, n not a tile
-   multiple, d = 96, bf16, f16, int8, m = 1.  Two-phase emit and rescan:
+   multiple, d = 96, bf16, f16, int8, m = 1; its two float32 designs at
+   "highest", the Hopper pipeline and the tile loop, timed side by side at
+   m = 1, 128, 256, the serving shape and the graph chunk, the design
+   ``exact_knn`` routes to never the slower (``rank_designs``).  Two-phase emit and rescan:
    the serving shape (1M x 128 f32, m = 1000, k = 10: seg = 128, P = 12),
    k = 64 and k = 126, emit-all at k = 256 and k = 1000, n = 20,011 x 96
    (partial last segment), segments of 32 and 512 rows, bf16, f16, int8,
@@ -1183,6 +1186,7 @@ def main() -> None:
     phase("kernel", f"time n={N} m={M} k=10: f32 kernel {kern_ms:.3f} ms "
                     f"plain {plain_ms:.3f} ms library topk {lib_ms:.3f} ms; bf16 "
                     f"kernel {kern_bf16_ms:.3f} ms plain {plain_bf16_ms:.3f} ms")
+    rank_designs(X, Y, chunk_excl, kern_ms, chunk_ms, smi)
 
     # two-phase kernels: the serving shape first (seg = auto_seg(1M) = 128)
     seg = tp.auto_seg(N)
@@ -2291,6 +2295,85 @@ def seg_min_scores(scores, seg: int):
 def at_scale_row(shape: str, ms, plain_ms, b, library_ms, err, **extra) -> dict:
     return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
             "bound_by": b[1], "library_ms": library_ms, "max_abs_err": err, **extra}
+
+
+def rank_designs(X, Y, chunk_excl, hopper_ms: float, hopper_chunk_ms: float, smi) -> None:
+    """The rank kernel's two float32 designs at "highest" (n x 128, k = 10)
+    side by side: the Hopper pipeline and the tile loop at m = 1 and 128
+    (one query block, where ``rank_design`` keeps the tile loop), 256, the
+    kernel table's m = 1000 and one 65,536-row graph chunk with ``exclude``
+    = own id (the last two Hopper times measured by the caller through
+    ``exact_knn``, which must have routed there).  The design the router
+    picks must not be the slower one at any of them, and the two designs'
+    ids agree outside near-ties."""
+    before = ex.launches["exact_knn:wgmma"]
+    ia, _ = ex.exact_knn(X, Y, 10)
+    if ex.launches["exact_knn:wgmma"] != before + 1:
+        raise AssertionError("the float32 rank kernel did not take the Hopper pipeline")
+    ms = {}
+    for m in (1, 128, 256):
+        qm = Y[:m].contiguous()
+        ms[m] = (cuda_ms(lambda: hopper_rank(X, qm, 10), reps=20),
+                 cuda_ms(lambda: tile_loop_rank(X, qm, 10), reps=20))
+    ms[M] = (hopper_ms, cuda_ms(lambda: tile_loop_rank(X, Y, 10), reps=10))
+    ms[GRAPH_CHUNK] = (hopper_chunk_ms,
+                       cuda_ms(lambda: tile_loop_rank(X, X[:GRAPH_CHUNK], 10, chunk_excl),
+                               reps=1, warmup=0))
+    ib, db = tile_loop_rank(X, Y, 11)
+    fence()
+    ok, _ = ids_agree(ia, ib[:, :10], db, rtol=1e-5)
+    if not ok:
+        raise AssertionError("the rank kernel's two designs disagree outside near-ties")
+    phase("kernel", f"rank designs n={N} k=10 (Hopper / tile loop, ms, routed *): "
+                    + ", ".join(f"m={m} {wg:.3f} / {tl:.3f}"
+                                + (" *H" if ex.rank_design(torch.float32, "highest", 128, 10, m)
+                                   == "wgmma" else " *T") for m, (wg, tl) in ms.items())
+                    + f"; 3xTF32 bound at m={M} {1e3 * 3 * 2.0 * M * N * 128 / PEAK_TF32:.3f} ms"
+                    + f"; card [{smi}]")
+    for m, (wg, tl) in ms.items():
+        hopper = ex.rank_design(torch.float32, "highest", 128, 10, m) == "wgmma"
+        if (wg if hopper else tl) > (tl if hopper else wg):
+            raise AssertionError(f"the rank kernel at m = {m} routes to the "
+                                 f"{'Hopper' if hopper else 'tile-loop'} design, the slower one "
+                                 f"({wg:.3f} ms Hopper, {tl:.3f} ms tile loop)")
+
+
+def hopper_rank(points, queries, k: int):
+    """The rank kernel on the Hopper pipeline (``ops/exact.py:_rank_wgmma``)
+    for a float32 corpus at "highest" whatever ``rank_design`` routes: how
+    ``rank_designs`` reads the side of the gate the router leaves to the
+    tile loop."""
+    q, qn, scale2 = ex._prepare(points, queries, None)
+    sms = torch.cuda.get_device_properties(points.device).multi_processor_count
+    return ex._rank_wgmma(ex._library("exact_knn"), points, q, qn, k, None, scale2, sms)
+
+
+def tile_loop_rank(points, queries, k: int, exclude=None):
+    """The rank kernel on the tile loop (``csrc/knn_tile.cuh``) for a float32
+    corpus at "highest" whatever ``rank_design`` routes:
+    ``exact_knn_launch`` at its grid, as ``_split_launch`` launched every
+    rank call before the Hopper pipeline served float32 "highest".
+    Returns (ids, distances)."""
+    n, d = points.shape
+    m = queries.shape[0]
+    dev = points.device
+    q, qn, scale2 = ex._prepare(points, queries, None)
+    lib = ex._library("exact_knn")
+    s = ex.splits(m, n, torch.cuda.get_device_properties(dev).multi_processor_count,
+                  *ex.tile_geometry("exact_knn"))
+    part_d = torch.empty((m, s, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((m, s, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
+    err = lib.exact_knn_launch(ex.device_index(dev), points.data_ptr(),
+                               ex._DTYPE_CODE[points.dtype], ex.TIER_CODE["highest"],
+                               q.data_ptr(), None if exclude is None else exclude.data_ptr(),
+                               qn.data_ptr(), n, d, m, k, s, part_d.data_ptr(),
+                               part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), scale2,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise ex.launch_error(lib, "exact_knn", err)
+    return out_i, out_d
 
 
 def tile_loop_emit(points, q, seg: int):

@@ -253,7 +253,16 @@ def test_kernel_matches_plain_on_card(dt, kernel):
             for k, e, cdt in kcases:
                 before = dict(ex.launches)
                 ia, da = ex.exact_knn(pts, qq, k, exclude=e, scale=scale, compute_dtype=cdt, **kw)
-                assert {name: c - before[name] for name, c in ex.launches.items() if c != before[name]} == {key: 1}
+                # the rank kernel's float32 calls at d = 96, k <= 64 and
+                # m = 300 take the Hopper design; everything else the tile loop
+                want = {key: 1}
+                if kernel == "rank" and ex.rank_design(ex.stream_dtype(pts.dtype, cdt), "highest",
+                                                       pts.shape[1], k, qq.shape[0]) == "wgmma":
+                    want["exact_knn:wgmma"] = 1
+                assert want.get("exact_knn:wgmma", 0) == (
+                    kernel == "rank" and dt == "f32" and cdt is None and pts.shape[1] == 96
+                    and k <= 64)
+                assert {name: c - before[name] for name, c in ex.launches.items() if c != before[name]} == want
                 ib, db = plain(pts, qq, k + 1, exclude=e, scale=scale, compute_dtype=cdt)
                 torch.cuda.synchronize()
                 assert_match(ia.cpu(), da.cpu(), ib[:, :k].cpu(), db.cpu(),
@@ -470,7 +479,7 @@ def test_stream_fragment_layout_on_card(dt, kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["rank", "rescan_merge", "stream", "twophase"])
+@pytest.mark.parametrize("kernel", ["rank", "rank_wgmma", "rescan_merge", "stream", "twophase"])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_nan_and_inf_rows_never_return_on_card(dt, kernel):
     """Rows holding a NaN or an infinite coordinate have NaN or +inf
@@ -481,29 +490,37 @@ def test_nan_and_inf_rows_never_return_on_card(dt, kernel):
     leave the rounds apart while the rest still shuffle with the whole warp
     (the card stops with an illegal instruction); the two-phase engine
     (``exact_knn_twophase``: emit, then the rescan) counts a NaN score as
-    +inf in its segment minima too."""
+    +inf in its segment minima too.  ``rank_wgmma`` is the rank kernel's
+    Hopper design (float32 only: its NaN and infinite values split into
+    NaN halves, so their scores are NaN and never candidates), at m = 200,
+    past the one query block that the router leaves to the tile loop."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    if kernel == "rank_wgmma" and dt != "f32":
+        pytest.skip("the Hopper rank kernel takes float32 corpora only")
     dev = torch.device("cuda")
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
     from approximatenn_tpu_torch.ops import twophase as tp
 
-    kw = {"rank": {}, "rescan_merge": {"merge": "rescan"}, "stream": {"stream": True},
-          "twophase": {}}[kernel]
+    kw = {"rank": {}, "rank_wgmma": {}, "rescan_merge": {"merge": "rescan"},
+          "stream": {"stream": True}, "twophase": {}}[kernel]
     fn = tp.exact_knn_twophase if kernel == "twophase" else ex.exact_knn
     g = torch.Generator().manual_seed(3)
     X = torch.randn(1000, 96, generator=g)
-    q = torch.randn(37, 96, generator=g).to(dev)
+    q = torch.randn(200 if kernel == "rank_wgmma" else 37, 96, generator=g).to(dev)
     bad = [5, 700, 701]
     far = X.clone()
     far[bad] = 1e18
     X[5, 17] = float("nan")
     X[700] = float("inf")
     X[701, 0] = -float("inf")
-    for k in (10, 128):
+    for k in ((10, 64) if kernel == "rank_wgmma" else (10, 128)):
+        wg = ex.launches["exact_knn:wgmma"]
         ia, da = fn(X.to(dev, tdt), q, k, **kw)
         ib, db = fn(far.to(dev, tdt), q, k, **kw)
         torch.cuda.synchronize()
+        if kernel == "rank_wgmma":
+            assert ex.launches["exact_knn:wgmma"] == wg + 2, k
         assert not torch.isin(ia, torch.tensor(bad, dtype=ia.dtype, device=dev)).any(), k
         assert torch.equal(ia, ib) and torch.equal(da, db), k
 
@@ -521,6 +538,130 @@ def test_plain_by_splits_is_the_plain_version_at_one_split(rng):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     c = ex.exact_knn_rescan_plain_by_splits(p, q, 10, 4, 128, exclude=e)
     assert_match(c[0], c[1], b[0], b[1])
+
+
+RANK_ROUTES = [
+    # (corpus dtype, tier, d, k, m, design)
+    ("f32", "highest", 128, 10, 129, "wgmma"),
+    ("f32", "highest", 128, 10, 10_000, "wgmma"),
+    ("f32", "highest", 96, 1, 65_536, "wgmma"),
+    ("f32", "highest", 32, 64, 129, "wgmma"),
+    ("f32", "highest", 4, 10, 10_000, "wgmma"),
+    ("f32", "highest", 128, 10, 128, "tile"),  # one query block
+    ("f32", "highest", 128, 10, 1, "tile"),
+    ("f32", "highest", 128, 65, 10_000, "tile"),  # past the lists' room
+    ("f32", "highest", 128, 128, 10_000, "tile"),
+    ("f32", "highest", 33, 10, 10_000, "tile"),  # TMA's 16-byte pitch
+    ("f32", "highest", 132, 10, 10_000, "tile"),  # past MAX_BOXES boxes
+    ("f32", "split3", 128, 10, 10_000, "tile"),
+    ("f32", "default", 128, 10, 10_000, "tile"),
+    ("bf16", "highest", 128, 10, 10_000, "tile"),
+    ("f16", "highest", 128, 10, 10_000, "tile"),
+    ("int8", "highest", 128, 10, 10_000, "tile"),
+]
+
+
+@pytest.mark.parametrize("route", RANK_ROUTES, ids=lambda r: "-".join(map(str, r)))
+def test_rank_design_routes(route):
+    """``rank_design``'s table: the Hopper rank kernel takes float32 at
+    "highest" with d a multiple of 4 up to 128, k up to 64 and more than one
+    block of 128 queries; every other type, tier, width, k and batch keeps
+    the tile loop."""
+    dt, tier, d, k, m, want = route
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16,
+             "int8": torch.int8}[dt]
+    assert ex.rank_design(dtype, tier, d, k, m) == want
+
+
+@pytest.mark.parametrize("shape", [(10_000, 1_000_000, 128, 10), (65_536, 1_000_000, 128, 10),
+                                   (16_960, 1_000_000, 128, 10), (1000, 1_000_000, 128, 10),
+                                   (129, 20_011, 96, 64), (300, 5003, 36, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_rank_plan_units(shape):
+    """The Hopper rank kernel's plan on a card of 132 SMs: the persistent
+    blocks' walk (block b takes units b, b + blocks, ...) meets every (query
+    block, split) exactly once; splits cut on whole 128-row tiles, at most
+    32 (the split merge's lists), none empty, together the corpus; the ring
+    the deepest that fits beside the lists of k.  At the two cells' shapes
+    (m = 10,000 and the graph chunk's 65,536 against 1M rows) the units fill
+    the card in whole waves (at least 15/16 of its SM slots busy)."""
+    m, n, d, k = shape
+    sms = 132
+    plan = ex.rank_plan(m, n, d, k, sms)
+    n_qb = -(-m // ex.WG_RANK_QUERIES)
+    s, per = plan["splits"], plan["split_rows"]
+    assert plan["units"] == n_qb * s and plan["blocks"] == min(plan["units"], sms)
+    walked = [(u % n_qb, u // n_qb) for b in range(plan["blocks"])
+              for u in range(b, plan["units"], plan["blocks"])]
+    assert sorted(walked) == [(qb, sp) for qb in range(n_qb) for sp in range(s)]
+    assert per % ex.WG_RANK_TILE_ROWS == 0 and 1 <= s <= 32
+    assert (s - 1) * per < n <= s * per
+    bpi = ex.rank_boxes_per_item(d)
+    st = plan["stages"]
+    assert ex.WG_RANK_STAGES[0] <= st <= ex.WG_RANK_STAGES[1]
+    assert ex.wgmma_rank_smem(st, bpi, k) <= ex.SMEM_MAX
+    assert st == ex.WG_RANK_STAGES[1] or ex.wgmma_rank_smem(st + 1, bpi, k) > ex.SMEM_MAX
+    busy = plan["units"] / (-(-plan["units"] // sms) * sms)
+    assert busy == pytest.approx(plan["busy"])
+    if m in (10_000, 65_536):
+        assert busy >= 15 / 16 and plan["blocks"] == sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 96, 32, 36, 33])
+def test_rank_wgmma_on_card(d):
+    """The rank kernel's Hopper design against the plain version at
+    "highest" and the float64 oracle, at d = 128, 96, 32 (whole pairs of
+    16-feature boxes), 36 (one-box ring items, the last box mostly past d)
+    and 33 (no TMA pitch: the router keeps the tile loop), on n = 20,011
+    rows (no multiple of a 128-row tile or of a split): k = 1, 10 and 64
+    (the lists' largest), m = 1,500 and 10,000 (neither a multiple of the
+    128-query block), and m = 1 and 127 (one query block, which the router
+    leaves to the tile loop), excluded ids, duplicated rows whose tie goes
+    to the smaller id, and ``launches["exact_knn:wgmma"]`` rising by one a
+    call exactly where ``rank_design`` says "wgmma"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    g = torch.Generator().manual_seed(d)
+    dev = torch.device("cuda")
+    n = 20_011
+    raw = torch.randn(n, d, generator=g)
+    raw[9000] = raw[17]
+    raw[15000] = raw[17]
+    p = raw.to(dev)
+    q = torch.randn(10_000, d, generator=g).to(dev)
+    q[0] = p[17]  # sits on three equal rows: 17, 9000, 15000
+    excl = torch.randint(0, n, (10_000,), generator=g, dtype=torch.int32).to(dev)
+    excl[0] = -1
+    for k in (1, 10, 64):
+        for m, e in ((1500, None), (1500, excl), (10_000, excl), (127, excl), (1, None)):
+            qq, ee = q[:m].contiguous(), None if e is None else e[:m].contiguous()
+            wg = d % 4 == 0 and m > 128
+            assert ex.rank_design(torch.float32, "highest", d, k, m) == ("wgmma" if wg else "tile")
+            before = dict(ex.launches)
+            ia, da = ex.exact_knn(p, qq, k, exclude=ee)
+            ran = {name: c - before[name] for name, c in ex.launches.items() if c != before[name]}
+            assert ran == ({"exact_knn": 1, "exact_knn:wgmma": 1} if wg
+                           else {"exact_knn": 1}), (k, m, ran)
+            ib, db = ex.exact_knn_plain(p, qq, k + 1, exclude=ee)
+            torch.cuda.synchronize()
+            # query 0 sits on a row: its distance 0 comes out of |q|^2 + (|x|^2
+            # - 2 q.x), a cancellation that leaves a few ulps of |q|^2 (one
+            # accumulator takes all three TF32 passes): held to |q|^2 there
+            assert_match(ia[1:].cpu(), da[1:].cpu(), ib[1:, :k].cpu(), db[1:].cpu())
+            assert torch.equal(ia[0], ib[0, :k])
+            assert float((da[0] - db[0, :k]).abs().max()) <= 1e-5 * float(qq[0].pow(2).sum())
+            # the float64 oracle: the k-th distance, and every id's distance
+            x64, q64 = p.double(), qq.double()
+            d64 = torch.cdist(q64, x64).pow(2)
+            if ee is not None:
+                d64[torch.arange(m, device=dev), ee.long()] = float("inf")
+            kth = torch.topk(d64, k, largest=False).values[:, -1]
+            got = d64.gather(1, ia.long())
+            scale = q64.pow(2).sum(1, keepdim=True) + x64.pow(2).sum(1).median()
+            assert bool(((got - kth[:, None]) / scale <= 1e-5).all()), (k, m)
+            if k >= 3 and m > 1:
+                assert ia[0, :3].tolist() == [17, 9000, 15000], ia[0, :3]
 
 
 @pytest.mark.parametrize("shape", ["serving", "graph_chunk"])

@@ -330,7 +330,13 @@ def test_tier_kernel_matches_plain_on_card(kernel, tier):
                 differs |= not torch.equal(ia, ih)
             ran = {name: c - before[name] for name, c in ex.launches.items()
                    if c != before[name]}
-            assert ran == {key: 2, f"{key}:{tier}": 1}, ran
+            want = {key: 2, f"{key}:{tier}": 1}
+            # the rank kernel's "highest" call at d = 96, k = 10 (the one
+            # beside the tier's, for the comparison) takes the Hopper design
+            if kernel == "rank" and ex.rank_design(torch.float32, "highest", d, k,
+                                                   q.shape[0]) == "wgmma":
+                want["exact_knn:wgmma"] = 1
+            assert ran == want, ran
             if kernel == "emit":
                 # a 16-bit corpus has no tier: the emit computes what it does
                 # at "highest", on the Hopper pipeline at d = 96 (the tile
