@@ -3,14 +3,12 @@
 ``Server`` picks the engine for a corpus: **exact** or **hash** (the
 reference algorithm, over the padded tables with ``layout="table"`` or
 over the packed bucket-CSR view with ``layout="packed"``).
-``mode="auto"`` picks exact up to ``exact_max_n`` points and hash beyond.
-Exact mode on a CUDA corpus runs the JAX package's routing rule: the
-two-phase engine (emit + rescan kernels, ``ops/twophase.py``) from
-``twophase_min_n`` points (default ``TWOPHASE_MIN_N``, where this card's
-crossover puts it) when k + 2 <= 128, and for every k > 128 unless k is
-close to n; the rank kernel otherwise, or the rescan-merge or streaming
-kernel when a search pins ``merge``/``stream``.  On the CPU it
-runs the float oracle.  Packed hash serving on a CUDA view runs
+``mode="auto"`` picks exact up to ``exact_max_n`` points and hash beyond
+(:func:`serving_mode`).  Exact mode on a CUDA corpus runs the JAX
+package's routing rule, ``ops/twophase.py:route``: the two-phase engine
+(emit + rescan kernels) from ``twophase_min_n`` points when k + 2 <= 128
+and past k = 128, else the rank kernel family.  On the CPU it runs the
+float oracle.  Packed hash serving on a CUDA view runs
 ``search_packed_fused`` (the probe-window kernel) from ``fused_min_batch``
 queries (0: always, the JAX default on an accelerator), the plain
 ``search_packed`` otherwise and on the CPU.
@@ -30,9 +28,8 @@ import torch
 
 from ..config import default_device
 from ..ops.exact import KMAX, exact_kernel, exact_search, stream_dtype
-from ..ops.twophase import TWOPHASE_MIN_N
-from ..ops.twophase import TWOPHASE_ONLY_KW as _TWOPHASE_ONLY_KW
-from ..ops.twophase import exact_knn_twophase, route
+from ..ops.twophase import (TWOPHASE_MIN_N, big_k_route, exact_knn_twophase, route,
+                            takes_twophase)
 from ..utils.profiling import build_stage, span
 
 # the JAX package's defaults (see the module docstring)
@@ -47,6 +44,26 @@ def fused_min_batch(n: int) -> int:
     """Smallest batch that packed serving sends to the probe kernel for an
     n-point view: ``FUSED_MIN_BATCH`` at every n, as in the JAX package."""
     return FUSED_MIN_BATCH
+
+
+def default_exact_max_n(itemsize: int) -> int:
+    """Auto mode's default ``exact_max_n`` for stored rows of ``itemsize``
+    bytes a value: x2 for 2-byte rows, x4 for 1-byte rows."""
+    return EXACT_MAX_N_DEFAULT * {1: 4, 2: 2}.get(itemsize, 1)
+
+
+def serving_mode(mode: str, n: int, k: int, exact_max_n: int, quantized: bool) -> str:
+    """The mode of a server of n rows (a shard's on a mesh): "auto" is exact
+    for int8 and up to ``exact_max_n`` rows where k <= 128 or the big-k
+    route applies (the JAX rule), else hash; int8 is exact only."""
+    if mode == "auto":
+        fits = n <= exact_max_n and (k <= KMAX or big_k_route(n, k))
+        mode = "exact" if quantized or fits else "hash"
+    if mode not in ("exact", "hash"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if quantized and mode != "exact":
+        raise ValueError("storage_dtype=int8 serves the exact engine only; pass mode='exact'")
+    return mode
 
 
 def packed_route(n: int, batch: int, on_card: bool, min_batch: int | None = None) -> str:
@@ -81,7 +98,7 @@ class Server:
     twophase_min_n: int = TWOPHASE_MIN_N
     # packed serving's batch threshold for the probe kernel (None: default)
     fused_min_batch: int | None = None
-    # exact mode from twophase_min_n points with k + 2 <= 128 (set at build)
+    # exact mode's ops.twophase.takes_twophase at build
     _twophase: bool = False
 
     @classmethod
@@ -123,29 +140,16 @@ class Server:
                 points = points.to(storage_dtype)
             n = points.shape[0]
             if exact_max_n is None:
-                exact_max_n = EXACT_MAX_N_DEFAULT
-                if points.element_size() <= 2:
-                    exact_max_n *= 2
-                if points.element_size() == 1:
-                    exact_max_n *= 2
-            if mode == "auto":
-                # the JAX rule: k > 128 stays exact where the two-phase
-                # engine's big-k route applies
-                mode = ("exact" if quantized
-                        or (n <= exact_max_n and (k <= 128 or n >= 8 * (k + 2)))
-                        else "hash")
-            if mode not in ("exact", "hash"):
-                raise ValueError(f"unknown mode {mode!r}")
-            if quantized and mode != "exact":
-                raise ValueError("storage_dtype=int8 serves the exact engine only")
+                exact_max_n = default_exact_max_n(points.element_size())
+            mode = serving_mode(mode, n, k, exact_max_n, quantized)
             if metric != "l2" and not quantized:
                 points = prepare_points(points, metric)
             tp_min = TWOPHASE_MIN_N if twophase_min_n is None else twophase_min_n
             srv = cls(points=points, k=k, mode=mode, metric=metric,
                       n_probes=n_probes, scale=scale, twophase_min_n=tp_min,
                       fused_min_batch=fused_min_batch,
-                      _twophase=(mode == "exact" and n >= tp_min and k + 2 <= KMAX
-                                 and points.element_size() <= 4))
+                      _twophase=(mode == "exact"
+                                 and takes_twophase(n, k, points.element_size(), tp_min)))
             if mode == "hash":
                 from .build import build
 
@@ -200,8 +204,6 @@ class Server:
                 pts = self.points if self.points.element_size() <= 4 else self.points.float()
                 return exact_knn_twophase(pts, queries.float().contiguous(), k,
                                           scale=scale, **skw)
-            for key in _TWOPHASE_ONLY_KW:
-                skw.pop(key, None)
             # the Server made the routing decision: exact_search must not
             # re-make it with its own threshold
             return exact_search(self.points, queries, k, scale=scale,

@@ -997,8 +997,7 @@ def exact_search(points, queries, k: int, *, scale=None,
             return exact_knn_twophase(pk, q, k, scale=scale,
                                       matmul_precision=matmul_precision, **kw)
         if engine == "rank":
-            for key in TWOPHASE_ONLY_KW:
-                kw.pop(key, None)
+            kw = {key: v for key, v in kw.items() if key not in TWOPHASE_ONLY_KW}
             return exact_knn(pk, q, k, scale=scale,
                              matmul_precision=matmul_precision, **kw)
     from .distance import brute_force_knn

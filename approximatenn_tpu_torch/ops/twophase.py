@@ -36,13 +36,12 @@ from .exact import (_DTYPE_CODE, KMAX, SMEM_MAX, TIER_CODE, _check, _prepare, co
                     device_index, dist_dot, gather_geometry, launch_error, launches,
                     persistent_splits, place, splits, stream_tier, tile_geometry, _library)
 
-# At and above this corpus size exact serving takes the two-phase engine:
-# the smallest n from which two-phase / rank <= 1 in float32 there and at
-# every larger n measured by chip_smoke.py's crossover phase (m = 1000,
-# k = 10).  On an NVIDIA H100 80GB HBM3 at 700 W the ratio was 1.14-1.54
-# from 250k to 4M rows (PERF.md), so no measured size qualifies and the
-# default is the exact engine's own limit, engine/serving.py's
-# EXACT_MAX_N_DEFAULT; nothing above 4M rows was measured.
+# From this corpus size exact serving takes the two-phase engine, for every
+# row type.  Two-phase / rank on an H100 (chip_smoke.py's crossover, m =
+# 1000, k = 10; PERF.md): float32 1.14-1.54 at 250k-4M rows and 1.10-1.12
+# at 8M-10M against the tile-loop rank kernel, so the threshold is the exact
+# engine's own limit (engine/serving.py:EXACT_MAX_N_DEFAULT); bf16 0.889 at
+# 250k down to 0.167 at 10M with the Hopper emit.  Per-type: ROADMAP.md P2.
 TWOPHASE_MIN_N = 8_000_000
 # keywords exact_knn_twophase takes; any other (merge, stream, compute_dtype)
 # pins exact_knn's kernel family: rank, rescan merge or stream
@@ -79,18 +78,25 @@ def big_k_route(n: int, k: int) -> bool:
     return KMAX < k < n and n >= 8 * (k + 2)
 
 
+def takes_twophase(n: int, k: int, itemsize: int = 4, min_n: int = TWOPHASE_MIN_N) -> bool:
+    """The build's half of :func:`route` for k <= 128 over n rows of
+    ``itemsize`` bytes (the servers' ``_twophase``, ``search_exact_sharded``'s
+    default): n >= ``min_n``, k + 2 <= 128, rows of at most 4 bytes."""
+    return n >= min_n and k + 2 <= KMAX and itemsize <= 4
+
+
 def route(n: int, k: int, kw, no_twophase: bool = False,
           min_n: int = TWOPHASE_MIN_N) -> str:
     """The engine an exact search runs on a CUDA corpus of n rows:
     "twophase", "rank" (:func:`~.exact.exact_knn`, whose ``merge`` and
     ``stream`` pick its kernel) or "brute" (``kw``: the extra keywords given;
     ``min_n``: the corpus size from which k <= 128 takes the two-phase
-    engine).  The one routing rule of ``exact_search`` and ``Server``."""
+    engine).  The one routing rule of ``exact_search``, ``Server`` and
+    ``ShardedServer``; ``no_twophase`` escapes :func:`takes_twophase` only."""
     tp_ok = set(kw) <= TWOPHASE_KW
     if k <= KMAX:
-        if n >= min_n and k + 2 <= KMAX and tp_ok and not no_twophase:
-            return "twophase"
-        return "rank"
+        tp = tp_ok and not no_twophase and takes_twophase(n, k, min_n=min_n)
+        return "twophase" if tp else "rank"
     return "twophase" if tp_ok and big_k_route(n, k) else "brute"
 
 

@@ -6,18 +6,17 @@ tuner :func:`tune_sharded`, on the port's sharded layer (one rank a shard,
 ``ShardedServer`` applies the single-card ``Server``'s routing decisions
 per shard, as the JAX class does:
 
-- **engine**: exact or hash by the rank's slice size ``n_local`` (the
-  single-card ``exact_max_n``, doubled for each halving of the storage
-  type); ``auto`` keeps k > 128 exact where ``n_local >= 8 * (k + 2)``, the
-  single-card rule (the JAX class sends every k > 128 to hash,
-  its ``parallel/serving.py:138-140``);
+- **engine**: exact or hash by the rank's slice size ``n_local``, by the
+  single-card rule (``engine/serving.py:serving_mode``), which keeps k >
+  128 exact where ``n_local >= 8 * (k + 2)`` (the JAX class sends every k
+  > 128 to hash, its ``parallel/serving.py:138-140``);
 - **storage tiers**: bf16/f16 rows, or int8 with ONE global scale (the max
   over every rank, one all-reduce), so quantized distances compare across
   shards and the merge is unchanged;
-- **two-phase exact**: each shard rides the emit + rescan engine from
-  ``twophase_min_n`` rows a shard (k + 2 <= 128) on a CUDA mesh, the rank
-  kernel otherwise and on a CPU mesh (as the single-card ``Server`` runs
-  the oracle on the CPU).  The corpus keeps width d: the JAX class's
+- **two-phase exact**: each shard takes the single-card route
+  (``ops/twophase.py:route``) on a CUDA mesh, the rank route on a CPU mesh
+  (as the single-card ``Server`` runs the oracle on the CPU).  The corpus
+  keeps width d: the JAX class's
   128-lane padding is TPU layout and is not ported;
 - **packed hash serving**: the probe kernel (``search_packed_fused_sharded``)
   on a CUDA mesh from ``fused_min_batch`` queries, the plain packed search
@@ -39,12 +38,12 @@ import numpy as np
 import torch
 
 from ..data.preprocess import prepare_points
-from ..engine.serving import EXACT_MAX_N_DEFAULT, packed_route
+from ..engine.serving import default_exact_max_n, packed_route, serving_mode
 from ..engine.tuning import _TIER_DTYPES, Trial, _measure_qps, _sample_queries
 from ..harness.scoring import recall_at_k
 from ..index import _stash, _unstash
 from ..ops.exact import KMAX, abs_max, check_tpu_knobs, quantize_corpus
-from ..ops.twophase import TWOPHASE_MIN_N, TWOPHASE_ONLY_KW
+from ..ops.twophase import TWOPHASE_MIN_N, route, takes_twophase
 from ..utils.profiling import span
 from .checkpoint import (_check_format, _check_one_host, _dtype_name, _read_scale,
                          _write_files, load_sharded_index, load_sharded_packed,
@@ -107,23 +106,9 @@ class ShardedServer:
             s = mesh.size
             n, d = points.shape
             n_local = -(-n // s)
-            if exact_max_n is None:
-                exact_max_n = EXACT_MAX_N_DEFAULT
-                size = 4 if storage_dtype is None else storage_dtype.itemsize
-                if size <= 2:
-                    exact_max_n *= 2
-                if size == 1:
-                    exact_max_n *= 2
-            quantized = storage_dtype == torch.int8
-            if mode == "auto":
-                mode = ("exact" if quantized or (n_local <= exact_max_n
-                                                 and (k <= KMAX or n_local >= 8 * (k + 2)))
-                        else "hash")
-            if mode not in ("exact", "hash"):
-                raise ValueError(f"unknown mode {mode!r}")
-            if quantized and mode != "exact":
-                raise ValueError("storage_dtype=int8 serves the exact engine only (as on one "
-                                 "card); pass mode='exact'")
+            if exact_max_n is None:  # rows are stored as float32 unless storage_dtype
+                exact_max_n = default_exact_max_n((storage_dtype or torch.float32).itemsize)
+            mode = serving_mode(mode, n_local, k, exact_max_n, storage_dtype == torch.int8)
             if n_true is not None and (mode != "exact" or not n - s < n_true <= n):
                 raise ValueError(f"n_true={n_true}: the real row count of an exact corpus of "
                                  f"{n} rows padded to {s} shards")
@@ -143,17 +128,22 @@ class ShardedServer:
             pts, srv.scale = _stored_shard(_shard_points(points, mesh), mesh, metric,
                                            storage_dtype)
             tp_min = TWOPHASE_MIN_N if twophase_min_n is None else twophase_min_n
-            srv._twophase = n_local >= tp_min and k + 2 <= KMAX and pts.element_size() <= 4
+            srv._twophase = takes_twophase(n_local, k, pts.element_size(), tp_min)
             srv.points = pts
             return srv
 
     def _route_twophase(self, k: int, no_twophase: bool = False) -> bool:
         """Whether an exact search at ``k`` runs the per-shard two-phase
-        engine: the one predicate of ``search`` and ``describe``.  A CPU
-        mesh runs the rank route, as the single-card ``Server`` does; the
-        JAX class's "interpret or on the accelerator" is the CUDA mesh here."""
-        return (self.mode == "exact" and self._twophase and k + 2 <= KMAX
-                and not no_twophase and self.mesh.device.type == "cuda")
+        engine, for ``search`` and ``describe``: the single-card route on a
+        CUDA mesh (the JAX class's "interpret or on the accelerator"), over
+        this rank's slice, ``_twophase`` its size half, past k = 128 at the
+        local k that ``search_exact_sharded`` widens by the pad rows."""
+        if self.mode != "exact" or self.mesh.device.type != "cuda":
+            return False
+        n_local = self.points.shape[0]
+        if k > KMAX:
+            k = min(k + n_local * self.mesh.size - self.n, n_local)
+        return route(n_local, k, {}, no_twophase or not self._twophase, min_n=0) == "twophase"
 
     def search(self, queries, k: int | None = None, **kw):
         """k nearest neighbours per query row: (global ids (m, k) int32,
@@ -161,7 +151,7 @@ class ShardedServer:
         knobs: hash paths take ``n_probes`` / ``window`` / ``rerank_width`` /
         ``supercharge_rounds``; exact takes ``matmul_precision`` /
         ``no_twophase`` / ``scale`` and, on the two-phase route, ``seg`` /
-        ``pad_segments`` / ``rescan`` (dropped on the rank route).  The span
+        ``pad_segments`` / ``rescan`` (ignored on the rank route).  The span
         ``sharded.search`` is the root of the engine's spans and of the
         merge's (``sharded.merge``)."""
         with span("sharded.search", rows=len(queries)):
@@ -174,9 +164,6 @@ class ShardedServer:
             if self.mode == "exact":
                 queries = prepare_points(queries.float(), self.metric)
                 tp = self._route_twophase(k, bool(skw.pop("no_twophase", False)))
-                if not tp:
-                    for key in TWOPHASE_ONLY_KW:
-                        skw.pop(key, None)
                 scale = skw.pop("scale", self.scale)
                 corpus = LocalRows(self.points, (self.points.shape[0] * self.mesh.size,
                                                  self.points.shape[1]))
@@ -185,9 +172,9 @@ class ShardedServer:
             if self.spk is None:
                 return search_sharded(self.sidx, None, queries, mesh=self.mesh, **skw)
             window = skw.pop("window", None)
-            route = packed_route(self.sidx.n_local, queries.shape[0],
-                                 self.mesh.device.type == "cuda", self._fused_min_batch)
-            fn = search_packed_fused_sharded if route == "fused" else search_packed_sharded
+            path = packed_route(self.sidx.n_local, queries.shape[0],
+                                self.mesh.device.type == "cuda", self._fused_min_batch)
+            fn = search_packed_fused_sharded if path == "fused" else search_packed_sharded
             return fn(self.sidx, self.spk, None, queries, mesh=self.mesh, window=window, **skw)
 
     def save(self, path) -> None:
@@ -260,7 +247,9 @@ class ShardedServer:
         if self.mode == "exact":
             out["n_local"] = self.points.shape[0]
             out["storage_dtype"] = _dtype_name(self.points.dtype)
-            out["exact_engine"] = "twophase" if self._route_twophase(self.k) else "rank"
+            big_k = self.k > KMAX and self.mesh.device.type == "cuda"
+            out["exact_engine"] = ("twophase" if self._route_twophase(self.k)
+                                   else "oracle" if big_k else "rank")
             out["recall"] = 1.0 if self.points.element_size() >= 4 else None
         else:
             out["n_local"] = self.sidx.n_local

@@ -631,19 +631,17 @@ def search_exact_sharded(points, queries, k: int, *, mesh: Mesh,
     rows may sit on the last shard, so the local k widens by the pad
     count, ``kk = min(k + n_local * S - n, n_local)``; ``n_true`` is the
     real row count of a corpus the caller padded already.  Per rank:
-    ``exact_knn_twophase`` (emit and rescan kernels) when ``twophase`` is
-    set, or when it is None on a card at
-    ``n_local >= TWOPHASE_MIN_N`` with kk + 2 <= 128; ``exact_search``
-    (the rank kernel up to k = 128) otherwise.  ``seg``, ``pad_segments``
-    and ``rescan`` reach ``exact_knn_twophase`` on the two-phase route and
-    are ignored on the rank route (the JAX ``ShardedServer.search``
-    forwards them to a function without them, its
+    ``exact_knn_twophase`` when ``twophase`` is set (None: on a card where
+    ``takes_twophase(n_local, kk)``), else ``exact_search`` routed as on
+    one card with ``no_twophase``.  ``seg``, ``pad_segments`` and ``rescan``
+    reach the two-phase engine wherever it runs (the JAX
+    ``ShardedServer.search`` forwards them to a function without them, its
     ``parallel/serving.py:225-235``; here they are taken).  ``interpret`` and
     ``query_block`` raise ``ValueError``.  The JAX package's ``block`` (its
     CPU oracle's query block) is not taken: the port's oracle sizes its
     own."""
-    from ..ops.exact import KMAX, check_tpu_knobs, exact_search
-    from ..ops.twophase import TWOPHASE_MIN_N, exact_knn_twophase
+    from ..ops.exact import check_tpu_knobs, exact_search
+    from ..ops.twophase import exact_knn_twophase, takes_twophase
 
     check_tpu_knobs({"query_block": query_block, "interpret": interpret})
     if not isinstance(points, LocalRows):
@@ -659,16 +657,13 @@ def search_exact_sharded(points, queries, k: int, *, mesh: Mesh,
     q = q if f64 and q.dtype == torch.float64 else q.float()
     kk = min(k + (n_local * mesh.size - n), n_local)
     if twophase is None:
-        twophase = (mesh.device.type == "cuda" and n_local >= TWOPHASE_MIN_N
-                    and kk + 2 <= KMAX)
-    sc = scale if quant else None
+        twophase = mesh.device.type == "cuda" and takes_twophase(n_local, kk)
+    kw = dict(scale=scale if quant else None, matmul_precision=matmul_precision, seg=seg,
+              pad_segments=pad_segments, rescan=rescan)
     if twophase and not f64:
-        ids_l, dd = exact_knn_twophase(local, q.contiguous(), kk, scale=sc, seg=seg,
-                                       pad_segments=pad_segments, rescan=rescan,
-                                       matmul_precision=matmul_precision)
+        ids_l, dd = exact_knn_twophase(local, q.contiguous(), kk, **kw)
     else:
-        ids_l, dd = exact_search(local, q, kk, scale=sc, matmul_precision=matmul_precision,
-                                 no_twophase=True)
+        ids_l, dd = exact_search(local, q, kk, no_twophase=True, **kw)
     return _merge(mesh, ids_l, dd, n_local, n, k)
 
 

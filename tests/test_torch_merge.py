@@ -5,7 +5,8 @@ tests/test_pallas.py runs them, at that file's shapes; ``compute_dtype``
 on an f32 corpus for all three merges (the rank kernel takes norms of the
 rounded corpus, the other two of the unrounded one); and the routing of
 the merge/stream/compute_dtype knobs through ``exact_search``,
-``exact_knn_self`` and ``Server``.  The CUDA kernels are held against these
+``exact_knn_self`` and ``Server`` (their route is in
+tests/test_torch_routing.py's table).  The CUDA kernels are held against these
 plain versions on a card by the ``cuda``-marked test in
 tests/test_torch_exact.py.
 
@@ -24,7 +25,6 @@ import torch
 
 import approximatenn_tpu_torch as tann
 from approximatenn_tpu_torch.ops import exact as ex
-from approximatenn_tpu_torch.ops import twophase as tp
 
 torch.set_num_threads(1)
 
@@ -187,22 +187,6 @@ def test_knob_checks():
     assert ex.stream_dtype(torch.bfloat16) == torch.bfloat16
     assert ex.stream_dtype(torch.float64) == torch.float32
     assert ex.stream_dtype(torch.bfloat16, torch.float32) == torch.float32
-
-
-ROUTES = {
-    # name: (n, k, kw, no_twophase, engine on a CUDA corpus); at the
-    # two-phase threshold, where a pinned knob keeps the rank family
-    "merge_rescan": (tp.TWOPHASE_MIN_N, 10, {"merge": "rescan"}, False, "rank"),
-    "stream": (tp.TWOPHASE_MIN_N, 10, {"stream": True}, False, "rank"),
-    "compute_dtype": (tp.TWOPHASE_MIN_N, 10, {"compute_dtype": torch.bfloat16}, False, "rank"),
-    "rescan_big_k": (10_000, 200, {"merge": "rescan"}, False, "brute"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(ROUTES))
-def test_merge_knobs_route_to_the_rank_family(case):
-    n, k, kw, no_tp, want = ROUTES[case]
-    assert tp.route(n, k, kw, no_tp) == want
 
 
 def test_server_describes_the_pinned_kernel(rng):

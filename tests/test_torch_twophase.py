@@ -2,7 +2,8 @@
 package's ``exact_knn_pallas(merge="twophase")`` and ``exact_knn_twophase``
 (Pallas in interpret mode, as tests/test_pallas.py runs them) and the float
 oracle, on the CPU where the plain versions of the emit and rescan kernels
-run; plus the routing of ``exact_search`` and ``Server``.  The kernels
+run; plus ``Server``'s routing predicate (the decision table of every
+entry point is tests/test_torch_routing.py).  The kernels
 themselves are held against the plain versions on a card by the
 ``cuda``-marked test in tests/test_torch_exact.py, and the rescan's row
 scorer and split grid by this file's ``cuda``-marked tests:
@@ -249,28 +250,6 @@ def test_smallest_orders_by_distance_then_id():
     assert out_i.tolist() == [[8, 3, 7, 2, 9, 1, 2**31 - 1, 2**31 - 1]]
     assert out_d[0, :5].tolist() == [-2.0, 0.0, 0.0, 1.0, 1.0]
     assert torch.isinf(out_d[0, 5:]).all()
-
-
-MIN_N = tp.TWOPHASE_MIN_N  # the rule's threshold, whatever its value
-ROUTES = {
-    # name: (n, k, kw, no_twophase, engine on a CUDA corpus)
-    "small_n_rank": (MIN_N - 1, 10, {}, False, "rank"),
-    "large_n_twophase": (MIN_N, 10, {}, False, "twophase"),
-    "two_phase_knobs": (MIN_N, 10, {"seg": 64, "rescan": "xla"}, False, "twophase"),
-    "k_plus_2_over_128": (MIN_N, 127, {}, False, "rank"),
-    "no_twophase": (MIN_N, 10, {}, True, "rank"),
-    "rank_knob_pinned": (MIN_N, 10, {"merge": "rank"}, False, "rank"),
-    "big_k": (10_000, 200, {}, False, "twophase"),
-    "big_k_no_twophase": (10_000, 200, {}, True, "twophase"),
-    "big_k_near_n": (1_000, 200, {}, False, "brute"),
-    "big_k_rank_knob": (10_000, 200, {"merge": "rank"}, False, "brute"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(ROUTES))
-def test_exact_search_route(case):
-    n, k, kw, no_tp, want = ROUTES[case]
-    assert tp.route(n, k, kw, no_tp) == want
 
 
 def test_server_route_twophase_predicate(rng):
