@@ -105,7 +105,12 @@ _ENTRY_POINTS = {
         "twophase_emit_wgmma_smem": [_ci, _ci],
     },
     "probe_knn": {"probe_topk_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
-                                        _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp]},
+                                        _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
+                  "probe_tiles_workspace": [_ci] * 7,
+                  "probe_tiles_block": [_ci] * 6 + [ctypes.c_longlong],
+                  "probe_tiles_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
+                                         _ci, _ci, _ci, _vp, ctypes.c_longlong, _vp, _vp,
+                                         _vp]},
     "rescan_merge_knn": {"exact_knn_rescan_launch": [_ci, _vp, _ci, _ci, _vp, _vp, _vp, _vp,
                                                      _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp,
                                                      _vp, ctypes.c_float, _vp],
@@ -113,6 +118,10 @@ _ENTRY_POINTS = {
     "stream_knn": {"exact_knn_stream_launch": [_ci, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _ci,
                                                _ci, _ci, _ci, _vp, _vp, ctypes.c_float, _vp]},
 }
+
+# entry points that return something other than a CUDA error code
+_RESTYPES = {"probe_tiles_workspace": ctypes.c_longlong,
+             "probe_tiles_block": ctypes.c_longlong}
 
 # kernel launches through the wrappers, plain counts a run reads to show
 # that its main path went through the kernels (the two-phase rescan counts
@@ -122,14 +131,16 @@ _ENTRY_POINTS = {
 # own key counts every launch).  "twophase_emit:wgmma" counts the emit
 # launches of the Hopper pipeline (csrc/knn_wgmma.cuh) among "twophase_emit"'s,
 # "exact_knn:wgmma" the rank launches of the float32 one
-# (csrc/knn_wgmma_tf32.cuh) among "exact_knn"'s.  "twophase_calls" counts
+# (csrc/knn_wgmma_tf32.cuh) among "exact_knn"'s, "probe_topk:tiles" the
+# probe launches of its tile design (ops/probe.py:probe_design) among
+# "probe_topk"'s.  "twophase_calls" counts
 # calls of the two-phase engine (ops/twophase.py:exact_knn_twophase), which
 # launch the emit once a query block (ops/twophase.py:query_block).
 TIERED = ("exact_knn", "exact_knn_rescan", "exact_knn_stream", "twophase_emit")
 launches = {"exact_knn": 0, "twophase_emit": 0, "twophase_rescan": 0,
             "twophase_rescan_all": 0, "probe_topk": 0, "exact_knn_rescan": 0,
             "exact_knn_stream": 0, "twophase_emit:wgmma": 0, "exact_knn:wgmma": 0,
-            "twophase_calls": 0,
+            "twophase_calls": 0, "probe_topk:tiles": 0,
             **{f"{name}:{tier}": 0 for name in TIERED for tier in ("split3", "default")}}
 _libs: dict = {}
 
@@ -198,7 +209,7 @@ def _library(name: str):
         lib = ctypes.CDLL(str(build_libraries([name])[name]))
         for fn, argtypes in _ENTRY_POINTS[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _ci
+            getattr(lib, fn).restype = _RESTYPES.get(fn, _ci)
         err_fn = getattr(lib, f"{name}_error_string")
         err_fn.argtypes = [_ci]
         err_fn.restype = ctypes.c_char_p

@@ -19,7 +19,13 @@ alignment, but it decides which slots are candidates, so it is kept: the
 port returns the JAX package's ids.
 
 ``probe_topk`` runs the kernel for a CUDA tensor and the plain version
-for a CPU tensor, never anything else.
+for a CPU tensor, never anything else.  The kernel has two designs
+(:func:`probe_design` picks one a call; the header of ``probe_knn.cu``
+says how each works): "pairs", a (query, table) pair a unit of work, and
+"tiles", a 128-slot tile of a table's rows a unit of work, read once for
+every query that probes it and scored on the tensor cores as
+|x|^2 + |q|^2 - 2 q.x in fp32, which picks the candidates whose
+sum((x - q)^2) it returns.
 """
 
 from __future__ import annotations
@@ -35,6 +41,36 @@ _BLOCK_ELEMS = 64 << 20  # plain version: ~256 MB of float32 rows per query bloc
 # warps the kernel gives a (query, table) pair, 8 / this pairs a block
 # (PERF.md §6: the reading that chose it)
 WARPS_PER_PAIR = 2
+
+# The tile design (probe_knn.cu's tiles::): the widest row, the most
+# windows a pair, the fewest queries a call (PERF.md §6: the reading that
+# set it), the workspace a launch may take (queries past it go in further
+# launches)
+TILES_MAX_D = 256
+TILES_MAX_P = 1024
+TILES_MIN_M = 192
+TILES_WORKSPACE = 1 << 30
+
+
+def probe_design(dtype: torch.dtype, m: int, tries: int, P: int, d: int, k: int) -> str:
+    """Which probe kernel design serves m queries' P windows in each of
+    ``tries`` tables of rows of ``dtype`` and width d, at k: "tiles" for
+    bf16 and f16 rows of d a multiple of 8 (16-byte row copies) up to
+    :data:`TILES_MAX_D`, at most :data:`TILES_MAX_P` windows, k <= 128,
+    and at least :data:`TILES_MIN_M` queries, where the queries that share a
+    tile pay for reading it once; "pairs" for everything else: float32
+    rows, int8 rows (their queries are q / scale in fp32 and must not be
+    rounded to 16 bits), other widths and small batches (``chip_smoke.py:
+    probe_designs`` times both designs on each side of the gate and fails
+    where the routed one is slower).  ``tries`` does not enter: every table
+    sees the same m x P windows."""
+    return "tiles" if tiles_take(dtype, P, d, k) and m >= TILES_MIN_M else "pairs"
+
+
+def tiles_take(dtype: torch.dtype, P: int, d: int, k: int) -> bool:
+    """Whether the tile design takes these rows, windows and k at all."""
+    return (dtype in (torch.bfloat16, torch.float16) and d % 8 == 0
+            and 8 <= d <= TILES_MAX_D and 1 <= P <= TILES_MAX_P and 1 <= k <= KMAX)
 
 
 def prepare(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tensor, *,
@@ -54,17 +90,14 @@ def prepare(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tensor,
 
 
 def probe_topk(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tensor, *,
-               k: int, n: int, n_pad: int, window: int,
-               geometry: tuple[int, int] | None = None,
-               warps_per_pair: int = WARPS_PER_PAIR):
+               k: int, n: int, n_pad: int, window: int):
     """Per-table probe-window top-k (see the module docstring).
     ``pts_flat`` (tries * n_pad, d) f32/bf16/f16/int8 rows; ``queries`` (m,
     d) float (for int8 rows, q / scale); ``starts`` (m, tries, P) int32
     within [0, n_pad - window]; ``n`` the live bound; k <= 128 (the
-    kernel's selection width, a limit of this port).  ``geometry`` (the
-    row scorer's (V, G), :func:`~.exact.gather_geometry` by default)
-    and ``warps_per_pair`` (1, 2, 4 or 8) set the kernel's launch, for
-    readings; the result does not depend on them."""
+    kernel's selection width, a limit of this port).  On a card
+    :func:`probe_design` picks the kernel's design; rows off the 16-byte
+    grid, which the tile design copies in 16-byte units, stay on "pairs"."""
     if pts_flat.dim() != 2 or queries.dim() != 2 or starts.dim() != 3:
         raise ValueError("pts_flat and queries must be 2-D, starts 3-D")
     if pts_flat.dtype not in _DTYPE_CODE:
@@ -86,23 +119,83 @@ def probe_topk(pts_flat: torch.Tensor, queries: torch.Tensor, starts: torch.Tens
         raise ValueError(f"probe_topk runs on cuda or cpu, not {pts_flat.device}")
     if not pts_flat.is_contiguous():
         raise ValueError("pts_flat must be contiguous")
-    dev = pts_flat.device
-    if q.device != dev or starts.device != dev:
+    if q.device != pts_flat.device or starts.device != pts_flat.device:
         raise ValueError("queries and starts must live on the rows' device")
-    out_d = torch.empty((m, tries, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((m, tries, k), dtype=itype, device=dev)
+    if (probe_design(pts_flat.dtype, m, tries, P, d, k) == "tiles"
+            and pts_flat.data_ptr() % 16 == 0):
+        return _probe_tiles(pts_flat, q, starts, k=k, n=n, n_pad=n_pad, window=window)
+    return _probe_pairs(pts_flat, q, starts, k=k, n=n, n_pad=n_pad, window=window)
+
+
+def _outputs(m: int, tries: int, k: int, dev):
+    return (torch.empty((m, tries, k), dtype=itype, device=dev),
+            torch.empty((m, tries, k), dtype=torch.float32, device=dev))
+
+
+def _probe_pairs(pts_flat, q, starts, *, k: int, n: int, n_pad: int, window: int,
+                 geometry: tuple[int, int] | None = None,
+                 warps_per_pair: int = WARPS_PER_PAIR):
+    """The pair design's launch on :func:`prepare`'d inputs on a card,
+    counted under ``launches["probe_topk"]``: (slots, distances).
+    ``geometry`` (the row scorer's (V, G), :func:`~.exact.gather_geometry`
+    by default) and ``warps_per_pair`` (1, 2, 4 or 8) set the launch, for
+    readings; the result does not depend on them beyond the summation's
+    rounding."""
+    m, tries, P = starts.shape
+    d = pts_flat.shape[1]
+    out_i, out_d = _outputs(m, tries, k, pts_flat.device)
     if m == 0:
         return out_i, out_d
     lib = _library("probe_knn")
     vec, lanes = geometry or gather_geometry(d, pts_flat.element_size(), pts_flat.data_ptr())
     err = lib.probe_topk_launch(
-        device_index(dev), pts_flat.data_ptr(), _DTYPE_CODE[pts_flat.dtype], q.data_ptr(),
-        starts.data_ptr(), m, tries, P, d, n_pad, window, n, k, vec, lanes, warps_per_pair,
-        out_d.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        device_index(pts_flat.device), pts_flat.data_ptr(), _DTYPE_CODE[pts_flat.dtype],
+        q.data_ptr(), starts.data_ptr(), m, tries, P, d, n_pad, window, n, k, vec, lanes,
+        warps_per_pair, out_d.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(pts_flat.device).cuda_stream)
     if err != 0:
         raise launch_error(lib, "probe_topk", err)
     launches["probe_topk"] += 1
+    return out_i, out_d
+
+
+def _probe_tiles(pts_flat, q, starts, *, k: int, n: int, n_pad: int, window: int):
+    """The tile design's launches on :func:`prepare`'d inputs on a card, a
+    query block each (as many queries as ``probe_knn.cu:probe_tiles_block``
+    fits in :data:`TILES_WORKSPACE`; the hash cell's batch in one), each
+    counted under ``launches["probe_topk"]`` and ``["probe_topk:tiles"]``:
+    (slots, distances)."""
+    m, tries, P = starts.shape
+    d = pts_flat.shape[1]
+    if not tiles_take(pts_flat.dtype, P, d, k):
+        raise ValueError(f"the tile design takes bf16 / f16 rows of d a multiple of 8 up "
+                         f"to {TILES_MAX_D} and at most {TILES_MAX_P} windows, not "
+                         f"{pts_flat.dtype} d={d} P={P}")
+    dev = pts_flat.device
+    if dev.type != "cuda":
+        raise ValueError(f"the tile design runs on a card, not {dev}")
+    out_i, out_d = _outputs(m, tries, k, dev)
+    if m == 0:
+        return out_i, out_d
+    lib = _library("probe_knn")
+    q16 = q.to(pts_flat.dtype)  # exact: prepare() rounded them to this type
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    step = lib.probe_tiles_block(tries, P, d, n_pad, window, k, TILES_WORKSPACE)
+    if step < 1:
+        raise ValueError(f"the tile design does not take tries={tries} P={P} d={d} "
+                         f"n_pad={n_pad} window={window} k={k}")
+    for lo in range(0, m, step):
+        b = min(step, m - lo)
+        nbytes = lib.probe_tiles_workspace(b, tries, P, d, n_pad, window, k)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        err = lib.probe_tiles_launch(
+            device_index(dev), pts_flat.data_ptr(), _DTYPE_CODE[pts_flat.dtype],
+            q16[lo:].data_ptr(), starts[lo:].data_ptr(), b, tries, P, d, n_pad, window, n, k,
+            work.data_ptr(), nbytes, out_d[lo:].data_ptr(), out_i[lo:].data_ptr(), stream)
+        if err != 0:
+            raise launch_error(lib, "probe_topk (tiles)", err)
+        launches["probe_topk"] += 1
+        launches["probe_topk:tiles"] += 1
     return out_i, out_d
 
 

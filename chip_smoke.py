@@ -108,7 +108,10 @@ Phases, one line each, and a non-zero exit on the first failure:
    clusters) with queries drawn as the JAX package's stand-ins draw them;
    ``Server(mode="hash", layout="packed")`` with bf16 rows at window 96 and
    18 directed probes (the probe kernel, checked against its plain version
-   at that shape with k = 10 and 50), window 192 with ``rerank_width`` 50,
+   at that shape with k = 10 and 50; its two designs, ``probe_designs``,
+   timed side by side at m = 1000, 10,000 and on each side of the design
+   rule's batch gate, failing where the routed one is slower), window 192
+   with ``rerank_width`` 50,
    the f32 and int8 views; recall@10 against a float64 oracle (>= 0.75 at
    window 96, a gross-error guard), the card against the same search on
    the CPU on 50 queries; the sharded layer on that corpus (one NCCL
@@ -253,6 +256,7 @@ CPU_CHECK_QUERIES = 50
 # packed serving (the JAX package's fused SIFT-1M stand-in configuration)
 N_CLUSTERS = 10_000
 PACKED_WINDOW, PACKED_PROBES, RERANK = 96, 18, 50
+PROBE_DESIGN_M = 10_000  # the hash cell's batch, where the probe designs are compared
 # recall@10 at window 96: a gross-error guard.  This corpus (Zipf 1.2 over
 # 10,000 clusters, spread 4) puts most points in buckets far deeper than
 # 96 slots; the port's recall equals the JAX package's on a 100k prefix
@@ -936,8 +940,9 @@ def tier_server(X, k, srv_twophase, serve, results, read_counts, smi) -> None:
             serve(label, srv, name="precision", matmul_precision=tier, **kw)
             counts = read_counts(f"Server {name} matmul_precision={tier}",
                                  (key,) if tier == "highest" else (key, f"{key}:{tier}"))
-            stray = [c for c, v in counts.items() if ":" in c and v
-                     and c != f"{key}:{tier}"]
+            # tier counters (a design's counter, as "exact_knn:wgmma", is no tier)
+            stray = [c for c, v in counts.items() if c.rpartition(":")[2] in BF16_PASSES
+                     and v and c != f"{key}:{tier}"]
             if stray:
                 raise AssertionError(f"Server {name} matmul_precision={tier} launched {stray}")
             if tier == "split3" and results[label][2] != 1.0:
@@ -2902,10 +2907,12 @@ def packed_serving(seed: int, dev, read_counts):
                       f"w={PACKED_WINDOW} k=10 bf16", pv.point_rows, Yc, starts, k=10, **kw)
     check_probe(f"main shape k={RERANK}", pv.point_rows, Yc, starts, k=RERANK, **kw)
     kern_ms = cuda_ms(lambda: pr.probe_topk(pv.point_rows, Yc, starts, k=10, **kw), reps=20)
-    gather_sweep(f"probe bf16 n={N} m={M} tries=10 P={PACKED_PROBES} k=10 (warps a pair, G)",
-                 lambda geom, wpp: pr.probe_topk(pv.point_rows, Yc, starts, k=10, geometry=geom,
-                                                 warps_per_pair=wpp, **kw),
+    gather_sweep(f"probe bf16 n={N} m={M} tries=10 P={PACKED_PROBES} k=10 pair design "
+                 "(warps a pair, G)",
+                 lambda geom, wpp: pairs_probe(pv.point_rows, Yc, starts, k=10, geometry=geom,
+                                               warps_per_pair=wpp, **kw),
                  128, 2, extra=(1, 2, 4, 8))
+    probe_designs(pv, Xc, rng)
     q, st, w = pr.prepare(pv.point_rows, Yc, starts, n_pad=pv.n_pad, window=PACKED_WINDOW)
     plain_ms = cuda_ms(lambda: pr.probe_topk_plain(pv.point_rows, q, st, k=10, n=pv.live_bound,
                                                    n_pad=pv.n_pad, window=w), reps=3)
@@ -2931,6 +2938,71 @@ def packed_serving(seed: int, dev, read_counts):
                     f"{n_cmp} rows compared, ids equal outside near-ties ({n_tied} "
                     f"near-tie rows), distances rtol 1e-5")
     return srv, Yc, err, (kern_ms, plain_ms, None), b
+
+
+def probe_designs(pv, Xc, rng) -> None:
+    """The probe kernel's two designs at the main shape (bf16 rows, tries =
+    10, 18 probes, window 96, k = 10) side by side at m = 1000 (the kernel
+    table's), the hash cell's 10,000 and on each side of
+    ``TILES_MIN_M``, on queries drawn as the phase draws them, each time
+    the least of three rounds.  The design ``probe_design`` routes to must
+    not be the slower one at any of them, and the two designs' ids agree
+    outside near-ties at 10,000."""
+    sizes = sorted({pr.TILES_MIN_M // 2, pr.TILES_MIN_M, M, PROBE_DESIGN_M})
+    pick = torch.from_numpy(rng.integers(0, N, sizes[-1])).to(Xc.device)
+    noise = gaussian(rng, sizes[-1], 128).astype(np.float32)
+    Y = Xc[pick] + 0.1 * torch.from_numpy(noise).to(Xc.device)
+    starts = probe_starts(pv, Y, PACKED_PROBES, PACKED_WINDOW)
+    kw = dict(n=pv.live_bound, n_pad=pv.n_pad, window=PACKED_WINDOW)
+    rows = pv.point_rows
+    ia, _ = tiles_probe(rows, Y, starts, k=10, **kw)
+    ib, db = pairs_probe(rows, Y, starts, k=11, **kw)
+    fence()
+    ok, tied = ids_agree(ia.reshape(-1, 10).cpu(), ib[..., :10].reshape(-1, 10).cpu(),
+                         db.reshape(-1, 11).cpu(), rtol=1e-5)
+    if not ok:
+        raise AssertionError("the probe kernel's two designs disagree outside near-ties")
+    # the least of three rounds, the sizes and designs in turn: one round
+    # can meet the card's clocks still rising after the host's work
+    ms = {m: [float("inf")] * 2 for m in sizes}
+    for _ in range(3):
+        for m in sizes:
+            ym, sm = Y[:m].contiguous(), starts[:m].contiguous()
+            reps = 20 if m <= M else 10
+            for j, launch in enumerate((pairs_probe, tiles_probe)):
+                t = cuda_ms(lambda: launch(rows, ym, sm, k=10, **kw), reps=reps)
+                ms[m][j] = min(ms[m][j], t)
+    routed = {m: pr.probe_design(rows.dtype, m, pv.tries, PACKED_PROBES, 128, 10)
+              for m in sizes}
+    phase("kernel", f"probe designs n={N} bf16 tries=10 P={PACKED_PROBES} w={PACKED_WINDOW} "
+                    f"k=10 (pairs / tiles, ms, routed *): "
+                    + ", ".join(f"m={m} {a:.3f} / {b:.3f} *{routed[m][0].upper()}"
+                                for m, (a, b) in ms.items())
+                    + f"; ids agree at m={sizes[-1]} ({tied} near-tie rows)")
+    for m, times in ms.items():
+        mine = times[("pairs", "tiles").index(routed[m])]
+        if mine > min(times):
+            raise AssertionError(f"the probe kernel at m = {m} routes to the {routed[m]} "
+                                 f"design, the slower one ({times[0]:.3f} ms pairs, "
+                                 f"{times[1]:.3f} ms tiles)")
+
+
+def pairs_probe(rows, queries, starts, *, k: int, n: int, n_pad: int, window: int,
+                **launch):
+    """The probe kernel's pair design (``ops/probe.py:_probe_pairs``)
+    whatever ``probe_design`` routes, ``launch`` its geometry: how
+    ``probe_designs`` and the geometry sweep read it.  Returns (slots,
+    distances)."""
+    q, st, w = pr.prepare(rows, queries, starts, n_pad=n_pad, window=window)
+    return pr._probe_pairs(rows, q, st, k=k, n=n, n_pad=n_pad, window=w, **launch)
+
+
+def tiles_probe(rows, queries, starts, *, k: int, n: int, n_pad: int, window: int):
+    """The probe kernel's tile design (``ops/probe.py:_probe_tiles``)
+    whatever ``probe_design`` routes: how ``probe_designs`` reads the side
+    of the gate the rule leaves to the pair design."""
+    q, st, w = pr.prepare(rows, queries, starts, n_pad=n_pad, window=window)
+    return pr._probe_tiles(rows, q, st, k=k, n=n, n_pad=n_pad, window=w)
 
 
 def tune_phase(Xc, Yc, seed: int, read_counts) -> None:
